@@ -17,8 +17,10 @@ test-all:
 # checker (F401/F403/F811/E501/E711/E722/B006/W291/W605/F541...).
 # compileall stays as the syntax gate.
 lint:
-	$(PY) -m compileall -q raytracer_tpu tests bench.py __graft_entry__.py
+	$(PY) -m compileall -q raytracer_tpu raytracer_tpu_torch tests bench.py \
+	  __graft_entry__.py chip_smoke.py
 	$(PY) tools/lint.py
+	$(PY) tools/lint.py raytracer_tpu_torch chip_smoke.py
 
 native:
 	g++ -O3 -march=native -shared -fPIC -std=c++17 \
@@ -44,5 +46,6 @@ dryrun:
 ci: lint test render_ci
 
 clean:
-	rm -rf output .pytest_cache raytracer_tpu/native/librt_native.so
+	rm -rf output .pytest_cache raytracer_tpu/native/librt_native.so \
+	  raytracer_tpu_torch/_build
 	find . -name __pycache__ -type d -exec rm -rf {} +
