@@ -6,20 +6,28 @@ Phases, each of which raises on failure (exit code non-zero):
 
 1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
    no CUDA device is an error;
-2. build the fused-bounce kernel from ``raytracer_tpu_torch/csrc`` (nvcc);
-3. the kernel against its plain PyTorch version on the card, on the bounce
-   cases of ``tests/test_torch_bounce.py`` and on scene_500 at the main
-   path's width (800x600 = 480,000 lanes: camera rays, then a second
+2. build both kernels from ``raytracer_tpu_torch/csrc`` (one nvcc per
+   source, started together), with ptxas registers and spills;
+3. the bounce kernel against its plain PyTorch version on the card, on the
+   bounce cases of ``tests/test_torch_bounce.py`` and on scene_500 at the
+   main path's width (800x600 = 480,000 lanes: camera rays, then a second
    bounce fed from the first one's outputs), with the kernel's and the
    plain version's times;
-4. a 32x32 render of ``three_spheres`` on the card held to the Monte-Carlo
-   bands of ``tests/golden/three_spheres_32.npz``;
-5. the main path: ``data/scene_500.json`` at 800x600, 32 spp, depth 16,
-   Russian roulette off and on, through ``path_tracer.render``, with the
-   kernel's launch count over those two renders.
+4. the photon-query kernel against its plain version: the four cases of
+   ``tests/test_pallas_photon.py`` and both maps of one Cornell iteration
+   at 800x800 points / 500,000 photons, counts bit-equal, with both times;
+5. a 32x32 render of ``three_spheres`` and a 32x32 Cornell SPPM render on
+   the card, held to the Monte-Carlo bands of ``tests/golden/
+   three_spheres_32.npz`` and ``cornell_sppm_32.npz``;
+6. the path tracer's main path: ``data/scene_500.json`` at 800x600,
+   32 spp, depth 16, Russian roulette off and on, through
+   ``path_tracer.render``, with the bounce kernel's launch count;
+7. the SPPM path: Cornell with its mesh at 800x800, 500,000 photons per
+   iteration, 4 iterations, a 16-spp gather at depth 50, through
+   ``sppm.render``, with per-stage times and both kernels' launch counts.
 
 It imports no JAX. The line before the last is a JSON object with the
-kernel's launches, error and times; the last line is
+kernels' launches, errors and times; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -30,6 +38,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -42,6 +51,16 @@ INTER_AGREE = 0.999     # share of alive lanes whose interaction must agree
 RTOL = ATOL = 1e-4      # n, nd, att, emit (plus the propagated point term)
 P_TOL_REL = 1e-5        # p, no: atol = P_TOL_REL * scene.scale
 EDGE_ULPS = 64          # width of a sphere silhouette's decision edge
+DEV = "cuda"
+KERNELS = ("bounce", "photon_query")
+# photon query: flux |kernel - plain| <= Q_RTOL |plain| + Q_ATOL max|plain|.
+# Both sum non-negative float32 terms, in another order (the kernel one
+# photon at a time, the plain version by chunked matmuls); the kernel's
+# rsqrtf is within 2 ulp. Counts must be bit-equal.
+Q_RTOL, Q_ATOL = 1e-4, 1e-6
+PLAIN_STRIDE = 10       # the query timings take every 10th point tile
+SPPM_W = SPPM_H = 800
+SPPM_PHOTONS, SPPM_ITERS, SPPM_SPP, SPPM_DEPTH = 500_000, 4, 16, 50
 
 
 def log(msg):
@@ -68,11 +87,16 @@ def card() -> dict:
 def build() -> float:
     from raytracer_tpu_torch.kernels import build as kbuild
     t0 = time.perf_counter()
-    kbuild.load_library("bounce")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(kbuild.build, KERNELS))
+    for name in KERNELS:
+        kbuild.load_library(name)
     dt = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in kbuild.build_log("bounce").splitlines()
-             if "registers" in ln or "spill" in ln]
-    log(f"build: libbounce.so in {dt:.2f} s; " + " | ".join(ptxas))
+    for name in KERNELS:
+        ptxas = [ln.strip() for ln in kbuild.build_log(name).splitlines()
+                 if "registers" in ln or "spill" in ln]
+        log(f"build: lib{name}.so; " + " | ".join(ptxas))
+    log(f"build: {len(KERNELS)} libraries in {dt:.2f} s (in parallel)")
     return dt
 
 
@@ -225,7 +249,7 @@ def cuda_ms(fn, reps: int = 10) -> float:
 
 def check_kernel() -> dict:
     from raytracer_tpu_torch.ops import fused_bounce as fb
-    dev = torch.device("cuda")
+    dev = torch.device(DEV)
     log("kernel against its plain version on the card:")
     for seed, name in enumerate(("cornell_mesh", "scene_500",
                                  "three_spheres")):
@@ -270,6 +294,178 @@ def check_kernel() -> dict:
 
 # ------------------------------------------------------------------ phase 4
 
+def photon_case(seed, n_ph=3000, n_pts=300):
+    """tests/test_pallas_photon.py::make, in float32."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-1, 1, (n_ph, 3))
+    power = rng.uniform(0, 2, (n_ph, 3))
+    norm = rng.normal(size=(n_ph, 3))
+    norm /= np.linalg.norm(norm, axis=1, keepdims=True)
+    valid = rng.random(n_ph) < 0.8
+    points = rng.uniform(-1, 1, (n_pts, 3))
+    radius = rng.uniform(0.05, 0.3, n_pts)
+    return [torch.from_numpy(np.asarray(x, np.float32 if x.dtype != bool
+                                        else bool))
+            for x in (pos, power, norm, valid, points, radius)]
+
+
+def random_query_inputs(dev):
+    """The four cases of tests/test_pallas_photon.py as (name, planes,
+    points, r2, cap2) on the card: seed 2 queries the cell-sorted grid,
+    seed 3 has no valid photon, seed 1 has radius 0.9."""
+    from raytracer_tpu_torch.ops import photon_grid as pg
+    from raytracer_tpu_torch.ops import photon_query as pq
+    out = []
+    for seed in range(4):
+        if seed == 1:
+            pos, power, norm, valid, pts, _ = photon_case(1, 2000, 100)
+            radius, cap = torch.full((100,), 0.9), 0.9
+        elif seed == 3:
+            pos, power, norm, valid, pts, radius = photon_case(3, n_ph=500)
+            valid, cap = torch.zeros(500, dtype=torch.bool), 0.3
+        else:
+            pos, power, norm, valid, pts, radius = photon_case(seed)
+            cap = 0.35 if seed == 0 else 0.3
+        pos, power, norm, valid, pts, radius = (
+            x.to(dev) for x in (pos, power, norm, valid, pts, radius))
+        if seed == 2:
+            g = pg.build_grid(pos, power, norm, valid,
+                              torch.full((3,), -1.2, device=dev),
+                              torch.full((3,), 1.2, device=dev), (8, 8, 8))
+            valid = torch.arange(pos.shape[0], device=dev) < g.n_valid
+            pos, power, norm = g.pos, g.power, g.norm
+        planes = pq._pack_photons(pos, power, norm, valid)
+        cap2 = torch.full_like(radius, cap * cap)
+        out.append((f"random case {seed}", planes, pts, radius * radius,
+                    cap2))
+    return out
+
+
+def cornell_query_inputs(dev):
+    """The inputs the SPPM main path gives the query kernel in the first
+    iteration of a Cornell render at 800x800 / 500,000 photons (global and
+    caustic map), captured from ``query_planes`` during one
+    ``sppm_iteration``."""
+    from raytracer_tpu_torch.models import sppm
+    from raytracer_tpu_torch.ops import fused_bounce as fb
+    from raytracer_tpu_torch.ops import photon_query as pq
+    scene = load("cornell_mesh", 1.0).to(dev)
+    cfg = sppm_config(SPPM_SPP)
+    captured = []
+    real = pq.query_planes
+
+    def capture(planes, points, r2, cap2):
+        captured.append((planes, points, r2, cap2))
+        return real(planes, points, r2, cap2)
+
+    pq.query_planes = capture
+    try:
+        sppm.sppm_iteration(scene, fb.pack_tables(scene),
+                            sppm.init_state(SPPM_W * SPPM_H, dev), 0,
+                            **sppm.iteration_kwargs(scene, cfg))
+    finally:
+        pq.query_planes = real
+    torch.cuda.synchronize()
+    if len(captured) != 2:
+        raise AssertionError(f"one iteration made {len(captured)} queries")
+    return [(f"cornell {name} map", *args)
+            for name, args in zip(("global", "caustic"), captured)]
+
+
+def live_pairs(planes, points, r2, cap2) -> tuple:
+    """(live (tile, chunk) pairs, tiles, chunks below n_live): the kernel's
+    cull, per TILE points against every chunk below n_live, in plain
+    PyTorch. The ragged last tile is padded with copies of the last point,
+    which leaves its box and reach as they are."""
+    from raytracer_tpu_torch.ops import photon_query as pq
+    pad = -points.shape[0] % pq.TILE
+    tp = torch.cat([points, points[-1:].expand(pad, 3)]).reshape(
+        -1, pq.TILE, 3)
+    reach = torch.maximum(r2, cap2)
+    reach2 = torch.cat([reach, reach[-1:].expand(pad)]).reshape(
+        -1, pq.TILE).amax(1)
+    lo, hi = tp.amin(1), tp.amax(1)
+    k_live = -(-int(planes.n_live[0]) // pq.CHUNK)
+    clo, chi = planes.cull[0:3, :k_live], planes.cull[3:6, :k_live]
+    g = torch.clamp(torch.maximum(clo[None] - hi[:, :, None],
+                                  lo[:, :, None] - chi[None]), min=0.0)
+    g2 = g * g
+    near = ((g2[:, 0] + g2[:, 1]) + g2[:, 2]) <= reach2[:, None]
+    return int(near.sum()), tp.shape[0], k_live
+
+
+def compare_query(name, out, ref) -> float:
+    """Counts bit-equal; flux within Q_RTOL/Q_ATOL. Returns the largest
+    absolute flux difference."""
+    err = 0.0
+    for c in ("count_r", "count_cap"):
+        a, b = getattr(out, c), getattr(ref, c)
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"{name}: {c} differs on {int((a != b).sum())} points")
+    for c in ("flux_r", "flux_cap"):
+        a, b = getattr(out, c).double(), getattr(ref, c).double()
+        diff = (a - b).abs()
+        lim = Q_RTOL * b.abs() + Q_ATOL * b.abs().max().clamp(min=1e-30)
+        if (diff > lim).any():
+            raise AssertionError(f"{name}: {c} beyond tolerance on "
+                                 f"{int((diff > lim).any(1).sum())} points")
+        err = max(err, float(diff.max()))
+        rel = float((diff / b.abs().clamp(min=1e-30)).max())
+        log(f"  {name} {c}: max |diff| {float(diff.max()):.6g}, max rel "
+            f"{rel:.3g}")
+    return err
+
+
+def check_query() -> dict:
+    from raytracer_tpu_torch.ops import photon_query as pq
+    dev = torch.device(DEV)
+    log("photon query kernel against its plain version on the card:")
+    err = 0.0
+    for name, planes, pts, r2, cap2 in random_query_inputs(dev):
+        out = pq.query_planes(planes, pts, r2, cap2)
+        torch.cuda.synchronize()
+        ref = pq.query_photons_plain(planes, pts, r2, cap2)
+        err = max(err, compare_query(name, out, ref))
+        log(f"  {name}: {pts.shape[0]} points, counts r "
+            f"{int(ref.count_r.sum())} cap {int(ref.count_cap.sum())}, "
+            "bit-equal")
+    stats = {}
+    for name, planes, pts, r2, cap2 in cornell_query_inputs(dev):
+        n = pts.shape[0]
+        live, tiles, k_live = live_pairs(planes, pts, r2, cap2)
+        log(f"  {name}: {n} points, {planes.posf.shape[1]} photon slots, "
+            f"n_live {int(planes.n_live[0])}; live (tile, chunk) pairs "
+            f"{live} of {tiles} tiles x {k_live} chunks "
+            f"({live / tiles:.2f} chunks per tile)")
+        out = pq.query_planes(planes, pts, r2, cap2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = pq.query_photons_plain(planes, pts, r2, cap2)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        err = max(err, compare_query(name, out, ref))
+        full_ms = cuda_ms(lambda: pq.query_planes(planes, pts, r2, cap2))
+        # timings on every PLAIN_STRIDE-th tile of TILE cell-sorted points:
+        # the kernel's tiles stay as they are on the whole image
+        keep = (torch.arange(n, device=dev) // pq.TILE) % PLAIN_STRIDE == 0
+        args = (planes, pts[keep].contiguous(), r2[keep].contiguous(),
+                cap2[keep].contiguous())
+        ms = cuda_ms(lambda: pq.query_planes(*args))
+        plain_ms = cuda_ms(lambda: pq.query_photons_plain(*args))
+        log(f"  {name}: counts bit-equal at {n} points (plain once: "
+            f"{plain_s:.4f} s); kernel {full_ms:.4f} ms at {n} points; on "
+            f"every {PLAIN_STRIDE}th tile ({int(keep.sum())} points) kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of 10 CUDA-event "
+            f"timings); counts r {int(out.count_r.sum())} cap "
+            f"{int(out.count_cap.sum())}")
+        if "global" in name:
+            stats = {"ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, **stats}
+
+
+# ------------------------------------------------------------------ phase 5
+
 def golden_band(golden: str, img: np.ndarray):
     """tests/test_golden.py::check_against in numpy: gamma-space mean
     within 5%, p95 |diff| < 0.30, mean |diff| < 0.08."""
@@ -293,11 +489,33 @@ def check_golden():
     from raytracer_tpu_torch.utils.config import RenderConfig
     cfg = RenderConfig(width=32, height=32, samples_per_pixel=64,
                        spp_chunk=8, max_depth=12)
-    img, _ = path_tracer.render(three_spheres(1.0), cfg, 7, device="cuda")
+    img, _ = path_tracer.render(three_spheres(1.0), cfg, 7, device=DEV)
     golden_band("three_spheres_32.npz", img.cpu().numpy())
 
 
-# ------------------------------------------------------------------ phase 5
+def sppm_config(spp: int, **sp):
+    from raytracer_tpu_torch.utils.config import RenderConfig, SPPMConfig
+    kw = dict(n_iterations=SPPM_ITERS, photons_per_iter=SPPM_PHOTONS,
+              max_photon_bounces=16, max_camera_bounces=SPPM_DEPTH)
+    kw.update(sp)
+    return RenderConfig(width=SPPM_W, height=SPPM_H, samples_per_pixel=spp,
+                        max_depth=SPPM_DEPTH, sppm=SPPMConfig(**kw))
+
+
+def check_golden_sppm():
+    """tests/test_golden.py::test_golden_cornell_sppm on the card."""
+    from raytracer_tpu_torch.models import sppm
+    from raytracer_tpu_torch.scene.builtin import cornell_box
+    cfg = sppm_config(32, n_iterations=4, photons_per_iter=20000,
+                      max_photon_bounces=8, max_camera_bounces=12,
+                      max_photons_per_cell=64)
+    cfg = cfg.replace(width=32, height=32, spp_chunk=8, max_depth=12)
+    img, _, _ = sppm.render(cornell_box(1.0, with_mesh=True), cfg, 7,
+                            device=DEV)
+    golden_band("cornell_sppm_32.npz", img.cpu().numpy())
+
+
+# ------------------------------------------------------------------ phase 6
 
 def main_path() -> int:
     """scene_500 at 800x600, 32 spp, depth 16, RR off then on. Returns the
@@ -316,13 +534,13 @@ def main_path() -> int:
                             spp_chunk=1, max_depth=DEPTH, t_min=T_MIN,
                             spawn_eps_rel=EPS_REL, russian_roulette=rr)
 
-    path_tracer.render(scene, cfg(1, True), 0, device="cuda")     # warm
+    path_tracer.render(scene, cfg(1, True), 0, device=DEV)     # warm
     torch.cuda.synchronize()
     fb.LAUNCHES = 0
     for rr in (False, True):
         before = fb.LAUNCHES
         t0 = time.perf_counter()
-        img, rays = path_tracer.render(scene, cfg(SPP, rr), 1, device="cuda")
+        img, rays = path_tracer.render(scene, cfg(SPP, rr), 1, device=DEV)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         host = img.cpu().numpy()
@@ -340,18 +558,74 @@ def main_path() -> int:
     return fb.LAUNCHES
 
 
+# ------------------------------------------------------------------ phase 7
+
+def sppm_path() -> dict:
+    """Cornell with its mesh at 800x800, 500,000 photons per iteration,
+    SPPM_ITERS iterations and a SPPM_SPP-spp gather at depth 50, through
+    ``sppm.render``. Returns both kernels' launches in that render."""
+    from raytracer_tpu_torch.models import sppm
+    from raytracer_tpu_torch.ops import fused_bounce as fb
+    from raytracer_tpu_torch.ops import photon_query as pq
+    from raytracer_tpu_torch.utils.image import save_render
+    scene = load("cornell_mesh", SPPM_W / SPPM_H)
+    times = {}
+    per_iter = []
+
+    def split(state):
+        done = dict(times)
+        prev = per_iter[-1][1] if per_iter else {}
+        per_iter.append(({k: v - prev.get(k, 0.0) for k, v in done.items()},
+                         done))
+
+    torch.cuda.synchronize()
+    fb.LAUNCHES = pq.LAUNCHES = 0
+    t0 = time.perf_counter()
+    img, rays, state = sppm.render(scene, sppm_config(SPPM_SPP), 0,
+                                   checkpoint_cb=split, device=DEV,
+                                   times=times)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"bounce": fb.LAUNCHES, "photon_query": pq.LAUNCHES}
+    for i, (split_s, _) in enumerate(per_iter):
+        log(f"sppm iteration {i}: {sum(split_s.values()):.4f} s = "
+            + ", ".join(f"{k} {v:.4f}" for k, v in split_s.items()))
+    host = img.cpu().numpy()
+    log(f"sppm path cornell {SPPM_W}x{SPPM_H}, {SPPM_PHOTONS} photons x "
+        f"{SPPM_ITERS} iterations, gather {SPPM_SPP} spp depth {SPPM_DEPTH}:"
+        f" {dt:.4f} s; gather {times['gather']:.4f} s, {rays} rays = "
+        f"{rays / times['gather'] / 1e6:.4f} Mrays/s; launches {launches}; "
+        f"image mean {host.mean():.6f}")
+    if not (np.isfinite(host).all() and host.mean() > 0):
+        raise AssertionError("SPPM image is not finite and positive")
+    if state.iteration != SPPM_ITERS or rays <= 0:
+        raise AssertionError("SPPM path did not run its iterations")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"SPPM path missed a kernel: {launches}")
+    save_render(os.path.join(ROOT, "output", "chip_smoke_sppm.png"), host)
+    return launches
+
+
 def main() -> int:
     device = card()
     sys.path.insert(0, ROOT)
     build()
     stats = check_kernel()
+    q_stats = check_query()
     check_golden()
-    launches = main_path()
-    kernel = {"name": "bounce", "route": "cuda",
-              "source": "raytracer_tpu_torch/csrc/bounce.cu",
-              "replaces": "raytracer_tpu/ops/pallas_intersect.py:1731",
-              "launches": launches, **stats}
-    print(json.dumps({"kernels": [kernel]}))
+    check_golden_sppm()
+    pt_launches = main_path()
+    sppm_launches = sppm_path()
+    kernels = [
+        {"name": "bounce", "route": "cuda",
+         "source": "raytracer_tpu_torch/csrc/bounce.cu",
+         "replaces": "raytracer_tpu/ops/pallas_intersect.py:1731",
+         "launches": pt_launches + sppm_launches["bounce"], **stats},
+        {"name": "photon_query", "route": "cuda",
+         "source": "raytracer_tpu_torch/csrc/photon_query.cu",
+         "replaces": "raytracer_tpu/ops/pallas_photon.py:82",
+         "launches": sppm_launches["photon_query"], **q_stats}]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

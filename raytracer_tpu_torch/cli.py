@@ -1,9 +1,12 @@
-"""Command-line entry point of the port: ``render --integrator pt`` on a chosen
-device (the counterpart of ``raytracer_tpu/cli.py``).
+"""Command-line entry point of the port: ``render --integrator pt|sppm`` on a
+chosen device (the counterpart of ``raytracer_tpu/cli.py``).
 
 Usage:
     python -m raytracer_tpu_torch render --scene data/scene_500.json \
         --width 800 --height 600 --spp 32 --max-depth 16 --device cuda
+    python -m raytracer_tpu_torch render --scene cornell --integrator sppm \
+        --width 800 --height 800 --spp 256 --device cuda \
+        --checkpoint output/sppm.npz
 
 The other integrators and flags of the JAX CLI are accepted by name so that
 a command written for it fails with a message naming the ROADMAP item that
@@ -22,8 +25,6 @@ UNPORTED = {
     "mis": "A6 (NEE and MIS)",
     "bvh": "A10 (large scenes)",
     "sharded": "A12 (multi-device)",
-    "checkpoint": "A13 (the rest of the CLI)",
-    "resume": "A13 (the rest of the CLI)",
     "preset": "A13 (the rest of the CLI)",
 }
 
@@ -36,13 +37,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="'cornell', 'spheres', 'field[:N]' (N-sphere field) "
                         "or a data/*.json|yaml path")
     r.add_argument("--integrator", choices=["pt", "sppm"], default="pt",
-                   help="only the path tracer is ported (SPPM: ROADMAP A11)")
+                   help="path tracer or SPPM (the reference's algorithm)")
     r.add_argument("--width", type=int, default=800)
     r.add_argument("--height", type=int, default=800)
     r.add_argument("--spp", type=int, default=256)
     r.add_argument("--spp-chunk", type=int, default=4)
     r.add_argument("--max-depth", type=int, default=50)
-    r.add_argument("--seed", type=int, default=0)
+    r.add_argument("--seed", type=int, default=None,
+                   help="seed (default 0; on --resume the checkpoint's "
+                        "stored seed wins unless --seed is given)")
     r.add_argument("--intersector", default="auto",
                    choices=["auto", "pallas", "bruteforce", "bvh", "leaf"])
     r.add_argument("--device", default="cuda",
@@ -52,9 +55,17 @@ def build_parser() -> argparse.ArgumentParser:
     for flag in ("nee", "mis", "bvh", "sharded"):
         r.add_argument(f"--{flag}", action="store_true",
                        help=f"not ported yet (ROADMAP {UNPORTED[flag]})")
-    for flag in ("checkpoint", "resume", "preset"):
-        r.add_argument(f"--{flag}", default=None,
-                       help=f"not ported yet (ROADMAP {UNPORTED[flag]})")
+    r.add_argument("--preset", default=None,
+                   help=f"not ported yet (ROADMAP {UNPORTED['preset']})")
+    # SPPM knobs (reference defaults, photon_mapper.rs:17-19,148-149)
+    r.add_argument("--sppm-iters", type=int, default=50)
+    r.add_argument("--sppm-photons", type=int, default=500_000)
+    r.add_argument("--sppm-alpha", type=float, default=0.7)
+    r.add_argument("--checkpoint", default=None,
+                   help="write the SPPM state here after every iteration")
+    r.add_argument("--resume", default=None,
+                   help="resume SPPM from a checkpoint file (either "
+                        "package's)")
     return p
 
 
@@ -74,10 +85,6 @@ def load_scene_arg(name: str, aspect: float):
 
 
 def cmd_render(args) -> int:
-    if args.integrator != "pt":
-        print(f"raytracer_tpu_torch: --integrator {args.integrator} is not "
-              "ported yet (ROADMAP A11, SPPM)", file=sys.stderr)
-        return 2
     for flag, item in UNPORTED.items():
         if getattr(args, flag):
             print(f"raytracer_tpu_torch: --{flag} is not ported yet "
@@ -86,20 +93,46 @@ def cmd_render(args) -> int:
 
     import torch
 
-    from raytracer_tpu_torch.models import path_tracer
-    from raytracer_tpu_torch.utils.config import RenderConfig
+    from raytracer_tpu_torch.models import path_tracer, sppm
+    from raytracer_tpu_torch.utils import checkpoint as ckpt
+    from raytracer_tpu_torch.utils.config import RenderConfig, SPPMConfig
     from raytracer_tpu_torch.utils.image import save_render
 
     cfg = RenderConfig(
         width=args.width, height=args.height, samples_per_pixel=args.spp,
-        spp_chunk=args.spp_chunk, max_depth=args.max_depth, seed=args.seed,
-        intersector=args.intersector, output=args.out)
+        spp_chunk=args.spp_chunk, max_depth=args.max_depth,
+        seed=args.seed if args.seed is not None else 0,
+        intersector=args.intersector, output=args.out,
+        sppm=SPPMConfig(n_iterations=args.sppm_iters,
+                        photons_per_iter=args.sppm_photons,
+                        alpha=args.sppm_alpha))
     t0 = time.perf_counter()
     scene = load_scene_arg(args.scene, cfg.width / cfg.height)
     t1 = time.perf_counter()
     try:
-        img, rays = path_tracer.render(scene, cfg, cfg.seed,
-                                       device=args.device)
+        if args.integrator == "sppm":
+            state = None
+            if args.resume:
+                # the stored seed reproduces the original random streams;
+                # an explicit --seed overrides it, with a warning
+                state, stored_seed = ckpt.load_state(args.resume)
+                if args.seed is None:
+                    cfg = cfg.replace(seed=stored_seed)
+                elif args.seed != stored_seed:
+                    print(f"warning: --seed {args.seed} != checkpoint seed "
+                          f"{stored_seed}; resumed render will not match the "
+                          "original", file=sys.stderr)
+                print(f"resumed from {args.resume} at iteration "
+                      f"{state.iteration}")
+            cb = None
+            if args.checkpoint:
+                def cb(s):
+                    ckpt.save_state(args.checkpoint, s, cfg.seed)
+            img, rays, _ = sppm.render(scene, cfg, cfg.seed, state=state,
+                                       checkpoint_cb=cb, device=args.device)
+        else:
+            img, rays = path_tracer.render(scene, cfg, cfg.seed,
+                                           device=args.device)
     except NotImplementedError as e:
         print(f"raytracer_tpu_torch: {e}", file=sys.stderr)
         return 2
@@ -107,9 +140,13 @@ def cmd_render(args) -> int:
         torch.cuda.synchronize(img.device)
     t2 = time.perf_counter()
     save_render(cfg.output, img)
-    print(f"scene build {t1 - t0:.3f} s; render {t2 - t1:.3f} s on "
-          f"{args.device}; {rays} rays ({rays / (t2 - t1) / 1e6:.2f} "
-          "Mrays/s)")
+    if args.integrator == "sppm":
+        print(f"scene build {t1 - t0:.3f} s; render {t2 - t1:.3f} s on "
+              f"{args.device}; {rays} rays in the final gather")
+    else:
+        print(f"scene build {t1 - t0:.3f} s; render {t2 - t1:.3f} s on "
+              f"{args.device}; {rays} rays ({rays / (t2 - t1) / 1e6:.2f} "
+              "Mrays/s)")
     print(f"wrote {cfg.output}")
     return 0
 

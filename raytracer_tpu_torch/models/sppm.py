@@ -1,0 +1,380 @@
+"""SPPM integrator: the reference's render algorithm (photon_mapper.rs), the
+PyTorch counterpart of ``raytracer_tpu/models/sppm.py`` on its SoA route.
+
+Each iteration: a regenerating photon pass and two photon maps (global and
+caustic, sorted uniform grids), a measurement pass (one jittered camera ray
+per pixel walks the specular chain to its first diffuse hit), both dense
+photon queries with the points cell-sorted, and the per-pixel update with
+the alpha radius shrink (photon_mapper.rs:49-63). Then a final gather adds
+the pixels' density estimates at the first diffuse hit of every camera
+path (photon_mapper.rs:326-365).
+
+The whole image is one iteration: the JAX package's pixel-blocked
+iteration exists because long TPU dispatches failed, and is not ported.
+
+Random streams: iteration i draws from generators seeded from (seed, i)
+and gather batch b from (seed, b), never from one generator carried
+across, so a render resumed from a saved state equals a straight one.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from raytracer_tpu_torch.models import wavefront_soa as wf
+from raytracer_tpu_torch.ops import photon_grid as pg
+from raytracer_tpu_torch.ops.fused_bounce import pack_tables, unported
+from raytracer_tpu_torch.ops.photon_query import query_photons
+from raytracer_tpu_torch.scene.types import Scene
+from raytracer_tpu_torch.utils.config import RenderConfig, SPPMConfig
+
+PI = 3.141592653589793
+PHOTON_T_MIN = 1e-4         # photon_mapper.rs:242
+# stream tags of ``_generator``
+_PHOTONS, _MEASURE, _GATHER = 1, 2, 3
+
+
+class SPPMHalf(NamedTuple):
+    """Per-pixel stats for one map (global or caustic). SPPM struct,
+    photon_mapper.rs:33-40."""
+    flux: torch.Tensor     # (npix, 3)
+    radius2: torch.Tensor  # (npix,)
+    photons: torch.Tensor  # (npix,) float (alpha makes it real)
+
+
+class SPPMState(NamedTuple):
+    glob: SPPMHalf
+    caustic: SPPMHalf
+    iteration: int         # iterations done
+
+
+def init_state(npix: int, device="cpu") -> SPPMState:
+    def half():
+        return SPPMHalf(torch.zeros((npix, 3), device=device),
+                        torch.zeros((npix,), device=device),
+                        torch.zeros((npix,), device=device))
+    return SPPMState(half(), half(), 0)
+
+
+def state_to(state: SPPMState, device) -> SPPMState:
+    return SPPMState(SPPMHalf(*(x.to(device) for x in state.glob)),
+                     SPPMHalf(*(x.to(device) for x in state.caustic)),
+                     int(state.iteration))
+
+
+def _generator(device, seed: int, stream: int, index: int) -> torch.Generator:
+    """A generator on ``device`` seeded from (seed, stream, index)."""
+    words = np.random.SeedSequence(
+        [int(seed) % 2 ** 64, stream, index]).generate_state(2, np.uint32)
+    gen = torch.Generator(device=device)
+    gen.manual_seed((int(words[0]) << 31) ^ int(words[1]))
+    return gen
+
+
+class _Stages:
+    """Per-stage host-clock seconds of one iteration, taken after a device
+    sync, when ``times`` is a dict; a no-op otherwise."""
+
+    def __init__(self, times: Optional[dict], device):
+        self.times, self.device = times, torch.device(device)
+        self.t = time.perf_counter()
+
+    def __call__(self, name: str):
+        if self.times is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.times[name] = self.times.get(name, 0.0) + now - self.t
+        self.t = now
+
+
+# ------------------------------------------------------------ photon maps
+
+def photon_maps(scene: Scene, tables, gen, *, n_photons: int,
+                max_photon_bounces: int, grid_res, spawn_eps, stage=None):
+    """Photon pass + both maps (``_photon_maps`` of the JAX package, SoA
+    route). The global map sorts every deposit slot; a path deposits into
+    the caustic set at most once, so the caustic map keeps at most
+    ``n_photons`` (photon_mapper.rs:249-251)."""
+    dep, _spawned = wf.trace_photon_deposits_regen_soa(
+        scene, tables, gen, n_photons, max_photon_bounces, PHOTON_T_MIN,
+        spawn_eps)
+    if stage:
+        stage("photon pass")
+    pos, power, norm = dep.pos.T, dep.power.T, dep.norm.T
+    g = pg.build_grid(pos, power, norm, dep.valid, scene.bounds_min,
+                      scene.bounds_max, grid_res, compact=True)
+    c = pg.build_grid(pos, power, norm, dep.valid & dep.caustic,
+                      scene.bounds_min, scene.bounds_max, grid_res,
+                      compact=True, max_valid=n_photons)
+    if stage:
+        stage("grid build")
+    return g, c
+
+
+def measurement_pass(scene: Scene, tables, gen, width: int, height: int,
+                     max_depth: int, t_min: float,
+                     spawn_eps) -> wf.MeasurePoints:
+    """One jittered camera ray per pixel, in pixel order, walked to its
+    first diffuse hit."""
+    dev = tables.sph.device
+    pix = torch.arange(width * height, device=dev)
+    px = (pix % width).to(torch.float32)
+    py = (pix // width).to(torch.float32)
+    o, d = wf.camera_rays_soa(
+        scene.camera, px, py, width, height,
+        torch.rand((4, pix.shape[0]), generator=gen, device=dev))
+    return wf.measurement_soa(tables, gen, o, d, max_depth=max_depth,
+                              t_min=t_min, spawn_eps=spawn_eps)
+
+
+# ---------------------------------------------------------------- queries
+
+def _query(grid: pg.PhotonGrid, points, radius, cap_radius) -> pg.QueryResult:
+    """Dense dual-radius query of one map (exact within-radius sums, the
+    reference kd-tree's semantics, photon_mapper.rs:102-114)."""
+    valid = (torch.arange(grid.pos.shape[0], device=grid.pos.device)
+             < grid.n_valid)
+    return query_photons(grid.pos, grid.power.float(), grid.norm.float(),
+                         valid, points, radius, cap_radius)
+
+
+def _sorted_dual_query(g_grid, c_grid, grid_res, pts_p, rg, cap_g, rc,
+                       cap_c, bounds_min, bounds_max, stage=None):
+    """Both map queries with the points cell-sorted (one shared stable
+    sort), so a kernel tile covers a compact patch of surface and culls
+    most photon chunks. Results are unsorted back; the sums are those of
+    the unsorted query."""
+    n = pts_p.shape[0]
+    extent = torch.clamp(bounds_max - bounds_min, min=1e-6)
+    inv_cell = torch.tensor(grid_res, dtype=torch.float32,
+                            device=pts_p.device) / extent
+    order = torch.argsort(pg.cell_ids(pts_p, bounds_min, inv_cell, grid_res),
+                          stable=True)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(n, device=order.device)
+    p_s = pts_p[order].contiguous()
+
+    def unsort(q):
+        return pg.QueryResult(*(x[inv] for x in q))
+
+    qg = _query(g_grid, p_s, rg[order], cap_g[order])
+    if stage:
+        stage("query global")
+    qc = _query(c_grid, p_s, rc[order], cap_c[order])
+    if stage:
+        stage("query caustic")
+    return unsort(qg), unsort(qc)
+
+
+def cap_radius(scene: Scene, grid_res):
+    """The query radius cap: one grid cell, a 0-d tensor."""
+    extent = torch.clamp(scene.bounds_max - scene.bounds_min, min=1e-6)
+    return (extent / torch.tensor(grid_res, dtype=torch.float32,
+                                  device=extent.device)).min()
+
+
+def query_radii(half: SPPMHalf, cap):
+    """(radius, cap radius) per pixel of one map: min(r, cap) once the
+    pixel holds photons, the cap before. The cap sums feed only the first
+    touch's density init, so an initialised pixel's own radius serves as
+    its cap too, and the chunk cull tightens as radii shrink."""
+    r = torch.minimum(torch.sqrt(torch.clamp(half.radius2, min=0.0)), cap)
+    r = torch.where(half.photons > 0, r, cap)
+    return r, torch.where(half.photons > 0, r, cap)
+
+
+# ------------------------------------------------------------ stat update
+
+def _update_half(half: SPPMHalf, pts: wf.MeasurePoints, q: pg.QueryResult,
+                 k_init: float, alpha: float, cap_radius) -> SPPMHalf:
+    """Branchless init-or-update (photon_mapper.rs:49-63). The kNN init is
+    density-based: r0^2 = h^2 * k/m from the count m within the cap radius
+    h (see the JAX ``ops/photon_grid.py`` docstring)."""
+    first = pts.valid & (half.photons == 0.0)
+
+    # ---- init path
+    m_cap = q.count_cap
+    has_any = m_cap > 0.0
+    r0_2 = torch.where(has_any,
+                       torch.minimum(cap_radius * cap_radius * k_init
+                                     / torch.clamp(m_cap, min=1.0),
+                                     cap_radius * cap_radius),
+                       0.0)
+    flux0 = (pts.bsdf * q.flux_cap
+             * torch.clamp(k_init / torch.clamp(m_cap, min=1.0),
+                           max=1.0)[:, None])
+    n0 = torch.where(has_any, float(k_init), 0.0)
+
+    # ---- update path (photon_mapper.rs:55-62)
+    m = q.count_r
+    n_new = half.photons + alpha * m
+    frac = n_new / torch.clamp(half.photons + m, min=1.0)
+    r2_new = half.radius2 * frac
+    flux_new = (half.flux + pts.bsdf * q.flux_r) * frac[:, None]
+
+    upd = pts.valid & ~first
+    flux = torch.where(first[:, None], flux0,
+                       torch.where(upd[:, None], flux_new, half.flux))
+    radius2 = torch.where(first, r0_2,
+                          torch.where(upd, r2_new, half.radius2))
+    photons = torch.where(first, n0, torch.where(upd, n_new, half.photons))
+    return SPPMHalf(flux, radius2, photons)
+
+
+# -------------------------------------------------------------- iteration
+
+def sppm_iteration(scene: Scene, tables, state: SPPMState, seed: int, *,
+                   width: int, height: int, n_photons: int,
+                   max_photon_bounces: int, max_camera_bounces: int,
+                   grid_res, alpha: float, k_global: float,
+                   k_caustic: float, t_min: float, spawn_eps_rel: float,
+                   times: Optional[dict] = None) -> SPPMState:
+    """One SPPM iteration over the whole image. ``times``: a dict that
+    receives per-stage seconds (each stage ends in a device sync)."""
+    dev = tables.sph.device
+    it = int(state.iteration)
+    spawn_eps = spawn_eps_rel * scene.scale
+    stage = _Stages(times, dev)
+    g_grid, c_grid = photon_maps(
+        scene, tables, _generator(dev, seed, _PHOTONS, it),
+        n_photons=n_photons, max_photon_bounces=max_photon_bounces,
+        grid_res=grid_res, spawn_eps=spawn_eps, stage=stage)
+    pts = measurement_pass(scene, tables, _generator(dev, seed, _MEASURE, it),
+                           width, height, max_camera_bounces, t_min,
+                           spawn_eps)
+    stage("measurement")
+    cap = cap_radius(scene, grid_res)
+    rg, cap_g = query_radii(state.glob, cap)
+    rc, cap_c = query_radii(state.caustic, cap)
+    qg, qc = _sorted_dual_query(g_grid, c_grid, grid_res, pts.p, rg, cap_g,
+                                rc, cap_c, scene.bounds_min,
+                                scene.bounds_max, stage)
+    glob = _update_half(state.glob, pts, qg, k_global, alpha, cap)
+    caus = _update_half(state.caustic, pts, qc, k_caustic, alpha, cap)
+    stage("update")
+    return SPPMState(glob, caus, it + 1)
+
+
+# ----------------------------------------------------------- final gather
+
+def density_estimates(state: SPPMState, n_total_photons) -> torch.Tensor:
+    """Per-pixel caustic + global radiance estimates flux / (pi r^2
+    N_total) (photon_mapper.rs:117-119). (npix, 3)."""
+    inv = 1.0 / torch.tensor(float(n_total_photons), dtype=torch.float32)
+    inv = inv.to(state.glob.flux.device)
+
+    def one(h: SPPMHalf):
+        rad = h.flux / (PI * torch.clamp(h.radius2, min=1e-12)[:, None]) * inv
+        return torch.where((h.photons > 0)[:, None], rad, 0.0)
+
+    return one(state.glob) + one(state.caustic)
+
+
+def gather_fn(scene: Scene, tables, state: SPPMState, gen, *, width: int,
+              height: int, spp: int, spp_chunk: int, max_depth: int,
+              t_min: float, spawn_eps_rel: float, n_total_photons: int):
+    """Final render from the accumulated per-pixel stats (sample_ray,
+    photon_mapper.rs:326-365) on the regeneration loop. Returns ((H, W, 3)
+    image on the device, rays as an int)."""
+    est = density_estimates(state, n_total_photons)
+    n_chunks = -(-spp // spp_chunk)
+    accum, rays, _steps = wf.gather_regen_soa(
+        scene, tables, est, gen, width=width, height=height,
+        lanes_per_pixel=spp_chunk, samples_per_lane=n_chunks,
+        max_depth=max_depth, t_min=t_min,
+        spawn_eps=spawn_eps_rel * scene.scale)
+    img = accum / (n_chunks * spp_chunk)
+    return img.reshape(height, width, 3), rays
+
+
+# -------------------------------------------------------------- top level
+
+def check_scene(scene: Scene):
+    """Refuse what SPPM cannot render, with the JAX package's messages,
+    and what the port does not take yet."""
+    if scene.lights.kind.shape[0] == 0:
+        raise ValueError(
+            "SPPM requires at least one light in the scene (photon emission "
+            "has nothing to sample); use --integrator pt for light-free "
+            "scenes")
+    if scene.spheres.motion_marker.shape[0]:
+        raise ValueError(
+            "SPPM does not support motion blur (photon/visible-point maps "
+            "have no shutter-time dimension — the whole iteration would "
+            "silently freeze at t=0); use --integrator pt, which draws "
+            "per-sample shutter times")
+    missing = unported(scene)
+    if missing:
+        raise NotImplementedError("; ".join(missing))
+
+
+def iteration_kwargs(scene: Scene, config: RenderConfig) -> dict:
+    """The keyword arguments of ``sppm_iteration`` for ``config``."""
+    sp: SPPMConfig = config.sppm
+    grid_res, _ = pg.choose_grid_resolution(
+        scene.bounds_min.cpu().numpy(), scene.bounds_max.cpu().numpy(),
+        sp.photons_per_iter, sp.k_global)
+    return dict(width=config.width, height=config.height,
+                n_photons=sp.photons_per_iter,
+                max_photon_bounces=sp.max_photon_bounces,
+                max_camera_bounces=sp.max_camera_bounces, grid_res=grid_res,
+                alpha=sp.alpha, k_global=sp.k_global,
+                k_caustic=sp.k_caustic, t_min=config.t_min,
+                spawn_eps_rel=config.spawn_eps_rel)
+
+
+def render(scene: Scene, config: RenderConfig, seed: int, *,
+           state: Optional[SPPMState] = None, checkpoint_cb=None,
+           device="cuda", times: Optional[dict] = None):
+    """Full SPPM render on ``device``: the iterations left after ``state``
+    (a fresh state by default), then the final gather. ``checkpoint_cb
+    (state)`` is called after every iteration. ``times``: a dict that
+    receives per-stage seconds summed over the iterations, plus "gather".
+    Returns ((H, W, 3) linear image on the device, rays of the gather as an
+    int, the final state)."""
+    check_scene(scene)
+    sp: SPPMConfig = config.sppm
+    device = torch.device(device)
+    scene = scene.to(device)
+    tables = pack_tables(scene)
+    npix = config.width * config.height
+    state = init_state(npix, device) if state is None else \
+        state_to(state, device)
+    kw = iteration_kwargs(scene, config)
+    for _ in range(int(state.iteration), sp.n_iterations):
+        state = sppm_iteration(scene, tables, state, seed, times=times, **kw)
+        if checkpoint_cb is not None:
+            checkpoint_cb(state)
+
+    # final gather in host batches; spp_chunk is capped so a wavefront
+    # stays under ~1.5M lanes
+    t0 = time.perf_counter()
+    n_total = sp.n_iterations * sp.photons_per_iter
+    total = config.samples_per_pixel
+    batch = max(1, min(config.host_spp_batch, total))
+    chunk = max(1, min(config.spp_chunk, batch, max(1, 1_500_000 // npix)))
+    accum = torch.zeros((config.height, config.width, 3), device=device)
+    rays, done, b = 0, 0, 0
+    while done < total:
+        spp = min(batch, total - done)
+        img, r = gather_fn(
+            scene, tables, state, _generator(device, seed, _GATHER, b),
+            width=config.width, height=config.height, spp=spp,
+            spp_chunk=min(chunk, spp), max_depth=config.max_depth,
+            t_min=config.t_min, spawn_eps_rel=config.spawn_eps_rel,
+            n_total_photons=n_total)
+        accum += img * (spp / total)
+        rays += r
+        done += spp
+        b += 1
+    if times is not None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        times["gather"] = time.perf_counter() - t0
+    return accum, rays, state

@@ -1,9 +1,12 @@
-"""Path-regeneration wavefront path tracer on tensors.
+"""Path-regeneration wavefronts on tensors: the path tracer and the SPPM
+passes.
 
 The PyTorch counterpart of ``raytracer_tpu/models/wavefront_soa.py`` for
-the fused-bounce main path: ``camera_rays_soa``, ``block_order``, the drain
-cascade ``_drain_sizes``, ``bounce_step`` and ``render_regen_soa``. NEE,
-MIS, media and motion blur are not ported yet (ROADMAP A6, A7, A9).
+the fused-bounce routes: ``camera_rays_soa``, ``block_order``, the drain
+cascade ``_drain_sizes``, ``bounce_step`` and ``render_regen_soa``, and for
+SPPM ``gather_regen_soa``, ``measurement_soa``, ``emit_photons_soa`` and
+``trace_photon_deposits_regen_soa``. NEE, MIS, media and motion blur are not
+ported yet (ROADMAP A6, A7, A9).
 
 Lane state is kept as (3, N) rows (origin, direction, throughput, sample
 radiance, accumulated radiance) and (N,) vectors (alive, depth, done), so
@@ -14,13 +17,15 @@ with one host sync per step for the loop condition.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from raytracer_tpu_torch.ops.fused_bounce import BounceTables, bounce_tables
-from raytracer_tpu_torch.scene.types import INTER_ABSORB, Camera
+from raytracer_tpu_torch.scene.types import (
+    INTER_ABSORB, INTER_DIFFUSE, LIGHT_SPHERE, Camera, Lights,
+)
 
 TWO_PI = 6.283185307179586
 
@@ -30,6 +35,7 @@ TWO_PI = 6.283185307179586
 # roulette, rows 4-7 the camera respawn (jitter x, jitter y, lens r, lens
 # phi).
 U_SPH1, U_SPH2, U_DIEL, U_RR = 0, 1, 2, 3
+U_TRACE_ROWS = 4                    # the photon pass stops here
 U_JX, U_JY, U_LR, U_LPHI = 4, 5, 6, 7
 U_REGEN_ROWS = 8
 
@@ -127,12 +133,16 @@ class _Lanes(NamedTuple):
     px: torch.Tensor      # (n,) f32 pixel x
     py: torch.Tensor      # (n,) f32 pixel y
     slot: torch.Tensor    # (n,) int64 output slot
+    # (3, n) the pixel's SPPM density estimate (final gather only)
+    est: Optional[torch.Tensor] = None
 
 
 def _step(s: _Lanes, tables, cam, gen, *, width, height, quota, max_depth,
           t_min, spawn_eps, russian_roulette):
     """One regeneration step: bounce, accumulate emission, update the
-    throughput, Russian roulette, retire and respawn camera rays."""
+    throughput, Russian roulette, retire and respawn camera rays. With
+    ``s.est`` (the SPPM final gather, photon_mapper.rs:326-365) the first
+    diffuse hit adds the pixel's density estimate and ends the sample."""
     nl = s.o.shape[1]
     U = torch.rand((U_REGEN_ROWS, nl), generator=gen, device=s.o.device)
     b = bounce_step(tables, U, s.o, s.d, s.alive, t_min=t_min,
@@ -140,6 +150,10 @@ def _step(s: _Lanes, tables, cam, gen, *, width, height, quota, max_depth,
     alive = s.alive
     samp = s.samp + torch.where(alive, s.tput * b.emit, 0.0)
     cont = alive & (b.inter != INTER_ABSORB)
+    if s.est is not None:
+        diffuse_now = alive & (b.inter == INTER_DIFFUSE)
+        samp = samp + torch.where(diffuse_now, s.tput * s.est, 0.0)
+        cont = cont & ~diffuse_now
     tput = torch.where(cont, s.tput * b.att, s.tput)
     if russian_roulette:
         p_surv = torch.clamp(tput.amax(0), 0.05, 1.0)
@@ -168,13 +182,14 @@ def _step(s: _Lanes, tables, cam, gen, *, width, height, quota, max_depth,
 def render_regen_soa(scene, tables: BounceTables, gen: torch.Generator, *,
                      width: int, height: int, lanes_per_pixel: int,
                      samples_per_lane: int, max_depth: int, t_min: float,
-                     spawn_eps, russian_roulette: bool = True):
+                     spawn_eps, russian_roulette: bool = True, est=None):
     """Path-regeneration wavefront renderer. When a lane's sample retires
     (miss, absorb, RR kill or depth cap) the lane spawns its pixel's next
     sample at once. Lane l serves pixel slot l % npix for
     ``samples_per_lane`` samples, so per-pixel spp = lanes_per_pixel *
     samples_per_lane. Stragglers drain through the compaction cascade of
-    ``_drain_sizes``.
+    ``_drain_sizes``. ``est`` (npix, 3), pixel-ordered: the SPPM density
+    estimates of ``gather_regen_soa``.
 
     Returns ((npix, 3) radiance sum over all samples in pixel order, rays
     traced (alive lanes summed over steps, an int), loop steps)."""
@@ -194,9 +209,10 @@ def render_regen_soa(scene, tables: BounceTables, gen: torch.Generator, *,
     ones = torch.ones((3, n), device=dev)
     zeros = torch.zeros((3, n), device=dev)
     izero = torch.zeros((n,), dtype=torch.int32, device=dev)
+    lane_est = None if est is None else est[slots][slot_id].T.contiguous()
     s = _Lanes(o0, d0, ones, zeros, zeros.clone(),
                torch.ones((n,), dtype=torch.bool, device=dev), izero,
-               izero.clone(), px, py, slot_id)
+               izero.clone(), px, py, slot_id, lane_est)
     kw = dict(width=width, height=height, quota=samples_per_lane,
               max_depth=max_depth, t_min=t_min, spawn_eps=spawn_eps,
               russian_roulette=russian_roulette)
@@ -222,6 +238,212 @@ def render_regen_soa(scene, tables: BounceTables, gen: torch.Generator, *,
             # survivors first, in stable order; finished radiance stays
             # behind in ``accum``
             idx = torch.argsort((~s.alive).to(torch.int8), stable=True)[:floor]
-            s = _Lanes(*(x[..., idx] for x in s))
+            s = _Lanes(*(None if x is None else x[..., idx] for x in s))
             s = s._replace(acc=torch.zeros_like(s.acc))
     return accum.T[torch.as_tensor(inv, device=dev).long()], rays, steps
+
+
+def gather_regen_soa(scene, tables: BounceTables, est, gen: torch.Generator,
+                     *, width: int, height: int, lanes_per_pixel: int,
+                     samples_per_lane: int, max_depth: int, t_min: float,
+                     spawn_eps):
+    """The SPPM final gather (sample_ray, photon_mapper.rs:326-365 with the
+    depth cap) on the regeneration loop of ``render_regen_soa``: Le at
+    every hit, the pixel's density estimate ``est`` (npix, 3) at the first
+    diffuse hit, specular chains multiply the throughput, no Russian
+    roulette. Returns ((npix, 3) radiance sum in pixel order, rays, steps).
+    """
+    return render_regen_soa(
+        scene, tables, gen, width=width, height=height,
+        lanes_per_pixel=lanes_per_pixel, samples_per_lane=samples_per_lane,
+        max_depth=max_depth, t_min=t_min, spawn_eps=spawn_eps,
+        russian_roulette=False, est=est)
+
+
+class MeasurePoints(NamedTuple):
+    """The measurement pass's first diffuse hit per pixel, (N, 3) rows as
+    in the JAX package."""
+    valid: torch.Tensor   # (N,) bool
+    p: torch.Tensor       # (N, 3)
+    normal: torch.Tensor  # (N, 3)
+    bsdf: torch.Tensor    # (N, 3) the point's bsdf colour (albedo or 1/pi)
+
+
+def measurement_soa(tables: BounceTables, gen: torch.Generator, o, d, *,
+                    max_depth: int, t_min: float,
+                    spawn_eps) -> MeasurePoints:
+    """update_sppm's specular walk to the first diffuse hit
+    (photon_mapper.rs:277-300): no emission, no throughput. ``o``/``d``
+    (3, N) camera rays. One host sync per step for the loop condition."""
+    n = o.shape[1]
+    dev = o.device
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    valid = torch.zeros((n,), dtype=torch.bool, device=dev)
+    p, nrm, bsdf = (torch.zeros((3, n), device=dev) for _ in range(3))
+    step = 0
+    while step < max_depth and bool(alive.any()):
+        U = torch.rand((U_DIEL + 1, n), generator=gen, device=dev)
+        b = bounce_step(tables, U, o, d, alive, t_min=t_min,
+                        spawn_eps=spawn_eps)
+        diffuse_now = alive & (b.inter == INTER_DIFFUSE)
+        valid = valid | diffuse_now
+        # the bsdf colour is the scatter's attenuation (albedo, 1/pi for a
+        # diffuse light): no second texture lookup
+        p = torch.where(diffuse_now, b.p, p)
+        nrm = torch.where(diffuse_now, b.n, nrm)
+        bsdf = torch.where(diffuse_now, b.att, bsdf)
+        alive = alive & ~diffuse_now & (b.inter != INTER_ABSORB)
+        o = torch.where(alive, b.no, o)
+        d = torch.where(alive, b.nd, d)
+        step += 1
+    return MeasurePoints(valid, p.T.contiguous(), nrm.T.contiguous(),
+                         bsdf.T.contiguous())
+
+
+def _sphere_from(u1, u2):
+    """Uniform unit-sphere point (3, N) from two uniform rows (the z/phi
+    construction of the JAX ``_uniform_sphere``)."""
+    z = 1.0 - 2.0 * u1
+    phi = TWO_PI * u2
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z])
+
+
+def emit_photons_soa(lights: Lights, gen: torch.Generator, n: int):
+    """Photon emission (light.rs:98-103, 158-166, 220-225): a light picked
+    in proportion to its power (inverse CDF over ``exp(log_prob)``), a point
+    on its surface, a direction in the hemisphere around its normal (power
+    weighted by the cosine for rect lights). Seven uniform rows: pick,
+    sphere normal (2), hemisphere (2), rect uv (2). Returns (origin,
+    direction, power), each (3, n)."""
+    dev = lights.p0.device
+    U = torch.rand((7, n), generator=gen, device=dev)
+    cdf = torch.cumsum(torch.softmax(lights.log_prob.double(), 0), 0)
+    idx = torch.searchsorted(cdf.float(), U[0], right=True)
+    idx = idx.clamp(max=lights.kind.shape[0] - 1)
+    # (3, n) rows gathered from (3, L) columns come out contiguous, as the
+    # bounce kernel takes them
+    p0 = lights.p0.T[:, idx]
+    p1 = lights.p1.T[:, idx]
+    r0 = lights.r0[idx]
+    base = (lights.flux * lights.scale[:, None]).T[:, idx]
+
+    # sphere lights: uniform surface normal, origin = centre + n (r + 1e-4)
+    sn = _sphere_from(U[1], U[2])
+    s_origin = p0 + sn * (r0 + 1e-4)
+    # xz-rect lights: a point of the rect, normal straight down
+    r_origin = torch.stack([p0[0] + (p1[0] - p0[0]) * U[5], p0[1],
+                            p0[2] + (p1[2] - p0[2]) * U[6]])
+    is_sph = lights.kind[idx] == LIGHT_SPHERE
+    down = torch.tensor([0.0, -1.0, 0.0], device=dev)[:, None]
+    nrm = torch.where(is_sph, sn, down)
+    origin = torch.where(is_sph, s_origin, r_origin)
+    # one hemisphere draw around the chosen normal serves both kinds
+    h = _sphere_from(U[3], U[4])
+    d = h * torch.where((h * nrm).sum(0) > 0.0, 1.0, -1.0)
+    w_scale = torch.where(is_sph, 1.0, torch.clamp(-d[1], min=0.0))
+    return origin, d, base * w_scale
+
+
+class Deposits(NamedTuple):
+    """Photon deposits of one photon pass, flattened step-major (slot
+    step * lanes + lane) as in the JAX package."""
+    pos: torch.Tensor      # (3, P) hit point
+    power: torch.Tensor    # (3, P) incoming power
+    norm: torch.Tensor     # (3, P) shading normal at the hit
+    valid: torch.Tensor    # (P,) bool: a diffuse deposit
+    caustic: torch.Tensor  # (P,) bool: first diffuse after specular only
+
+
+def spawn_window(n_photons: int, lanes: int) -> int:
+    """Steps during which retired lanes may spawn the next photon: ~L/2.5
+    lanes retire per step, so 4 (B - L) / L steps admit the remaining
+    budget with ~1.6x margin."""
+    return 0 if n_photons <= lanes else -(-4 * (n_photons - lanes) // lanes)
+
+
+def trace_photon_deposits_regen_soa(scene, tables: BounceTables,
+                                    gen: torch.Generator, n_photons: int,
+                                    max_bounces: int, t_min: float,
+                                    spawn_eps, lanes: int = 16384,
+                                    window: int = None):
+    """Path-regeneration photon pass: a fixed wavefront of
+    ``min(lanes, n_photons)`` lanes traces photons; when a photon dies
+    (Russian roulette, miss or the ``max_bounces`` cap) its lane emits the
+    next photon while the spawn budget of ``n_photons`` lasts.
+
+    The step count S = window + max_bounces is static (``spawn_window``;
+    ``window`` overrides it), so every admitted photon gets its full bounce
+    allowance and the loop needs no host sync. A per-step prefix sum over
+    the retire mask admits exactly the budget. If the window closes before
+    the budget is spent, deposit powers are scaled by n_photons / spawned,
+    which keeps the estimate unbiased (the density estimate divides by the
+    nominal count).
+
+    Per photon (material.rs:27-45, photon_mapper.rs:244-252): Russian
+    roulette against the attenuation's largest component with the power
+    renormalised by it, a deposit of the power from before that
+    renormalisation at every diffuse hit, and a caustic flag on the first
+    diffuse hit after a specular-only prefix.
+
+    Returns (``Deposits`` of S * L slots, photons spawned as a 0-d device
+    tensor)."""
+    B = int(n_photons)
+    L = min(B, int(lanes))
+    if window is None:
+        window = spawn_window(B, L)
+    S = window + max_bounces
+    dev = tables.sph.device
+    f32 = torch.float32
+    dep = torch.empty((9, S, L), dtype=f32, device=dev)
+    flags = torch.empty((2, S, L), dtype=torch.bool, device=dev)
+
+    o, d, w = emit_photons_soa(scene.lights, gen, L)
+    alive = torch.ones((L,), dtype=torch.bool, device=dev)
+    has_spec = torch.zeros_like(alive)
+    has_diff = torch.zeros_like(alive)
+    depth = torch.zeros((L,), dtype=torch.int32, device=dev)
+    counter = torch.full((), L, dtype=torch.int64, device=dev)
+    for step in range(S):
+        U = torch.rand((U_TRACE_ROWS, L), generator=gen, device=dev)
+        b = bounce_step(tables, U, o, d, alive, t_min=t_min,
+                        spawn_eps=spawn_eps)
+        hmax = b.att.amax(0)
+        survive = U[U_RR] <= hmax
+        inter = torch.where(survive, b.inter, INTER_ABSORB)
+        diffuse_now = alive & (inter == INTER_DIFFUSE)
+        dep[0:3, step] = b.p
+        dep[3:6, step] = w
+        dep[6:9, step] = b.n
+        flags[0, step] = diffuse_now
+        flags[1, step] = diffuse_now & has_spec & ~has_diff
+
+        cont = alive & (inter != INTER_ABSORB)
+        depth = depth + 1
+        cont = cont & (depth < max_bounces)      # per-path cap
+        renorm = torch.where(survive, b.att / torch.clamp(hmax, min=1e-12),
+                             1.0)
+        o = torch.where(cont, b.no, o)
+        d = torch.where(cont, b.nd, d)
+        w = torch.where(cont, w * renorm, w)
+        has_spec = has_spec | (cont & ~diffuse_now)
+        has_diff = has_diff | diffuse_now
+        alive_next = alive & cont
+        if step < window:
+            retire = alive & ~cont
+            rank = torch.cumsum(retire, 0)
+            spawn = retire & (counter + rank <= B)
+            counter = counter + torch.minimum(rank[-1], B - counter)
+            eo, ed, ew = emit_photons_soa(scene.lights, gen, L)
+            o = torch.where(spawn, eo, o)
+            d = torch.where(spawn, ed, d)
+            w = torch.where(spawn, ew, w)
+            has_spec = has_spec & ~spawn
+            has_diff = has_diff & ~spawn
+            depth = torch.where(spawn, 0, depth)
+            alive_next = alive_next | spawn
+        alive = alive_next
+    dep[3:6] *= B / torch.clamp(counter, min=1).to(f32)
+    dep = dep.reshape(9, S * L)
+    flags = flags.reshape(2, S * L)
+    return Deposits(dep[0:3], dep[3:6], dep[6:9], flags[0], flags[1]), counter

@@ -1,0 +1,95 @@
+"""Uniform-grid photon map: photons binned over the scene bounds and
+sorted by linearized cell id.
+
+The PyTorch counterpart of ``raytracer_tpu/ops/photon_grid.py`` for the
+dense-query route: ``PhotonGrid``, ``QueryResult``, ``build_grid`` and
+``choose_grid_resolution``. The 27-cell gather query (``query_grid``, the
+``query_impl="grid"`` option) is not ported (ROADMAP A11); the SPPM path
+queries the sorted arrays with ``ops/photon_query.py``.
+
+Photon arrays keep the JAX package's (P, 3) layout, so both packages hold
+the same photon map after the sort, down to the bits: the same float32 cell
+ids, the same stable sort, the same bfloat16 payload rounding.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+
+class PhotonGrid(NamedTuple):
+    pos: torch.Tensor         # (P, 3) f32, sorted by cell id
+    power: torch.Tensor       # (P, 3) f32, or bf16 when compact
+    norm: torch.Tensor        # (P, 3) f32, or bf16 when compact
+    cell_start: torch.Tensor  # (C+1,) int32 prefix offsets
+    bmin: torch.Tensor        # (3,)
+    inv_cell: torch.Tensor    # (3,)
+    n_valid: torch.Tensor     # () int32, on the device: no host sync
+
+
+class QueryResult(NamedTuple):
+    flux_r: torch.Tensor     # (N, 3) sum of power * (1 - disk) within r
+    count_r: torch.Tensor    # (N,)
+    flux_cap: torch.Tensor   # (N, 3) the same within the cap radius
+    count_cap: torch.Tensor  # (N,)
+
+
+def cell_ids(pos, bmin, inv_cell, res: Tuple[int, int, int]):
+    """Linear cell id (N,) int32 of each (N, 3) position, clamped into the
+    grid. The float product is rounded as in the JAX package; values are
+    clamped before the integer cast, which changes nothing for finite
+    positions and keeps out-of-range ones defined."""
+    hi = torch.tensor(res, dtype=torch.float32, device=pos.device)
+    x = torch.nan_to_num((pos - bmin) * inv_cell, nan=0.0)
+    ci = torch.minimum(torch.clamp(torch.floor(x), min=0.0), hi - 1.0)
+    ci = ci.to(torch.int32)
+    return (ci[..., 0] * res[1] + ci[..., 1]) * res[2] + ci[..., 2]
+
+
+def build_grid(pos, power, norm, valid, bmin, bmax,
+               res: Tuple[int, int, int], compact: bool = False,
+               max_valid: int = None) -> PhotonGrid:
+    """Sort photons by cell; invalid photons take the sentinel cell past
+    the last one and so sort behind every valid photon. The sort is stable,
+    as ``jnp.argsort`` is.
+
+    ``compact`` stores power and normal as bf16 (positions stay f32 for the
+    distance test). ``max_valid``: a static upper bound on the valid count
+    (the caustic map's: at most one deposit per photon path); the sorted
+    arrays are cut to it, which is exact because every valid photon sorts
+    before the sentinel tail."""
+    n_cells = res[0] * res[1] * res[2]
+    extent = torch.clamp(bmax - bmin, min=1e-6)
+    inv_cell = torch.tensor(res, dtype=torch.float32,
+                            device=pos.device) / extent
+    cid = cell_ids(pos, bmin, inv_cell, res)
+    cid = torch.where(valid, cid, n_cells)
+    order = torch.argsort(cid, stable=True)
+    if max_valid is not None and max_valid < order.shape[0]:
+        order = order[:max_valid]
+    cid_sorted = cid[order].contiguous()
+    cells = torch.arange(n_cells + 1, dtype=torch.int32, device=pos.device)
+    cell_start = torch.searchsorted(cid_sorted, cells).to(torch.int32)
+    payload = torch.bfloat16 if compact else torch.float32
+    return PhotonGrid(
+        pos=pos[order].to(torch.float32), power=power[order].to(payload),
+        norm=norm[order].to(payload), cell_start=cell_start, bmin=bmin,
+        inv_cell=inv_cell, n_valid=valid.sum().to(torch.int32))
+
+
+def choose_grid_resolution(bounds_min, bounds_max, n_photons: int,
+                           k_nearest: int, max_res: int = 64):
+    """Host-side heuristic: cell size ~ the expected kNN init radius
+    r0 = sqrt(k * A / (pi * P)) with A ~ the bbox surface area. Static per
+    render. Takes numpy arrays or CPU tensors."""
+    bmin = np.asarray(bounds_min, np.float64)
+    bmax = np.asarray(bounds_max, np.float64)
+    ext = np.maximum(bmax - bmin, 1e-6)
+    area = 2.0 * (ext[0] * ext[1] + ext[1] * ext[2] + ext[0] * ext[2])
+    r0 = float(np.sqrt(max(k_nearest, 1) * area / (np.pi * max(n_photons, 1))))
+    res = tuple(int(np.clip(np.ceil(e / max(r0, 1e-6)), 2, max_res))
+                for e in ext)
+    return res, r0

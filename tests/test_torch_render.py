@@ -152,7 +152,7 @@ def test_cli_renders_png(tmp_path):
     assert "rays" in res.stdout
 
 
-@pytest.mark.parametrize("args", [["--integrator", "sppm"], ["--nee"],
+@pytest.mark.parametrize("args", [["--preset", "ci"], ["--nee"],
                                   ["--sharded"]])
 def test_cli_refuses_unported(args):
     res = _cli(*args, "--device", "cpu")
