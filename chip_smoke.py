@@ -6,8 +6,8 @@ Phases, each of which raises on failure (exit code non-zero):
 
 1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
    no CUDA device is an error;
-2. build both kernels from ``raytracer_tpu_torch/csrc`` (one nvcc per
-   source, started together), with ptxas registers and spills;
+2. build the three kernels from ``raytracer_tpu_torch/csrc`` (one nvcc
+   per source, started together), with ptxas registers and spills;
 3. the bounce kernel against its plain PyTorch version on the card, on the
    bounce cases of ``tests/test_torch_bounce.py`` and on scene_500 at the
    main path's width (800x600 = 480,000 lanes: camera rays, then a second
@@ -24,10 +24,20 @@ Phases, each of which raises on failure (exit code non-zero):
    ``path_tracer.render``, with the bounce kernel's launch count;
 7. the SPPM path: Cornell with its mesh at 800x800, 500,000 photons per
    iteration, 4 iterations, a 16-spp gather at depth 50, through
-   ``sppm.render``, with per-stage times and both kernels' launch counts.
+   ``sppm.render``, with per-stage times and both kernels' launch counts;
+8. the closest-hit kernel against its plain version: the cases of
+   ``tests/test_torch_closest.py`` (half the lanes with a finite t_max),
+   480,000 scene_500 camera rays, and the shadow rays of the first NEE
+   step of an 800x600 scene_500 render, with both times; then the unfused
+   bounce (closest-hit kernel + plain attributes and scatter) against the
+   fused kernel at 480,000 lanes;
+9. NEE and MIS: 32x32 ``three_spheres`` renders in the golden bands, the
+   Cornell direct-light oracle, and scene_500 at 800x600, 32 spp, depth
+   16, RR off, with NEE and then with MIS, through ``path_tracer.render``,
+   each image mean within 3% of phase 6's plain-PT mean.
 
 It imports no JAX. The line before the last is a JSON object with the
-kernels' launches, errors and times; the last line is
+kernels' launches, errors, times and bounds; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -52,7 +62,7 @@ RTOL = ATOL = 1e-4      # n, nd, att, emit (plus the propagated point term)
 P_TOL_REL = 1e-5        # p, no: atol = P_TOL_REL * scene.scale
 EDGE_ULPS = 64          # width of a sphere silhouette's decision edge
 DEV = "cuda"
-KERNELS = ("bounce", "photon_query")
+KERNELS = ("bounce", "photon_query", "closest")
 # photon query: flux |kernel - plain| <= Q_RTOL |plain| + Q_ATOL max|plain|.
 # Both sum non-negative float32 terms, in another order (the kernel one
 # photon at a time, the plain version by chunked matmuls); the kernel's
@@ -61,6 +71,19 @@ Q_RTOL, Q_ATOL = 1e-4, 1e-6
 PLAIN_STRIDE = 10       # the query timings take every 10th point tile
 SPPM_W = SPPM_H = 800
 SPPM_PHOTONS, SPPM_ITERS, SPPM_SPP, SPPM_DEPTH = 500_000, 4, 16, 50
+MEAN_TOL = 0.03         # NEE/MIS image mean against plain PT's
+ORACLE, ORACLE_TOL = 0.01046, 0.05   # tests/test_nee.py, Cornell floor
+# The card's peaks (NVIDIA's data sheet, H100 SXM at 700 W): FP32 outside
+# the tensor cores, and device memory.
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+# FP32 operations per pair test, counted from the sources (a sqrt, a
+# division or a reciprocal counts one; compares do not count):
+# csrc/sweep.cuh sphere 17 (oc 3, half_b 5, c 6, disc 3; the root's 5 more
+# only where disc >= 0 are not counted), rect 6, triangle 38;
+# csrc/photon_query.cu 8 per (point, photon) pair of a live chunk, 11 more
+# per photon within either radius and 4 per sum it joins.
+SPH_FLOPS, RECT_FLOPS, TRI_FLOPS = 17, 6, 38
+Q_PAIR_FLOPS, Q_NEAR_FLOPS, Q_SUM_FLOPS = 8, 11, 4
 
 
 def log(msg):
@@ -247,6 +270,29 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return float(np.median(times))
 
 
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the FP32 peak and the bytes over the memory rate."""
+    ops_ms, bytes_ms = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    log(f"  bound: {flops:.6g} FP32 operations = {ops_ms:.6f} ms, "
+        f"{nbytes:.6g} bytes = {bytes_ms:.6f} ms")
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def sweep_bound(tab, alive, ray_bytes: int, extra_tables=()) -> dict:
+    """``bound`` of one sweep: every alive lane tests every primitive;
+    ``ray_bytes`` per lane read and written, each table read once."""
+    lanes = int(alive.sum())
+    flops = lanes * (tab.sph.shape[0] * SPH_FLOPS
+                     + tab.rect.shape[0] * RECT_FLOPS
+                     + tab.tri.shape[0] * TRI_FLOPS)
+    tables = (tab.sph, tab.rect, tab.tri) + tuple(extra_tables)
+    nbytes = (alive.numel() * ray_bytes
+              + sum(x.numel() * x.element_size() for x in tables))
+    return bound(flops, nbytes)
+
+
 def check_kernel() -> dict:
     from raytracer_tpu_torch.ops import fused_bounce as fb
     dev = torch.device(DEV)
@@ -289,7 +335,12 @@ def check_kernel() -> dict:
     log(f"bounce at {n} camera rays x {tab.sph.shape[0]} spheres: kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of 10 CUDA-event "
         "timings)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    # per lane: o, d, uni, alive in; six (3,) rows and inter out
+    b = sweep_bound(tab, alive, 24 + 16 + 1 + 72 + 4,
+                    (tab.sph_mat, tab.rect_mat, tab.tri_mat, tab.tri_nrm,
+                     tab.mat))
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": None}
 
 
 # ------------------------------------------------------------------ phase 4
@@ -460,8 +511,27 @@ def check_query() -> dict:
             f"timings); counts r {int(out.count_r.sum())} cap "
             f"{int(out.count_cap.sum())}")
         if "global" in name:
-            stats = {"ms": ms, "plain_ms": plain_ms}
+            stats = {"ms": ms, "plain_ms": plain_ms,
+                     **query_bound(planes, *args[1:]), "library_ms": None}
     return {"max_abs_err": err, **stats}
+
+
+def query_bound(planes, pts, r2, cap2) -> dict:
+    """``bound`` of one query: every (point, photon) pair of a live (tile,
+    chunk) pair is tested; photons within either radius are weighted and
+    summed. Points, radii and the 8 sums per point once; photon planes,
+    payload and cull boxes once."""
+    from raytracer_tpu_torch.ops import photon_query as pq
+    live, _, _ = live_pairs(planes, pts, r2, cap2)
+    res = pq.query_planes(planes, pts, r2, cap2)
+    cr, cc = res.count_r.double(), res.count_cap.double()
+    flops = (live * pq.TILE * pq.CHUNK * Q_PAIR_FLOPS
+             + Q_NEAR_FLOPS * float(torch.maximum(cr, cc).sum())
+             + Q_SUM_FLOPS * float((cr + cc).sum()))
+    nbytes = pts.shape[0] * (12 + 4 + 4 + 32) + sum(
+        x.numel() * x.element_size()
+        for x in (planes.posf, planes.payload, planes.cull))
+    return bound(flops, nbytes)
 
 
 # ------------------------------------------------------------------ phase 5
@@ -517,9 +587,9 @@ def check_golden_sppm():
 
 # ------------------------------------------------------------------ phase 6
 
-def main_path() -> int:
+def main_path() -> tuple:
     """scene_500 at 800x600, 32 spp, depth 16, RR off then on. Returns the
-    kernel launches of those two renders."""
+    kernel launches of those two renders and the RR-off image mean."""
     from raytracer_tpu_torch.models import path_tracer
     from raytracer_tpu_torch.ops import fused_bounce as fb
     from raytracer_tpu_torch.scene.loader import load_scene
@@ -537,6 +607,7 @@ def main_path() -> int:
     path_tracer.render(scene, cfg(1, True), 0, device=DEV)     # warm
     torch.cuda.synchronize()
     fb.LAUNCHES = 0
+    means = {}
     for rr in (False, True):
         before = fb.LAUNCHES
         t0 = time.perf_counter()
@@ -555,7 +626,8 @@ def main_path() -> int:
             raise AssertionError("main path traced no rays through the kernel")
         save_render(os.path.join(ROOT, "output", f"chip_smoke_{tag}.png"),
                     host)
-    return fb.LAUNCHES
+        means[rr] = float(host.mean())
+    return fb.LAUNCHES, means[False]
 
 
 # ------------------------------------------------------------------ phase 7
@@ -606,6 +678,259 @@ def sppm_path() -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ phase 8
+
+def with_tmax(scene, o, d, seed: int):
+    """t_max rows as in tests/test_torch_closest.py: +inf on the first half
+    of the lanes, 5% to 100% of the scene's size on the second."""
+    n = o.shape[1]
+    rng = np.random.default_rng(100 + seed)
+    t_max = np.full(n, np.inf, np.float32)
+    dn = d[:, n // 2:].norm(dim=0).cpu().numpy()
+    t_max[n // 2:] = (rng.uniform(0.05, 1.0, n - n // 2)
+                      * float(scene.scale) / dn)
+    return torch.from_numpy(t_max.astype(np.float32)).to(o.device)
+
+
+def compare_closest(name, scene, tab, o, d, t_min, t_max, alive, out,
+                    ref) -> float:
+    """Hold the kernel's winners to the plain version's: type and index on
+    >= INTER_AGREE of the alive lanes and visibility (a finite t) too; t
+    within 1e-5 * scale / |d| (+ 1e-5 relative) wherever the winners
+    agree. Lanes on a decision edge (another winner, or a t beyond the
+    tolerance on a ray that grazes a sphere's silhouette, ``grazes``) are
+    counted apart and may make up at most 1 - INTER_AGREE of the alive
+    lanes. Returns the largest |t| difference over the lanes held to the
+    tolerance."""
+    t, ty, ix = (x.cpu().numpy() for x in out[:3])
+    rt, rty, rix = (x.cpu().numpy() for x in ref[:3])
+    alive = alive.cpu().numpy()
+    n_alive = max(int(alive.sum()), 1)
+    agree = alive & (ty == rty) & (ix == rix)
+    vis = alive & (np.isfinite(t) == np.isfinite(rt))
+    dn = d.norm(dim=0).cpu().numpy()
+    tol = 1e-5 * float(scene.scale) / dn + 1e-5 * np.abs(rt)
+    hit = agree & np.isfinite(rt)
+    diff = np.zeros_like(rt)
+    diff[hit] = np.abs(t[hit] - rt[hit])
+    beyond = hit & (diff > tol)
+    lanes = np.where(beyond)[0]
+    graze = np.zeros_like(beyond)
+    if len(lanes):
+        oc, dc = o.cpu().numpy()[:, lanes], d.cpu().numpy()[:, lanes]
+        graze[lanes] = grazes(tab, oc, dc, oc + t[lanes] * dc, ty[lanes],
+                              ix[lanes])
+    flips = int((alive & ~agree).sum())
+    edge = (flips + int(graze.sum())) / n_alive
+    held = hit & ~beyond
+    err = float(diff[held].max(initial=0.0))
+    dead_ok = bool((ty[~alive] == -1).all() and np.isinf(t[~alive]).all())
+    log(f"  {name}: lanes {alive.size}, alive {n_alive}, hits "
+        f"{int(np.isfinite(rt[alive]).sum())}; winner flips {flips}, "
+        f"visibility agrees on {vis.sum() / n_alive:.6f}; t beyond "
+        f"tolerance {int(beyond.sum())}, of which grazing "
+        f"{int(graze.sum())}; edge share {edge:.3g}; max |dt| elsewhere "
+        f"{err:.3g}")
+    if ((beyond & ~graze).any() or edge > 1.0 - INTER_AGREE
+            or vis.sum() / n_alive < INTER_AGREE or not dead_ok):
+        raise AssertionError(f"closest-hit kernel disagrees with the plain "
+                             f"version on {name}")
+    return err
+
+
+def nee_shadow_inputs(dev):
+    """The closest-hit inputs of the NEE shadow rays of the first step of
+    an 800x600 scene_500 render (one sample, depth 1), captured from
+    ``direct_light``'s call."""
+    from raytracer_tpu_torch.models import path_tracer
+    from raytracer_tpu_torch.ops import closest_hit as ch
+    scene = load("scene_500", WIDTH / HEIGHT)
+    captured = []
+    real = ch.closest_tables
+
+    def capture(*args):
+        captured.append(args)
+        return real(*args)
+
+    ch.closest_tables = capture
+    try:
+        path_tracer.render_fn(
+            scene, torch.Generator(device=dev).manual_seed(5), width=WIDTH,
+            height=HEIGHT, spp=1, spp_chunk=1, max_depth=1, t_min=T_MIN,
+            spawn_eps_rel=EPS_REL, nee=True, device=dev)
+    finally:
+        ch.closest_tables = real
+    torch.cuda.synchronize()
+    if len(captured) != 1:
+        raise AssertionError(f"one NEE step made {len(captured)} casts")
+    return scene, captured[0]
+
+
+def check_closest() -> dict:
+    from raytracer_tpu_torch.models import wavefront_soa as wf
+    from raytracer_tpu_torch.ops import closest_hit as ch
+    from raytracer_tpu_torch.ops import fused_bounce as fb
+    dev = torch.device(DEV)
+    log("closest-hit kernel against its plain version on the card:")
+    err = 0.0
+    for seed, name in enumerate(("cornell_mesh", "scene_500",
+                                 "three_spheres")):
+        scene = load(name, 64 / 48)
+        tab = fb.pack_tables(scene.to(dev))
+        o, d, alive, _ = make_rays(scene, seed, N_SMALL, 64, 48, 0.5, dev)
+        t_max = with_tmax(scene, o, d, seed)
+        out = ch.closest_tables(tab, o, d, T_MIN, t_max, alive)
+        torch.cuda.synchronize()
+        ref = ch.closest_hit_plain(tab, o, d, T_MIN, t_max, alive)
+        err = max(err, compare_closest(f"{name} {N_SMALL} rays", scene, tab,
+                                       o, d, T_MIN, t_max, alive, out, ref))
+
+    scene = load("scene_500", WIDTH / HEIGHT)
+    tab = fb.pack_tables(scene.to(dev))
+    n = WIDTH * HEIGHT
+    o, d, alive, uni = make_rays(scene, 7, n, WIDTH, HEIGHT, 1.0, dev)
+    inf = float("inf")
+    out = ch.closest_tables(tab, o, d, T_MIN, inf, alive)
+    torch.cuda.synchronize()
+    ref = ch.closest_hit_plain(tab, o, d, T_MIN, inf, alive)
+    err = max(err, compare_closest(f"scene_500 {n} camera rays", scene, tab,
+                                   o, d, T_MIN, inf, alive, out, ref))
+    ms = cuda_ms(lambda: ch.closest_tables(tab, o, d, T_MIN, inf, alive))
+    plain_ms = cuda_ms(lambda: ch.closest_hit_plain(tab, o, d, T_MIN, inf,
+                                                    alive))
+    log(f"closest hit at {n} camera rays x {tab.sph.shape[0]} spheres: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 10 "
+        "CUDA-event timings)")
+    # per lane: o, d, t_min, t_max, alive in; t, type, index, b1, b2 out
+    stats = {"ms": ms, "plain_ms": plain_ms,
+             **sweep_bound(tab, alive, 24 + 8 + 1 + 20), "library_ms": None}
+
+    sh_scene, (sh_tab, so, sd, s_tmin, s_tmax, s_alive) = \
+        nee_shadow_inputs(dev)
+    out = ch.closest_tables(sh_tab, so, sd, s_tmin, s_tmax, s_alive)
+    torch.cuda.synchronize()
+    ref = ch.closest_hit_plain(sh_tab, so, sd, s_tmin, s_tmax, s_alive)
+    err = max(err, compare_closest(
+        "scene_500 NEE shadow rays of the first step", sh_scene, sh_tab,
+        so, sd, s_tmin, s_tmax, s_alive, out, ref))
+    sh_ms = cuda_ms(lambda: ch.closest_tables(sh_tab, so, sd, s_tmin, s_tmax,
+                                              s_alive))
+    log(f"closest hit on {int(s_alive.sum())} shadow rays of {so.shape[1]} "
+        f"lanes: kernel {sh_ms:.4f} ms")
+
+    # the unfused bounce (closest-hit kernel + plain attributes and
+    # scatter) against the fused kernel, with phase 3's tolerances
+    log("unfused bounce against the fused kernel on the card:")
+    kw = dict(t_min=T_MIN, spawn_eps=uni[3, 0], scene=scene.to(dev))
+    fused = wf.bounce_step(tab, uni, o, d, alive, fused=True, **kw)
+    unfused = wf.bounce_step(tab, uni, o, d, alive, fused=False, **kw)
+    win = ch.closest_tables(tab, o, d, T_MIN, inf, alive)
+    torch.cuda.synchronize()
+    compare(f"scene_500 {n} lanes, unfused vs fused", scene, tab, o, d,
+            unfused, fused, win.ty, win.ix.long(), alive)
+    return {"max_abs_err": err, **stats}
+
+
+# ------------------------------------------------------------------ phase 9
+
+def check_golden_nee_mis():
+    """32x32 three_spheres with NEE and with MIS in the golden bands, the
+    brightness held in linear space (tests/test_torch_nee.py::
+    check_bands_linear_mean: a variance-reduced render's gamma-space mean
+    sits above a noisier golden's), at 256 spp."""
+    from raytracer_tpu_torch.models import path_tracer
+    from raytracer_tpu_torch.scene.builtin import three_spheres
+    from raytracer_tpu_torch.utils.config import RenderConfig
+    ref = np.load(os.path.join(ROOT, "tests", "golden",
+                               "three_spheres_32.npz"))["img"]
+    for kw in (dict(nee=True), dict(mis=True)):
+        cfg = RenderConfig(width=32, height=32, samples_per_pixel=256,
+                           spp_chunk=8, max_depth=12, **kw)
+        img, _ = path_tracer.render(three_spheres(1.0), cfg, 7, device=DEV)
+        img = img.cpu().numpy()
+        diff = np.abs(np.sqrt(np.clip(img, 0, None)) - np.sqrt(ref))
+        p95 = np.percentile(diff, 95)
+        log(f"golden three_spheres_32.npz with {kw}: linear mean "
+            f"{img.mean():.5f} vs {ref.mean():.5f}, p95 |diff| {p95:.4f}, "
+            f"mean |diff| {diff.mean():.4f}")
+        if not (abs(img.mean() - ref.mean()) < 0.05 * ref.mean()
+                and p95 < 0.30 and diff.mean() < 0.08):
+            raise AssertionError(f"{kw} render outside the golden bands")
+
+
+def check_oracle():
+    """tests/test_nee.py's Cornell direct-light oracle: NEE at depth 1,
+    16,384 straight-down rays from (278, 120, 278)."""
+    from raytracer_tpu_torch.models import path_tracer
+    from raytracer_tpu_torch.scene.builtin import cornell_box
+    n = 16384
+    o = torch.tensor([278.0, 120.0, 278.0], device=DEV).expand(n, 3)
+    d = torch.tensor([0.0, -1.0, 0.0], device=DEV).expand(n, 3)
+    res = path_tracer.trace_radiance(
+        cornell_box(with_mesh=False), o, d,
+        torch.Generator(device=DEV).manual_seed(0), max_depth=1, t_min=1e-3,
+        spawn_eps=0.05, russian_roulette=False, nee=True)
+    mean = float(res.radiance.double().mean())
+    log(f"Cornell direct-light oracle: {mean:.6f} against {ORACLE} "
+        f"({(mean / ORACLE - 1) * 100:+.3f}%), {res.rays_traced} rays")
+    if abs(mean / ORACLE - 1) > ORACLE_TOL:
+        raise AssertionError("NEE misses the Cornell direct-light oracle")
+
+
+def nee_mis_path(pt_mean: float) -> dict:
+    """scene_500 at 800x600, 32 spp, depth 16, RR off, with NEE and then
+    with MIS, through ``path_tracer.render``. Every kernel count is set to
+    0 before each render and read after it. Returns the launches per
+    render."""
+    from raytracer_tpu_torch.models import path_tracer
+    from raytracer_tpu_torch.ops import closest_hit as ch
+    from raytracer_tpu_torch.ops import fused_bounce as fb
+    from raytracer_tpu_torch.ops import photon_query as pq
+    from raytracer_tpu_torch.utils.config import RenderConfig
+    from raytracer_tpu_torch.utils.image import save_render
+    scene = load("scene_500", WIDTH / HEIGHT)
+    launches = {}
+    for kw in (dict(nee=True), dict(mis=True)):
+        tag = "nee" if kw.get("nee") else "mis"
+        cfg = RenderConfig(width=WIDTH, height=HEIGHT, samples_per_pixel=SPP,
+                           spp_chunk=1, max_depth=DEPTH, t_min=T_MIN,
+                           spawn_eps_rel=EPS_REL, russian_roulette=False,
+                           **kw)
+        stats = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fb.LAUNCHES = ch.LAUNCHES = pq.LAUNCHES = 0
+        t0 = time.perf_counter()
+        img, rays = path_tracer.render(scene, cfg, 1, device=DEV,
+                                       stats=stats)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches[tag] = {"bounce": fb.LAUNCHES, "closest": ch.LAUNCHES,
+                         "photon_query": pq.LAUNCHES}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        host = img.cpu().numpy()
+        mean = float(host.mean())
+        log(f"{tag} path scene_500 {WIDTH}x{HEIGHT} {SPP} spp depth {DEPTH} "
+            f"RR off: {rays} rays in {dt:.4f} s = {rays / dt / 1e6:.4f} "
+            f"Mrays/s; launches {launches[tag]}; shadow lanes "
+            f"{stats['shadow_lanes']}; image mean {mean:.6f} against plain "
+            f"PT {pt_mean:.6f} ({(mean / pt_mean - 1) * 100:+.3f}%); peak "
+            f"device memory {peak:.3f} GiB")
+        if not np.isfinite(host).all() or abs(mean / pt_mean - 1) > MEAN_TOL:
+            raise AssertionError(f"{tag} image is not finite or its mean is "
+                                 "off plain PT's")
+        if rays <= 0 or launches[tag]["bounce"] == 0:
+            raise AssertionError(f"{tag} path traced no rays through the "
+                                 "bounce kernel")
+        if kw.get("nee") and (launches[tag]["closest"] == 0
+                              or stats["shadow_lanes"] == 0):
+            raise AssertionError("NEE cast no shadow ray through the "
+                                 "closest-hit kernel")
+        save_render(os.path.join(ROOT, "output", f"chip_smoke_{tag}.png"),
+                    host)
+    return launches
+
+
 def main() -> int:
     device = card()
     sys.path.insert(0, ROOT)
@@ -614,17 +939,27 @@ def main() -> int:
     q_stats = check_query()
     check_golden()
     check_golden_sppm()
-    pt_launches = main_path()
+    pt_launches, pt_mean = main_path()
     sppm_launches = sppm_path()
+    c_stats = check_closest()
+    check_golden_nee_mis()
+    check_oracle()
+    nm = nee_mis_path(pt_mean)
     kernels = [
         {"name": "bounce", "route": "cuda",
          "source": "raytracer_tpu_torch/csrc/bounce.cu",
          "replaces": "raytracer_tpu/ops/pallas_intersect.py:1731",
-         "launches": pt_launches + sppm_launches["bounce"], **stats},
+         "launches": pt_launches + sppm_launches["bounce"]
+         + nm["nee"]["bounce"] + nm["mis"]["bounce"], **stats},
         {"name": "photon_query", "route": "cuda",
          "source": "raytracer_tpu_torch/csrc/photon_query.cu",
          "replaces": "raytracer_tpu/ops/pallas_photon.py:82",
-         "launches": sppm_launches["photon_query"], **q_stats}]
+         "launches": sppm_launches["photon_query"], **q_stats},
+        {"name": "closest", "route": "cuda",
+         "source": "raytracer_tpu_torch/csrc/closest.cu",
+         "replaces": "raytracer_tpu/ops/pallas_intersect.py:1054",
+         "launches": nm["nee"]["closest"] + nm["mis"]["closest"],
+         **c_stats}]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

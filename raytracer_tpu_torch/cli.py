@@ -4,6 +4,8 @@ chosen device (the counterpart of ``raytracer_tpu/cli.py``).
 Usage:
     python -m raytracer_tpu_torch render --scene data/scene_500.json \
         --width 800 --height 600 --spp 32 --max-depth 16 --device cuda
+    python -m raytracer_tpu_torch render --scene data/scene_500.json \
+        --width 800 --height 600 --spp 32 --max-depth 16 --nee
     python -m raytracer_tpu_torch render --scene cornell --integrator sppm \
         --width 800 --height 800 --spp 256 --device cuda \
         --checkpoint output/sppm.npz
@@ -21,8 +23,6 @@ import time
 
 # flag -> ROADMAP item that ports it (queue A of ROADMAP.md)
 UNPORTED = {
-    "nee": "A6 (NEE and MIS)",
-    "mis": "A6 (NEE and MIS)",
     "bvh": "A10 (large scenes)",
     "sharded": "A12 (multi-device)",
     "preset": "A13 (the rest of the CLI)",
@@ -52,7 +52,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device: 'cuda' runs the CUDA kernel, 'cpu' "
                         "its plain PyTorch version")
     r.add_argument("--out", default="output/test.png")
-    for flag in ("nee", "mis", "bvh", "sharded"):
+    r.add_argument("--nee", action="store_true",
+                   help="next-event estimation for the pt integrator "
+                        "(a shadow ray toward one light at every diffuse "
+                        "vertex; same mean, lower variance)")
+    r.add_argument("--mis", action="store_true",
+                   help="mixture-PDF importance sampling for the pt "
+                        "integrator (50/50 cosine/light direction at "
+                        "diffuse vertices). Exclusive with --nee")
+    for flag in ("bvh", "sharded"):
         r.add_argument(f"--{flag}", action="store_true",
                        help=f"not ported yet (ROADMAP {UNPORTED[flag]})")
     r.add_argument("--preset", default=None,
@@ -103,12 +111,14 @@ def cmd_render(args) -> int:
         spp_chunk=args.spp_chunk, max_depth=args.max_depth,
         seed=args.seed if args.seed is not None else 0,
         intersector=args.intersector, output=args.out,
+        nee=args.nee, mis=args.mis,
         sppm=SPPMConfig(n_iterations=args.sppm_iters,
                         photons_per_iter=args.sppm_photons,
                         alpha=args.sppm_alpha))
     t0 = time.perf_counter()
     scene = load_scene_arg(args.scene, cfg.width / cfg.height)
     t1 = time.perf_counter()
+    stats = {}
     try:
         if args.integrator == "sppm":
             state = None
@@ -132,8 +142,8 @@ def cmd_render(args) -> int:
                                        checkpoint_cb=cb, device=args.device)
         else:
             img, rays = path_tracer.render(scene, cfg, cfg.seed,
-                                           device=args.device)
-    except NotImplementedError as e:
+                                           device=args.device, stats=stats)
+    except (NotImplementedError, ValueError) as e:
         print(f"raytracer_tpu_torch: {e}", file=sys.stderr)
         return 2
     if img.is_cuda:
@@ -147,6 +157,9 @@ def cmd_render(args) -> int:
         print(f"scene build {t1 - t0:.3f} s; render {t2 - t1:.3f} s on "
               f"{args.device}; {rays} rays ({rays / (t2 - t1) / 1e6:.2f} "
               "Mrays/s)")
+        if args.nee:
+            print(f"{stats['shadow_lanes']} NEE shadow rays (not counted "
+                  "as rays)")
     print(f"wrote {cfg.output}")
     return 0
 

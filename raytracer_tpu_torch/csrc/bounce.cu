@@ -21,20 +21,22 @@
 //     because TPU gathers are slow);
 //   * a block whose lanes are all dead skips the sweep; a dead lane inside
 //     a live block takes no part in it and writes the miss outputs.
+// The sweep is sweep.cuh's, shared with the closest-hit kernel
+// (closest.cu); the bounce calls it with t_max = BIG.
 // Compiled without --use_fast_math: the checker texture takes sin() of
 // world coordinates, far outside [-pi, pi], where __sinf is inaccurate.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sweep.cuh"
+
 namespace {
 
-constexpr float BIG = 3.0e38f;
 constexpr float TWO_PI = 6.283185307179586f;
 constexpr float FRAC_1_PI = 0.3183098861837907f;
 constexpr int BLOCK = 128;
-constexpr int TILE_FLOATS = 4096;            // 16 KB staging tile
-constexpr int SPH_W = 4, RECT_W = 8, TRI_W = 16, MAT_W = 12;
+constexpr int MAT_W = 12;
 constexpr int INTER_DIFFUSE = 0, INTER_SPECULAR = 1, INTER_ABSORB = 2,
               INTER_REFLECT = 3, INTER_REFRACT = 4;
 
@@ -43,14 +45,6 @@ __device__ __forceinline__ void unit3(float& x, float& y, float& z) {
   x *= inv;
   y *= inv;
   z *= inv;
-}
-
-// Copy rows [base, base + cnt) of a table with `width` floats per row into
-// the shared tile (whole block, coalesced float loads).
-__device__ __forceinline__ void stage(float* tile, const float* table,
-                                      int base, int cnt, int width) {
-  const float* src = table + (size_t)base * width;
-  for (int k = threadIdx.x; k < cnt * width; k += BLOCK) tile[k] = src[k];
 }
 
 __global__ void __launch_bounds__(BLOCK) bounce_kernel(
@@ -76,103 +70,11 @@ __global__ void __launch_bounds__(BLOCK) bounce_kernel(
     ox = o[i]; oy = o[n + i]; oz = o[2 * n + i];
     dx = d[i]; dy = d[n + i]; dz = d[2 * n + i];
   }
-  float best_t = BIG, best_b1 = 0.f, best_b2 = 0.f;
-  int best_ty = -1, best_ix = 0;
-
-  if (__syncthreads_or(live)) {
-    // ---- spheres: direct oc = o - c quadratic (no |o|^2 - 2 o.c form,
-    // which cancels catastrophically at large coordinates)
-    const float a = dx * dx + dy * dy + dz * dz;
-    const float inv_a = 1.0f / a;
-    const int sph_tile = TILE_FLOATS / SPH_W;
-    for (int base = 0; base < n_sph; base += sph_tile) {
-      const int cnt = min(sph_tile, n_sph - base);
-      __syncthreads();
-      stage(tile, sph, base, cnt, SPH_W);
-      __syncthreads();
-      if (!live) continue;
-      const float4* s4 = reinterpret_cast<const float4*>(tile);
-      for (int j = 0; j < cnt; ++j) {
-        const float4 s = s4[j];
-        const float ocx = ox - s.x, ocy = oy - s.y, ocz = oz - s.z;
-        const float half_b = dx * ocx + dy * ocy + dz * ocz;
-        const float c = ocx * ocx + ocy * ocy + ocz * ocz - s.w;
-        const float disc = half_b * half_b - a * c;
-        if (disc >= 0.f) {
-          const float sq = sqrtf(disc);
-          const float r1 = (-half_b - sq) * inv_a;
-          const float r2 = (-half_b + sq) * inv_a;
-          const float t = (r1 >= tmin && r1 <= BIG) ? r1
-                        : ((r2 >= tmin && r2 <= BIG) ? r2 : BIG);
-          if (t < best_t) {
-            best_t = t;
-            best_ty = 0;
-            best_ix = base + j;
-          }
-        }
-      }
-    }
-
-    // ---- axis-aligned rects: plane solve, inclusive bounds
-    const int rect_tile = TILE_FLOATS / RECT_W;
-    for (int base = 0; base < n_rect; base += rect_tile) {
-      const int cnt = min(rect_tile, n_rect - base);
-      __syncthreads();
-      stage(tile, rect, base, cnt, RECT_W);
-      __syncthreads();
-      if (!live) continue;
-      for (int j = 0; j < cnt; ++j) {
-        const float* r = tile + j * RECT_W;
-        const int axis = (int)r[0];
-        const float d_n = axis == 0 ? dx : (axis == 1 ? dy : dz);
-        const float o_n = axis == 0 ? ox : (axis == 1 ? oy : oz);
-        const bool safe = fabsf(d_n) > 1e-12f;
-        const float t = (r[1] - o_n) / (safe ? d_n : 1.0f);
-        const float pa = (axis == 0 ? oy : ox) + t * (axis == 0 ? dy : dx);
-        const float pb = (axis == 2 ? oy : oz) + t * (axis == 2 ? dy : dz);
-        const bool ok = safe && pa >= r[2] && pa <= r[3] && pb >= r[4] &&
-                        pb <= r[5] && t >= tmin && t <= BIG;
-        if (ok && t < best_t) {
-          best_t = t;
-          best_ty = 1;
-          best_ix = base + j;
-        }
-      }
-    }
-
-    // ---- triangles: scalar-triple-product Moller-Trumbore
-    const float oxd_x = oy * dz - oz * dy;
-    const float oxd_y = oz * dx - ox * dz;
-    const float oxd_z = ox * dy - oy * dx;
-    const int tri_tile = TILE_FLOATS / TRI_W;
-    for (int base = 0; base < n_tri; base += tri_tile) {
-      const int cnt = min(tri_tile, n_tri - base);
-      __syncthreads();
-      stage(tile, tri, base, cnt, TRI_W);
-      __syncthreads();
-      if (!live) continue;
-      for (int j = 0; j < cnt; ++j) {
-        const float* q = tile + j * TRI_W;
-        const float div = -(dx * q[0] + dy * q[1] + dz * q[2]);
-        if (div == 0.f) continue;
-        const float inv = 1.0f / div;
-        const float b1 = ((oxd_x * q[6] + oxd_y * q[7] + oxd_z * q[8]) -
-                          (dx * q[9] + dy * q[10] + dz * q[11])) * inv;
-        const float b2 = (-(oxd_x * q[3] + oxd_y * q[4] + oxd_z * q[5]) +
-                          (dx * q[12] + dy * q[13] + dz * q[14])) * inv;
-        const float t = ((ox * q[0] + oy * q[1] + oz * q[2]) - q[15]) * inv;
-        const bool ok = b1 >= 0.f && b1 <= 1.f && b2 >= 0.f &&
-                        b1 + b2 <= 1.f && t >= tmin && t <= BIG;
-        if (ok && t < best_t) {
-          best_t = t;
-          best_ty = 2;
-          best_ix = base + j;
-          best_b1 = b1;
-          best_b2 = b2;
-        }
-      }
-    }
-  }
+  const Winner w = sweep<BLOCK>(tile, live, Ray{ox, oy, oz, dx, dy, dz,
+                                                  tmin, BIG},
+                                 sph, n_sph, rect, n_rect, tri, n_tri);
+  const float best_t = w.t, best_b1 = w.b1, best_b2 = w.b2;
+  const int best_ty = w.ty, best_ix = w.ix;
   if (!in) return;
 
   // ---- epilogue: the winner's attributes; a miss acts as an all-zero

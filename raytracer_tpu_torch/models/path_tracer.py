@@ -1,6 +1,8 @@
-"""Path tracer entry points: ``render_fn`` (one batch of samples) and
-``render`` (host batches), the PyTorch counterparts of
-``raytracer_tpu/models/path_tracer.py`` on its path-regeneration route.
+"""Path tracer entry points: ``render_fn`` (one batch of samples),
+``render`` (host batches) and ``trace_radiance`` (one wavefront to
+completion), the PyTorch counterparts of
+``raytracer_tpu/models/path_tracer.py`` on its kernel routes, with NEE
+(``nee``) and mixture importance sampling (``mis``).
 
 Every random draw comes from one ``torch.Generator`` seeded from an int.
 The JAX package draws from threefry keys, so the two packages agree in
@@ -11,40 +13,72 @@ from __future__ import annotations
 
 import torch
 
-from raytracer_tpu_torch.models.wavefront_soa import render_regen_soa
+from typing import NamedTuple
+
+from raytracer_tpu_torch.models.wavefront_soa import (
+    render_regen_soa, trace_radiance_soa,
+)
+from raytracer_tpu_torch.ops.dispatch import resolve
 from raytracer_tpu_torch.ops.fused_bounce import pack_tables, unported
 from raytracer_tpu_torch.scene.types import Scene
 from raytracer_tpu_torch.utils.config import RenderConfig
 
 
+class TraceResult(NamedTuple):
+    radiance: torch.Tensor   # (N, 3)
+    rays_traced: int
+
+
 def _resolve(scene: Scene, intersector: str, nee: bool, mis: bool) -> str:
-    """The port's counterpart of ``ops/dispatch.py::_resolve``: only the
-    fused-bounce kernel path exists so far. Anything else raises, naming
-    the ROADMAP item that ports it."""
-    if intersector not in ("auto", "pallas"):
-        raise NotImplementedError(
-            f"intersector {intersector!r} is not ported yet: only the fused "
-            "bounce kernel ('auto'/'pallas') exists (ROADMAP A10, queue B)")
-    if nee or mis:
-        raise NotImplementedError(
-            "NEE and MIS are not ported yet (ROADMAP A6)")
+    """The route of a render: the kernel route ("pallas") for "auto" and
+    "pallas"; other intersectors and the scenes the port cannot render yet
+    raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+    ``nee`` and ``mis`` together raise ``ValueError``, as in the JAX
+    package."""
+    if mis and nee:
+        raise ValueError("--mis and --nee are mutually exclusive")
+    method = resolve(intersector)
     missing = unported(scene)
     if missing:
         raise NotImplementedError("; ".join(missing))
-    return "pallas"
+    return method
+
+
+def trace_radiance(scene: Scene, o, d, generator: torch.Generator, *,
+                   max_depth: int, t_min: float, spawn_eps,
+                   intersector: str = "auto",
+                   russian_roulette: bool = True, nee: bool = False,
+                   mis: bool = False, tables=None) -> TraceResult:
+    """Trace rays ``o``/``d`` (N, 3) to completion (at most ``max_depth``
+    bounces) on their device; returns per-ray radiance (N, 3) and the rays
+    traced. The kernel route only (the JAX package's SoA route,
+    ``trace_radiance_soa``)."""
+    method = _resolve(scene, intersector, nee, mis)
+    scene = scene.to(o.device)
+    if tables is None:
+        tables = pack_tables(scene)
+    rad, rays = trace_radiance_soa(
+        scene, tables, o.T.contiguous(), d.T.contiguous(), generator,
+        max_depth=max_depth, t_min=t_min, spawn_eps=spawn_eps,
+        intersector=method, russian_roulette=russian_roulette, nee=nee,
+        mis=mis)
+    return TraceResult(rad.T, rays)
 
 
 def render_fn(scene: Scene, generator: torch.Generator, *, width: int,
               height: int, spp: int, spp_chunk: int, max_depth: int,
               t_min: float, spawn_eps_rel: float, intersector: str = "auto",
               russian_roulette: bool = True, nee: bool = False,
-              mis: bool = False, device="cuda", tables=None):
+              mis: bool = False, device="cuda", tables=None,
+              stats: dict = None):
     """Render ``spp`` samples of every pixel on ``device`` with the
     regeneration wavefront (``spp_chunk`` lanes per pixel). ``generator``
     must live on that device; ``tables`` may carry ``pack_tables`` of the
-    scene on it from an earlier call. Returns ((H, W, 3) linear image on
-    the device, rays traced as an int)."""
-    _resolve(scene, intersector, nee, mis)
+    scene on it from an earlier call; ``stats``, if given, gets the NEE
+    shadow rays as ``shadow_lanes`` (they are not counted as rays).
+    Returns ((H, W, 3) linear image on the device, rays traced as an
+    int)."""
+    method = _resolve(scene, intersector, nee, mis)
     device = torch.device(device)
     if generator.device.type != device.type:
         raise ValueError(f"generator on {generator.device}, render on "
@@ -58,17 +92,18 @@ def render_fn(scene: Scene, generator: torch.Generator, *, width: int,
         scene, tables, generator, width=width, height=height,
         lanes_per_pixel=spp_chunk, samples_per_lane=n_chunks,
         max_depth=max_depth, t_min=t_min, spawn_eps=spawn_eps,
-        russian_roulette=russian_roulette)
+        intersector=method, russian_roulette=russian_roulette, nee=nee,
+        mis=mis, stats=stats)
     img = accum / (n_chunks * spp_chunk)
     return img.reshape(height, width, 3), rays
 
 
 def render(scene: Scene, config: RenderConfig, seed: int, *,
-           device="cuda"):
+           device="cuda", stats: dict = None):
     """Render ``config`` on ``device``: returns ((H, W, 3) linear image on
     the device, rays traced as an int). The sample budget is split into
     host batches of ``config.host_spp_batch``; ``spp_chunk`` is capped so a
-    wavefront stays under ~1.5M lanes."""
+    wavefront stays under ~1.5M lanes. ``stats``: as for ``render_fn``."""
     device = torch.device(device)
     scene = scene.to(device)
     tables = pack_tables(scene)
@@ -90,7 +125,7 @@ def render(scene: Scene, config: RenderConfig, seed: int, *,
             t_min=config.t_min, spawn_eps_rel=config.spawn_eps_rel,
             intersector=config.intersector,
             russian_roulette=config.russian_roulette, nee=config.nee,
-            mis=config.mis, device=device, tables=tables)
+            mis=config.mis, device=device, tables=tables, stats=stats)
         accum += img * (spp / total)
         rays += r
         done += spp

@@ -52,7 +52,8 @@ class SPPMState(NamedTuple):
     iteration: int         # iterations done
 
 
-def init_state(npix: int, device="cpu") -> SPPMState:
+def init_state(npix: int, device) -> SPPMState:
+    """Zeroed per-pixel statistics of both maps on ``device``."""
     def half():
         return SPPMHalf(torch.zeros((npix, 3), device=device),
                         torch.zeros((npix,), device=device),

@@ -1,12 +1,14 @@
 """Path-regeneration wavefronts on tensors: the path tracer and the SPPM
 passes.
 
-The PyTorch counterpart of ``raytracer_tpu/models/wavefront_soa.py`` for
-the fused-bounce routes: ``camera_rays_soa``, ``block_order``, the drain
-cascade ``_drain_sizes``, ``bounce_step`` and ``render_regen_soa``, and for
-SPPM ``gather_regen_soa``, ``measurement_soa``, ``emit_photons_soa`` and
-``trace_photon_deposits_regen_soa``. NEE, MIS, media and motion blur are not
-ported yet (ROADMAP A6, A7, A9).
+The PyTorch counterpart of ``raytracer_tpu/models/wavefront_soa.py``:
+``camera_rays_soa``, ``block_order``, the drain cascade ``_drain_sizes``,
+``bounce_step`` (fused, and unfused: ``attrs_soa``, ``eval_texture_soa``,
+``scatter_soa``), ``_mis_bounce``, ``trace_radiance_soa`` and
+``render_regen_soa`` with NEE and MIS, and for SPPM ``gather_regen_soa``,
+``measurement_soa``, ``emit_photons_soa`` and
+``trace_photon_deposits_regen_soa``. Media, image and noise textures and
+motion blur are not ported yet (ROADMAP A7, A8, A9).
 
 Lane state is kept as (3, N) rows (origin, direction, throughput, sample
 radiance, accumulated radiance) and (N,) vectors (alive, depth, done), so
@@ -22,12 +24,24 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.ops.fused_bounce import BounceTables, bounce_tables
+from raytracer_tpu_torch.ops import closest_hit
+from raytracer_tpu_torch.ops import mis as mis_ops
+from raytracer_tpu_torch.ops import nee as nee_ops
+from raytracer_tpu_torch.ops.fused_bounce import (
+    BounceTables, _take, _unit3, bounce_tables,
+)
+from raytracer_tpu_torch.ops.lights import light_cols, pick_light
+from raytracer_tpu_torch.ops.sampling import uniform_sphere_from
 from raytracer_tpu_torch.scene.types import (
-    INTER_ABSORB, INTER_DIFFUSE, LIGHT_SPHERE, Camera, Lights,
+    INTER_ABSORB, INTER_DIFFUSE, INTER_REFLECT, INTER_REFRACT,
+    INTER_SPECULAR, LIGHT_SPHERE, MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT,
+    MAT_ISOTROPIC, MAT_LAMBERTIAN, MAT_METAL, PRIM_RECT, PRIM_SPHERE,
+    PRIM_TRIANGLE, TEX_CHECKER, Camera, Lights, Scene,
 )
 
+PI = 3.141592653589793
 TWO_PI = 6.283185307179586
+FRAC_1_PI = 0.3183098861837907
 
 # Per-step uniform rows: one (8, n) draw per step, consumed as in the JAX
 # package. Rows 0-1 are the unit-sphere pair shared by the diffuse bounce
@@ -38,6 +52,8 @@ U_SPH1, U_SPH2, U_DIEL, U_RR = 0, 1, 2, 3
 U_TRACE_ROWS = 4                    # the photon pass stops here
 U_JX, U_JY, U_LR, U_LPHI = 4, 5, 6, 7
 U_REGEN_ROWS = 8
+# With NEE (MIS), nee.NEE_ROWS (mis.MIS_ROWS) more rows follow the loop's
+# own: the JAX package draws them from separate keys (fold 53, fold 61).
 
 RR_START_BOUNCE = 3
 
@@ -108,16 +124,272 @@ def _drain_sizes(n: int):
     return sizes
 
 
+class HitSoA(NamedTuple):
+    """Hit attributes (hit.rs:24-30): (N,) vectors and (3, N) rows."""
+    valid: torch.Tensor   # (N,) bool
+    t: torch.Tensor       # (N,) +inf on a miss
+    p: torch.Tensor       # (3, N) hit point
+    n: torch.Tensor       # (3, N) unit normal, flipped against the ray
+    front: torch.Tensor   # (N,) bool
+    u: torch.Tensor       # (N,) surface uv
+    v: torch.Tensor
+
+
+class FeatSoA(NamedTuple):
+    """The winner's material features."""
+    kind: torch.Tensor      # (N,) int32 MAT_*
+    fuzz: torch.Tensor      # (N,)
+    ir: torch.Tensor        # (N,) at least 1e-6
+    tex_kind: torch.Tensor  # (N,) int32 TEX_*
+    c0: torch.Tensor        # (3, N) texture colour 0
+    c1: torch.Tensor        # (3, N) texture colour 1 (checker)
+    image_id: torch.Tensor  # (N,) int32
+
+
+def attrs_soa(tables: BounceTables, o, d, hit) -> tuple:
+    """Hit attributes and material features of the closest-hit winner
+    ``hit`` (``closest_hit.Closest``: t, type, index, b1, b2), read from the
+    packed tables (JAX ``attrs_soa`` reads them from the kernel's 28 winner
+    slots). ``o``/``d`` (3, N). A miss gives zero normal and features, as
+    the TPU kernel's all-zero winner record does. Returns (HitSoA,
+    FeatSoA)."""
+    valid = torch.isfinite(hit.t)
+    p = o + torch.where(valid, hit.t, 0.0) * d
+    ix = hit.ix.long()
+    is_s = hit.ty == PRIM_SPHERE
+    is_r = hit.ty == PRIM_RECT
+    is_t = hit.ty == PRIM_TRIANGLE
+
+    sph = _take(tables.sph, ix, is_s)
+    inv_r = 1.0 / torch.sqrt(torch.clamp(sph[:, 3], min=1e-20))
+    sn = (p - sph[:, :3].T) * inv_r
+    # rect: axis, k, a0, a1, b0, b1; (a, b) are the two in-plane axes
+    rect = _take(tables.rect, ix, is_r)
+    axis = rect[:, 0]
+    rn = torch.stack([(axis == a).to(p.dtype) for a in range(3)])
+    pa = torch.where(axis == 0, p[1], p[0])
+    pb = torch.where(axis == 2, p[1], p[2])
+    a0, a1, b0, b1 = rect[:, 2], rect[:, 3], rect[:, 4], rect[:, 5]
+    rect_u = (pa - a0) / torch.where(a1 != a0, a1 - a0, 1.0)
+    rect_v = (pb - b0) / torch.where(b1 != b0, b1 - b0, 1.0)
+    nrm = _take(tables.tri_nrm, ix, is_t).T.reshape(3, 3, -1)
+    tb0 = 1.0 - hit.b1 - hit.b2
+    tn = torch.stack(_unit3(*(tb0 * nrm[0] + hit.b1 * nrm[1]
+                              + hit.b2 * nrm[2])))
+
+    no = torch.where(is_s, sn, torch.where(is_r, rn, tn))
+    # sphere uv (sphere.rs:16-21); triangles get (0, 0)
+    theta = torch.arccos(torch.clamp(-sn[1], -1.0, 1.0))
+    phi = torch.atan2(-sn[2], sn[0]) + PI
+    u = torch.where(is_s, phi / TWO_PI, torch.where(is_r, rect_u, 0.0))
+    v = torch.where(is_s, theta / PI, torch.where(is_r, rect_v, 0.0))
+    front = (d * no).sum(0) < 0.0
+    n = torch.stack(_unit3(*(no * torch.where(front, 1.0, -1.0))))
+
+    mid = torch.where(is_s, _take(tables.sph_mat, ix, is_s),
+                      torch.where(is_r, _take(tables.rect_mat, ix, is_r),
+                                  _take(tables.tri_mat, ix, is_t)))
+    feat = _take(tables.mat, mid.long(), valid)
+    i32 = torch.int32
+    feats = FeatSoA(
+        kind=torch.round(feat[:, 0]).to(i32), fuzz=feat[:, 1],
+        ir=torch.clamp(feat[:, 2], min=1e-6),
+        tex_kind=torch.round(feat[:, 3]).to(i32), c0=feat[:, 4:7].T,
+        c1=feat[:, 7:10].T, image_id=torch.round(feat[:, 10]).to(i32))
+    return HitSoA(valid, hit.t, p, n, front, u, v), feats
+
+
+def eval_texture_soa(scene: Scene, f: FeatSoA, h: HitSoA):
+    """The albedo (3, N) of constant and checker textures (the checker
+    picks colour 1 where sin(10x) sin(10y) sin(10z) >= 0). Image and noise
+    textures are not ported yet (ROADMAP A8)."""
+    if scene.images.shape[0] or scene.textures.noise_marker.shape[0]:
+        raise NotImplementedError(
+            "image and noise textures are not ported yet (ROADMAP A8)")
+    sines = (torch.sin(10.0 * h.p[0]) * torch.sin(10.0 * h.p[1])
+             * torch.sin(10.0 * h.p[2]))
+    return torch.where((f.tex_kind == TEX_CHECKER) & (sines >= 0.0), f.c1,
+                       f.c0)
+
+
+class ScatterSoA(NamedTuple):
+    inter: torch.Tensor   # (N,) int32 INTER_*
+    nd: torch.Tensor      # (3, N) scattered direction
+    att: torch.Tensor     # (3, N) attenuation
+    emit: torch.Tensor    # (3, N) emitted radiance
+
+
+def scatter_soa(scene: Scene, uni, d, h: HitSoA, f: FeatSoA) -> ScatterSoA:
+    """materials.scatter on rows (material.rs:92-231 semantics), from the
+    uniform rows U_SPH1, U_SPH2 (the unit-sphere pair shared by the diffuse
+    bounce, the metal fuzz and the isotropic phase: kinds are exclusive per
+    lane) and U_DIEL (the dielectric's reflect choice)."""
+    alb = eval_texture_soa(scene, f, h)
+    n = h.n
+    sph = uniform_sphere_from(uni[U_SPH1], uni[U_SPH2])
+
+    # Lambertian / diffuse light: n + unit sphere, near-zero guard
+    lam = n + sph
+    lam = torch.where((lam * lam).sum(0) < 1e-16, n, lam)
+    # metal: reflect(unit d) + fuzz * unit sphere; absorb below the surface
+    ud = torch.stack(_unit3(*d))
+    dn = (ud * n).sum(0)
+    refl = ud - 2.0 * dn * n
+    met = refl + f.fuzz * sph
+    metal_ok = (met * n).sum(0) > 0.0
+    # dielectric: Schlick + total internal reflection against U_DIEL
+    ratio = torch.where(h.front, 1.0 / f.ir, f.ir)
+    cos_t = torch.clamp(-(ud * n).sum(0), max=1.0)
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    cannot = ratio * sin_t > 1.0
+    r0 = ((1.0 - ratio) / (1.0 + ratio)) ** 2
+    schlick = r0 + (1.0 - r0) * (1.0 - cos_t) ** 5
+    do_refl = cannot | (schlick > uni[U_DIEL])
+    perp = ratio * (ud + cos_t * n)
+    par = -torch.sqrt((1.0 - (perp * perp).sum(0)).abs())
+    die = torch.where(do_refl, refl, perp + par * n)
+
+    is_met = f.kind == MAT_METAL
+    is_die = f.kind == MAT_DIELECTRIC
+    is_lgt = f.kind == MAT_DIFFUSE_LIGHT
+    is_iso = f.kind == MAT_ISOTROPIC
+    diffish = (f.kind == MAT_LAMBERTIAN) | is_lgt
+    nd = torch.where(diffish, lam, torch.where(
+        is_met, met, torch.where(is_iso, sph, die)))
+    att = torch.where(is_lgt, FRAC_1_PI, alb)
+    inter = torch.where(
+        diffish, INTER_DIFFUSE,
+        torch.where(is_met,
+                    torch.where(metal_ok, INTER_SPECULAR, INTER_ABSORB),
+                    torch.where(is_die,
+                                torch.where(do_refl, INTER_REFLECT,
+                                            INTER_REFRACT),
+                                INTER_DIFFUSE)))
+    inter = torch.where(h.valid, inter, INTER_ABSORB).to(torch.int32)
+    emit = torch.where(is_lgt & h.valid, alb, 0.0)
+    return ScatterSoA(inter, nd, att, emit)
+
+
+def use_fused(scene: Scene, intersector: str) -> bool:
+    """The fused bounce kernel serves every scene the JAX package's
+    ``use_fused`` gives it (``bounce_fused_eligible``: no image or noise
+    textures, no media) and also scenes past the TPU kernel's table caps,
+    which the CUDA kernel streams through shared memory."""
+    return (intersector == "pallas" and scene.images.shape[0] == 0
+            and scene.textures.noise_marker.shape[0] == 0
+            and (scene.media is None or scene.media.kind.shape[0] == 0))
+
+
 def bounce_step(tables: BounceTables, uni, o, d, alive, *, t_min: float,
-                spawn_eps) -> Bounce:
-    """Advance one bounce with the fused kernel: intersect + attributes +
-    texture + scatter. ``uni`` holds at least the three scatter rows;
-    ``spawn_eps`` is a 0-d tensor (or float) filling the kernel's fourth
-    uniform row."""
+                spawn_eps, fused: bool = True, scene: Scene = None) -> Bounce:
+    """Advance one bounce: intersect + attributes + texture + scatter.
+    ``uni`` holds at least the three scatter rows; ``spawn_eps`` is a 0-d
+    tensor (or float). The fused path is one kernel launch
+    (``bounce_tables``); the unfused path (``fused=False``, which needs
+    ``scene`` for its textures) is the closest-hit kernel followed by
+    ``attrs_soa`` and ``scatter_soa`` in plain PyTorch. Both consume the
+    same uniform rows and give dead lanes the miss outputs, so they agree
+    lane for lane."""
     n = o.shape[1]
-    eps = torch.as_tensor(spawn_eps, dtype=torch.float32, device=o.device)
-    uni_t = torch.cat([uni[U_SPH1:U_DIEL + 1], eps.expand(1, n)], 0)
-    return Bounce(*bounce_tables(tables, o, d, t_min, alive, uni_t))
+    if fused:
+        eps = torch.as_tensor(spawn_eps, dtype=torch.float32,
+                              device=o.device)
+        uni_t = torch.cat([uni[U_SPH1:U_DIEL + 1], eps.expand(1, n)], 0)
+        return Bounce(*bounce_tables(tables, o, d, t_min, alive, uni_t))
+    hit = closest_hit.closest_tables(tables, o, d, t_min, float("inf"),
+                                     alive)
+    h, f = attrs_soa(tables, o, d, hit)
+    sc = scatter_soa(scene, uni, d, h, f)
+    side = torch.sign((sc.nd * h.n).sum(0)) * spawn_eps
+    return Bounce(sc.inter, h.p + h.n * side, sc.nd, sc.att, sc.emit, h.p,
+                  h.n)
+
+
+def _mis_bounce(lights: Lights, rows, b: Bounce, diffuse_now,
+                spawn_eps) -> Bounce:
+    """``--mis``: resample the diffuse lanes' directions through the 50/50
+    cosine/light mixture (``mis.mixture_reweight`` on ``mis.MIS_ROWS``
+    uniform rows), reweight their attenuation by pdf_cos/pdf_mix and offset
+    the spawn origin against the new direction."""
+    d_new, w = mis_ops.mixture_reweight(lights, rows, b.p, b.n, b.nd,
+                                        diffuse_now)
+    side = torch.sign((d_new * b.n).sum(0)) * spawn_eps
+    return b._replace(att=torch.where(diffuse_now, b.att * w, b.att),
+                      no=torch.where(diffuse_now, b.p + b.n * side, b.no),
+                      nd=torch.where(diffuse_now, d_new, b.nd))
+
+
+def _extra_rows(nee: bool, mis: bool) -> int:
+    return nee_ops.NEE_ROWS if nee else (mis_ops.MIS_ROWS if mis else 0)
+
+
+def _shade(scene, tables, U, base: int, b: Bounce, alive, tput, samp,
+           prev_diff, *, nee: bool, mis: bool, spawn_eps):
+    """The part of a step that NEE and MIS touch, in the JAX loop's order:
+    emission (skipped after a diffuse vertex under NEE), then the MIS
+    resample, then the NEE shadow ray. ``U[base:]`` holds the NEE or MIS
+    rows. Returns (bounce, sample radiance, diffuse lanes, shadow-ray lanes
+    or None)."""
+    emit_ok = alive & ~prev_diff
+    samp = samp + torch.where(emit_ok, tput * b.emit, 0.0)
+    diffuse_now = alive & (b.inter == INTER_DIFFUSE)
+    shadow = None
+    if mis:
+        b = _mis_bounce(scene.lights, U[base:base + mis_ops.MIS_ROWS], b,
+                        diffuse_now, spawn_eps)
+    if nee:
+        dl, shadow = nee_ops.direct_light(
+            scene, tables, U[base:base + nee_ops.NEE_ROWS], b.p, b.n, b.att,
+            diffuse_now, alive=alive)
+        samp = samp + torch.where(diffuse_now, tput * dl, 0.0)
+    return b, samp, diffuse_now, shadow
+
+
+def trace_radiance_soa(scene: Scene, tables: BounceTables, o, d,
+                       gen: torch.Generator, *, max_depth: int,
+                       t_min: float, spawn_eps, intersector: str = "pallas",
+                       russian_roulette: bool = True, nee: bool = False,
+                       mis: bool = False):
+    """Trace a wavefront of rays ``o``/``d`` (3, N) to completion, at most
+    ``max_depth`` bounces, with no regeneration (the loop of the JAX NEE and
+    MIS oracles). One host sync per step for the loop condition. Returns
+    ((3, N) radiance, rays traced as an int: alive lanes summed over
+    steps)."""
+    n = o.shape[1]
+    dev = o.device
+    fused = use_fused(scene, intersector)
+    tput = torch.ones((3, n), device=dev)
+    rad = torch.zeros((3, n), device=dev)
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    prev_diff = torch.zeros_like(alive)
+    rays = 0
+    step = 0
+    while step < max_depth:
+        n_alive = int(alive.sum())
+        if n_alive == 0:
+            break
+        rays += n_alive
+        U = torch.rand((U_TRACE_ROWS + _extra_rows(nee, mis), n),
+                       generator=gen, device=dev)
+        b = bounce_step(tables, U, o, d, alive, t_min=t_min,
+                        spawn_eps=spawn_eps, fused=fused, scene=scene)
+        b, rad, diffuse_now, _ = _shade(
+            scene, tables, U, U_TRACE_ROWS, b, alive, tput, rad, prev_diff,
+            nee=nee, mis=mis, spawn_eps=spawn_eps)
+        cont = alive & (b.inter != INTER_ABSORB)
+        tput = torch.where(cont, tput * b.att, tput)
+        if russian_roulette and step >= RR_START_BOUNCE:
+            p_surv = torch.clamp(tput.amax(0), 0.05, 1.0)
+            survive = U[U_RR] < p_surv
+            tput = tput * torch.where(cont & survive, 1.0 / p_surv, 1.0)
+            cont = cont & survive
+        o = torch.where(cont, b.no, o)
+        d = torch.where(cont, b.nd, d)
+        if nee:
+            prev_diff = diffuse_now
+        alive = cont
+        step += 1
+    return rad, rays
 
 
 class _Lanes(NamedTuple):
@@ -133,25 +405,31 @@ class _Lanes(NamedTuple):
     px: torch.Tensor      # (n,) f32 pixel x
     py: torch.Tensor      # (n,) f32 pixel y
     slot: torch.Tensor    # (n,) int64 output slot
+    # (n,) bool: the last bounce was diffuse and NEE already counted the
+    # light it would find (gates emission; cleared on respawn)
+    prev_diff: torch.Tensor
     # (3, n) the pixel's SPPM density estimate (final gather only)
     est: Optional[torch.Tensor] = None
 
 
-def _step(s: _Lanes, tables, cam, gen, *, width, height, quota, max_depth,
-          t_min, spawn_eps, russian_roulette):
-    """One regeneration step: bounce, accumulate emission, update the
-    throughput, Russian roulette, retire and respawn camera rays. With
-    ``s.est`` (the SPPM final gather, photon_mapper.rs:326-365) the first
-    diffuse hit adds the pixel's density estimate and ends the sample."""
+def _step(s: _Lanes, tables, scene, gen, *, width, height, quota, max_depth,
+          t_min, spawn_eps, russian_roulette, fused, nee, mis):
+    """One regeneration step: bounce, accumulate emission, MIS resample,
+    NEE, update the throughput, Russian roulette, retire and respawn camera
+    rays. With ``s.est`` (the SPPM final gather, photon_mapper.rs:326-365)
+    the first diffuse hit adds the pixel's density estimate and ends the
+    sample. Returns (lanes, shadow-ray lanes of the step or None)."""
     nl = s.o.shape[1]
-    U = torch.rand((U_REGEN_ROWS, nl), generator=gen, device=s.o.device)
+    U = torch.rand((U_REGEN_ROWS + _extra_rows(nee, mis), nl), generator=gen,
+                   device=s.o.device)
     b = bounce_step(tables, U, s.o, s.d, s.alive, t_min=t_min,
-                    spawn_eps=spawn_eps)
+                    spawn_eps=spawn_eps, fused=fused, scene=scene)
     alive = s.alive
-    samp = s.samp + torch.where(alive, s.tput * b.emit, 0.0)
+    b, samp, diffuse_now, shadow = _shade(
+        scene, tables, U, U_REGEN_ROWS, b, alive, s.tput, s.samp,
+        s.prev_diff, nee=nee, mis=mis, spawn_eps=spawn_eps)
     cont = alive & (b.inter != INTER_ABSORB)
     if s.est is not None:
-        diffuse_now = alive & (b.inter == INTER_DIFFUSE)
         samp = samp + torch.where(diffuse_now, s.tput * s.est, 0.0)
         cont = cont & ~diffuse_now
     tput = torch.where(cont, s.tput * b.att, s.tput)
@@ -168,28 +446,35 @@ def _step(s: _Lanes, tables, cam, gen, *, width, height, quota, max_depth,
     acc = s.acc + torch.where(retire, samp, 0.0)
     done = s.done + retire.to(torch.int32)
     regen = retire & (done < quota)
-    co, cd = camera_rays_soa(cam, s.px, s.py, width, height,
+    co, cd = camera_rays_soa(scene.camera, s.px, s.py, width, height,
                              U[U_JX:U_LPHI + 1])
     o = torch.where(regen, co, torch.where(cont, b.no, s.o))
     d = torch.where(regen, cd, torch.where(cont, b.nd, s.d))
+    prev_diff = (diffuse_now if nee else s.prev_diff) & ~regen
     return s._replace(
         o=o, d=d, tput=torch.where(regen, 1.0, tput),
         samp=torch.where(regen, 0.0, samp), acc=acc,
         alive=(alive & cont) | regen,
-        depth=torch.where(regen, 0, depth), done=done)
+        depth=torch.where(regen, 0, depth), done=done,
+        prev_diff=prev_diff), shadow
 
 
 def render_regen_soa(scene, tables: BounceTables, gen: torch.Generator, *,
                      width: int, height: int, lanes_per_pixel: int,
                      samples_per_lane: int, max_depth: int, t_min: float,
-                     spawn_eps, russian_roulette: bool = True, est=None):
+                     spawn_eps, intersector: str = "pallas",
+                     russian_roulette: bool = True, nee: bool = False,
+                     mis: bool = False, est=None, stats: dict = None):
     """Path-regeneration wavefront renderer. When a lane's sample retires
     (miss, absorb, RR kill or depth cap) the lane spawns its pixel's next
     sample at once. Lane l serves pixel slot l % npix for
     ``samples_per_lane`` samples, so per-pixel spp = lanes_per_pixel *
     samples_per_lane. Stragglers drain through the compaction cascade of
     ``_drain_sizes``. ``est`` (npix, 3), pixel-ordered: the SPPM density
-    estimates of ``gather_regen_soa``.
+    estimates of ``gather_regen_soa``. ``nee``/``mis`` add next-event
+    estimation or the mixture resample at diffuse vertices. ``stats``, if
+    given, gets ``shadow_lanes``: the NEE shadow rays cast, which are not
+    counted as rays.
 
     Returns ((npix, 3) radiance sum over all samples in pixel order, rays
     traced (alive lanes summed over steps, an int), loop steps)."""
@@ -210,15 +495,17 @@ def render_regen_soa(scene, tables: BounceTables, gen: torch.Generator, *,
     zeros = torch.zeros((3, n), device=dev)
     izero = torch.zeros((n,), dtype=torch.int32, device=dev)
     lane_est = None if est is None else est[slots][slot_id].T.contiguous()
-    s = _Lanes(o0, d0, ones, zeros, zeros.clone(),
-               torch.ones((n,), dtype=torch.bool, device=dev), izero,
-               izero.clone(), px, py, slot_id, lane_est)
+    alive0 = torch.ones((n,), dtype=torch.bool, device=dev)
+    s = _Lanes(o0, d0, ones, zeros, zeros.clone(), alive0, izero,
+               izero.clone(), px, py, slot_id, ~alive0, lane_est)
     kw = dict(width=width, height=height, quota=samples_per_lane,
               max_depth=max_depth, t_min=t_min, spawn_eps=spawn_eps,
-              russian_roulette=russian_roulette)
+              russian_roulette=russian_roulette,
+              fused=use_fused(scene, intersector), nee=nee, mis=mis)
 
     rays = 0      # a Python int: exact at any count
     steps = 0
+    shadow = torch.zeros((), dtype=torch.int64, device=dev)
     accum = torch.zeros((3, n_out), device=dev)
     sizes = _drain_sizes(n)
     for level, floor in enumerate(sizes[1:] + [0]):
@@ -227,7 +514,9 @@ def render_regen_soa(scene, tables: BounceTables, gen: torch.Generator, *,
             if n_alive <= floor:
                 break
             rays += n_alive
-            s = _step(s, tables, cam, gen, **kw)
+            s, cast = _step(s, tables, scene, gen, **kw)
+            if cast is not None:
+                shadow += cast.sum()
             steps += 1
         if level == 0:
             # level 0 keeps its static lane -> slot map: a reshape-sum
@@ -240,6 +529,8 @@ def render_regen_soa(scene, tables: BounceTables, gen: torch.Generator, *,
             idx = torch.argsort((~s.alive).to(torch.int8), stable=True)[:floor]
             s = _Lanes(*(None if x is None else x[..., idx] for x in s))
             s = s._replace(acc=torch.zeros_like(s.acc))
+    if stats is not None:
+        stats["shadow_lanes"] = stats.get("shadow_lanes", 0) + int(shadow)
     return accum.T[torch.as_tensor(inv, device=dev).long()], rays, steps
 
 
@@ -300,15 +591,6 @@ def measurement_soa(tables: BounceTables, gen: torch.Generator, o, d, *,
                          bsdf.T.contiguous())
 
 
-def _sphere_from(u1, u2):
-    """Uniform unit-sphere point (3, N) from two uniform rows (the z/phi
-    construction of the JAX ``_uniform_sphere``)."""
-    z = 1.0 - 2.0 * u1
-    phi = TWO_PI * u2
-    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
-    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z])
-
-
 def emit_photons_soa(lights: Lights, gen: torch.Generator, n: int):
     """Photon emission (light.rs:98-103, 158-166, 220-225): a light picked
     in proportion to its power (inverse CDF over ``exp(log_prob)``), a point
@@ -318,18 +600,16 @@ def emit_photons_soa(lights: Lights, gen: torch.Generator, n: int):
     direction, power), each (3, n)."""
     dev = lights.p0.device
     U = torch.rand((7, n), generator=gen, device=dev)
-    cdf = torch.cumsum(torch.softmax(lights.log_prob.double(), 0), 0)
-    idx = torch.searchsorted(cdf.float(), U[0], right=True)
-    idx = idx.clamp(max=lights.kind.shape[0] - 1)
+    idx = pick_light(lights, U[0])
     # (3, n) rows gathered from (3, L) columns come out contiguous, as the
     # bounce kernel takes them
-    p0 = lights.p0.T[:, idx]
-    p1 = lights.p1.T[:, idx]
+    p0 = light_cols(lights.p0, idx)
+    p1 = light_cols(lights.p1, idx)
     r0 = lights.r0[idx]
-    base = (lights.flux * lights.scale[:, None]).T[:, idx]
+    base = light_cols(lights.flux * lights.scale[:, None], idx)
 
     # sphere lights: uniform surface normal, origin = centre + n (r + 1e-4)
-    sn = _sphere_from(U[1], U[2])
+    sn = uniform_sphere_from(U[1], U[2])
     s_origin = p0 + sn * (r0 + 1e-4)
     # xz-rect lights: a point of the rect, normal straight down
     r_origin = torch.stack([p0[0] + (p1[0] - p0[0]) * U[5], p0[1],
@@ -339,7 +619,7 @@ def emit_photons_soa(lights: Lights, gen: torch.Generator, n: int):
     nrm = torch.where(is_sph, sn, down)
     origin = torch.where(is_sph, s_origin, r_origin)
     # one hemisphere draw around the chosen normal serves both kinds
-    h = _sphere_from(U[3], U[4])
+    h = uniform_sphere_from(U[3], U[4])
     d = h * torch.where((h * nrm).sum(0) > 0.0, 1.0, -1.0)
     w_scale = torch.where(is_sph, 1.0, torch.clamp(-d[1], min=0.0))
     return origin, d, base * w_scale

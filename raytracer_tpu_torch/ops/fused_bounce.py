@@ -37,7 +37,7 @@ from raytracer_tpu_torch.scene.types import (
     MAT_METAL, PRIM_RECT, PRIM_SPHERE, PRIM_TRIANGLE, Scene, TEX_CHECKER,
 )
 
-BIG = 3.0e38          # the kernel's "no hit" t; the bounce ignores any tmax
+BIG = 3.0e38          # the kernels' "no hit" t; the bounce sweeps to it
 TWO_PI = 6.283185307179586
 FRAC_1_PI = 0.3183098861837907
 # plain version: at most this many (ray, primitive) pairs per chunk
@@ -115,16 +115,27 @@ def pack_tables(scene: Scene) -> BounceTables:
 
 # --------------------------------------------------------------- plain
 
-def _closest_plain(tab: BounceTables, o, d, t_min: float, alive):
-    """Brute-force chunked closest hit. Returns (best_t, best_ty, best_ix,
-    b1, b2), each (N,); dead lanes miss (ty = -1)."""
+def _closest_plain(tab: BounceTables, o, d, t_min, alive, t_max=BIG):
+    """Brute-force chunked closest hit. ``t_min`` and ``t_max`` are floats
+    or (N,) tensors; a candidate counts when t_min <= t <= min(t_max, BIG)
+    and the fold starts at best_t = min(t_max, BIG) and takes only t <
+    best_t (the TPU kernel's rule), so a hit lies strictly below t_max.
+    Returns (best_t, best_ty, best_ix, b1, b2), each (N,); dead lanes and
+    misses have ty = -1 and best_t = min(t_max, BIG)."""
     n = o.shape[1]
     dev = o.device
     ox, oy, oz = (x[:, None] for x in o)
     dx, dy, dz = (x[:, None] for x in d)
     a = dx * dx + dy * dy + dz * dz
     inv_a = 1.0 / a
-    best_t = torch.full((n,), BIG, device=dev)
+    if torch.is_tensor(t_min):
+        t_min = t_min.to(torch.float32)[:, None]
+    if torch.is_tensor(t_max):
+        best_t = torch.clamp(t_max.to(torch.float32), max=BIG)
+        t_max = best_t[:, None].clone()
+    else:
+        t_max = min(float(t_max), BIG)
+        best_t = torch.full((n,), t_max, device=dev)
     best_ty = torch.full((n,), -1, dtype=torch.int32, device=dev)
     best_ix = torch.zeros((n,), dtype=torch.int64, device=dev)
     best_b1 = torch.zeros((n,), device=dev)
@@ -158,8 +169,8 @@ def _closest_plain(tab: BounceTables, o, d, t_min: float, alive):
         sq = torch.sqrt(torch.clamp(disc, min=0.0))
         r1 = (-half_b - sq) * inv_a
         r2 = (-half_b + sq) * inv_a
-        ok1 = (r1 >= t_min) & (r1 <= BIG)
-        ok2 = (r2 >= t_min) & (r2 <= BIG)
+        ok1 = (r1 >= t_min) & (r1 <= t_max)
+        ok2 = (r2 >= t_min) & (r2 <= t_max)
         t = torch.where(ok1, r1, torch.where(ok2, r2, BIG))
         fold(t, disc >= 0.0, PRIM_SPHERE, j0)
 
@@ -176,7 +187,7 @@ def _closest_plain(tab: BounceTables, o, d, t_min: float, alive):
         pb = o3[:, b_ax] + t * d3[:, b_ax]
         ok = (safe & (pa >= blk[None, :, 2]) & (pa <= blk[None, :, 3])
               & (pb >= blk[None, :, 4]) & (pb <= blk[None, :, 5])
-              & (t >= t_min) & (t <= BIG))
+              & (t >= t_min) & (t <= t_max))
         fold(t, ok, PRIM_RECT, j0)
 
     oxd_x = oy * dz - oz * dy
@@ -195,7 +206,7 @@ def _closest_plain(tab: BounceTables, o, d, t_min: float, alive):
               + (dx * w1x + dy * w1y + dz * w1z)) * inv
         t = ((ox * ngx + oy * ngy + oz * ngz) - v0n) * inv
         ok = (safe & (b1 >= 0.0) & (b1 <= 1.0) & (b2 >= 0.0)
-              & (b1 + b2 <= 1.0) & (t >= t_min) & (t <= BIG))
+              & (b1 + b2 <= 1.0) & (t >= t_min) & (t <= t_max))
         fold(t, ok, PRIM_TRIANGLE, j0, b1, b2)
     return best_t, best_ty, best_ix, best_b1, best_b2
 
@@ -363,13 +374,13 @@ def _lib():
     return lib
 
 
-def _check(name, x, dev, dtype, shape):
+def _check(name, x, dev, dtype, shape, who="bounce"):
     if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
         raise ValueError(
-            f"bounce: {name} must be {dtype} {shape} on {dev}, got "
+            f"{who}: {name} must be {dtype} {shape} on {dev}, got "
             f"{x.dtype} {tuple(x.shape)} on {x.device}")
     if not x.is_contiguous():
-        raise ValueError(f"bounce: {name} must be contiguous")
+        raise ValueError(f"{who}: {name} must be contiguous")
 
 
 def _bounce_cuda(tab: BounceTables, o_t, d_t, t_min: float, alive, uni_t):

@@ -1,0 +1,119 @@
+"""Next-event estimation for the path tracer's ``--nee`` mode: the
+counterpart of ``raytracer_tpu/ops/nee.py::direct_light``, on (3, N) rows.
+
+At each diffuse vertex a lane picks ONE light by the power-proportional
+categorical and casts one shadow ray toward a point sampled on it; the
+contribution is weighted by 1/prob, so its mean is the sum over lights:
+
+    L_d = Le * (albedo/pi) * cos(theta) * cos(theta') / r^2 / pdf_area / prob
+
+with pdf_area = 1/A (rect) or 1/(2 pi r0^2) (sphere, hemisphere facing the
+shading point). The tracer skips emission on rays that left a diffuse
+vertex, so light is counted once. The reference's quirks are kept:
+
+- the geometry (distance and both cosines) is measured from the TRUE
+  surface point; only the shadow ray's origin is offset, by
+  ``eps_sh = min(1e-4 * scale, 0.1 * dist)`` along the normal;
+- the shadow ray keeps the absolute ``t_min = 1e-3`` and ends at
+  ``t_max = 0.999 * dist_sh`` (strictly below it, the closest-hit rule);
+- rect lights emit two-sided, so their cosine is |cos|;
+- no light table (zero lights) gives zero direct light.
+
+The estimator is split in two so that a test can feed it the JAX package's
+own draws: ``nee_draws`` turns uniform rows into (light index, uniforms),
+and ``direct_light_from`` is a deterministic function of those, the
+shading point and the tables. ``sample_li`` (the reference's never-called
+estimator) is not ported (ROADMAP A6).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raytracer_tpu_torch.ops import closest_hit
+from raytracer_tpu_torch.ops.lights import light_cols, pick_light
+from raytracer_tpu_torch.ops.sampling import uniform_hemisphere, unit
+from raytracer_tpu_torch.scene.types import LIGHT_SPHERE, Scene
+
+PI = 3.141592653589793
+NEE_ROWS = 5            # uniform rows per step: pick, hemisphere (2), rect uv
+SHADOW_T_MIN = 1e-3     # absolute, as in the JAX package (ROADMAP C)
+SHADOW_T_MAX_REL = 0.999
+
+
+def nee_draws(lights, rows):
+    """The draw step: (light index (N,) int64, uniforms (4, N)) from
+    ``NEE_ROWS`` uniform rows: row 0 picks the light, rows 1-2 the
+    hemisphere point of a sphere light, rows 3-4 the uv of a rect light."""
+    return pick_light(lights, rows[0]), rows[1:NEE_ROWS]
+
+
+def direct_light_from(scene: Scene, tables, idx, uni, p, normal, albedo,
+                      valid, alive=None):
+    """The deterministic part of NEE. ``idx`` (N,) light per lane, ``uni``
+    (4, N) as ``nee_draws`` makes them; ``p``, ``normal``, ``albedo`` (3, N)
+    rows of the shading point; ``valid`` (N,) bool: the lanes that shade
+    (diffuse vertices); ``alive`` (N,) bool or None. ``tables``:
+    ``fused_bounce.pack_tables`` of ``scene`` for the shadow rays.
+
+    Returns (direct radiance (3, N), the lanes that cast a shadow ray (N,)
+    bool)."""
+    lights = scene.lights
+    n = p.shape[1]
+    if lights.kind.shape[0] == 0:
+        return (torch.zeros((3, n), device=p.device),
+                torch.zeros((n,), dtype=torch.bool, device=p.device))
+    inv_prob = torch.exp(-lights.log_prob)[idx]
+    is_sph = lights.kind[idx] == LIGHT_SPHERE
+    p0 = light_cols(lights.p0, idx)
+    p1 = light_cols(lights.p1, idx)
+    r0 = lights.r0[idx]
+    flux = light_cols(lights.flux, idx)
+
+    # sphere: uniform point on the hemisphere facing the shading point
+    sph_pt = p0 + uniform_hemisphere(uni[0], uni[1], unit(p - p0)) * r0
+    sph_n = unit(sph_pt - p0)
+    sph_inv_pdf = 2.0 * PI * r0 * r0
+    # rect (XZ plane at y = p0.y, normal facing down, light.rs:158-166)
+    rect_pt = torch.stack([p0[0] + (p1[0] - p0[0]) * uni[2], p0[1],
+                           p0[2] + (p1[2] - p0[2]) * uni[3]])
+    rect_n = torch.tensor([0.0, -1.0, 0.0], device=p.device)[:, None]
+    rect_inv_pdf = torch.abs((p1[0] - p0[0]) * (p1[2] - p0[2]))
+    point = torch.where(is_sph, sph_pt, rect_pt)
+    n_l = torch.where(is_sph, sph_n, rect_n)
+    inv_pdf = torch.where(is_sph, sph_inv_pdf, rect_inv_pdf)
+
+    # geometry from the true surface point
+    to_light = point - p
+    dist2 = torch.clamp((to_light * to_light).sum(0), min=1e-12)
+    dist = torch.sqrt(dist2)
+    dir_ = to_light / dist
+    cos_p = torch.clamp((normal * dir_).sum(0), min=0.0)
+    cos_lr = (n_l * -dir_).sum(0)
+    cos_l = torch.where(is_sph, torch.clamp(cos_lr, min=0.0), cos_lr.abs())
+    geom = cos_p * cos_l / dist2 * inv_pdf
+    candidate = valid & (geom > 0.0)
+
+    # the shadow ray: offset origin, absolute t_min, strict 0.999 * dist end
+    eps_sh = torch.minimum(1e-4 * scene.scale, 0.1 * dist)
+    p_sh = p + normal * eps_sh
+    to_sh = point - p_sh
+    dist_sh = torch.sqrt(torch.clamp((to_sh * to_sh).sum(0), min=1e-12))
+    dir_sh = to_sh / dist_sh
+    cast = candidate if alive is None else candidate & alive
+    hit = closest_hit.closest_tables(
+        tables, p_sh.contiguous(), dir_sh.contiguous(), SHADOW_T_MIN,
+        (dist_sh * SHADOW_T_MAX_REL).contiguous(), cast.contiguous())
+    visible = ~torch.isfinite(hit.t)
+    contrib = flux * inv_prob * (albedo / PI) * geom
+    return torch.where(visible & candidate, contrib, 0.0), cast
+
+
+def direct_light(scene: Scene, tables, rows, p, normal, albedo, valid,
+                 alive=None):
+    """NEE from ``NEE_ROWS`` uniform rows (``nee_draws`` then
+    ``direct_light_from``). Returns (direct radiance (3, N), shadow-ray
+    lanes (N,) bool)."""
+    idx, uni = nee_draws(scene.lights, rows)
+    return direct_light_from(scene, tables, idx, uni, p, normal, albedo,
+                             valid, alive)

@@ -102,14 +102,15 @@ def test_camera_rays_match_jax(name):
                                rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(nee=True), "A6"), (dict(mis=True), "A6"),
-    (dict(intersector="leaf"), "A10")])
-def test_render_fn_refuses_unported_options(kw, item):
+@pytest.mark.parametrize("kw,error,item", [
+    (dict(nee=True, mis=True), ValueError, "mutually exclusive"),
+    (dict(intersector="bvh"), NotImplementedError, "A10"),
+    (dict(intersector="leaf"), NotImplementedError, "A10")])
+def test_render_fn_refuses_unported_options(kw, error, item):
     scene = tbuiltin.three_spheres(1.0)
     base = dict(width=4, height=4, spp=1, spp_chunk=1, max_depth=2,
                 t_min=1e-3, spawn_eps_rel=1e-5, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=item):
         path_tracer.render_fn(scene, torch.Generator(), **{**base, **kw})
 
 
@@ -152,9 +153,12 @@ def test_cli_renders_png(tmp_path):
     assert "rays" in res.stdout
 
 
-@pytest.mark.parametrize("args", [["--preset", "ci"], ["--nee"],
+@pytest.mark.parametrize("args", [["--preset", "ci"], ["--nee", "--mis"],
                                   ["--sharded"]])
 def test_cli_refuses_unported(args):
+    """Unported flags exit non-zero naming their ROADMAP item; --nee with
+    --mis exits non-zero with the JAX package's message."""
     res = _cli(*args, "--device", "cpu")
     assert res.returncode != 0
-    assert "ROADMAP" in res.stderr
+    assert ("mutually exclusive" if "--mis" in args else "ROADMAP") \
+        in res.stderr
