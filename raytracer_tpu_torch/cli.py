@@ -34,8 +34,9 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="command", required=True)
     r = sub.add_parser("render", help="render a scene to a PNG")
     r.add_argument("--scene", default="cornell",
-                   help="'cornell', 'spheres', 'field[:N]' (N-sphere field) "
-                        "or a data/*.json|yaml path")
+                   help="'cornell', 'spheres', 'field[:N]' (N-sphere field), "
+                        "'bunnies[:N]' (N bunnies) or a data/*.json|yaml "
+                        "path")
     r.add_argument("--integrator", choices=["pt", "sppm"], default="pt",
                    help="path tracer or SPPM (the reference's algorithm)")
     r.add_argument("--width", type=int, default=800)
@@ -83,11 +84,23 @@ def load_scene_arg(name: str, aspect: float):
         return builtin.cornell_box(aspect_ratio=aspect)
     if name == "spheres":
         return builtin.three_spheres(aspect_ratio=aspect)
-    if name == "field" or name.startswith("field:"):
-        n = int(name.split(":", 1)[1]) if ":" in name else 65536
+
+    def count(default: int) -> int:
+        if ":" not in name:
+            return default
+        try:
+            n = int(name.split(":", 1)[1])
+        except ValueError:
+            n = 0
         if n < 1:
-            raise SystemExit(f"--scene {name!r}: expected a positive count")
-        return builtin.sphere_field(n, aspect_ratio=aspect)
+            raise SystemExit(
+                f"--scene {name!r}: expected a positive integer after ':'")
+        return n
+
+    if name == "field" or name.startswith("field:"):
+        return builtin.sphere_field(count(65536), aspect_ratio=aspect)
+    if name == "bunnies" or name.startswith("bunnies:"):
+        return builtin.bunny_field(count(25), aspect_ratio=aspect)
     from raytracer_tpu_torch.scene.loader import load_scene
     return load_scene(name, aspect_ratio=aspect)
 
@@ -117,6 +130,9 @@ def cmd_render(args) -> int:
                         alpha=args.sppm_alpha))
     t0 = time.perf_counter()
     scene = load_scene_arg(args.scene, cfg.width / cfg.height)
+    if args.intersector == "leaf":
+        from raytracer_tpu_torch.ops.leaf import build_leaf_tables
+        scene = scene._replace(leaf=build_leaf_tables(scene))
     t1 = time.perf_counter()
     stats = {}
     try:

@@ -1,0 +1,101 @@
+// Ordered closest hit for Hopper (sm_90a): the closest-hit kernel
+// (closest.cu) with the near-to-far superchunk walk for a sphere or
+// triangle table that ops/ordered.py sorted; one thread per ray, per-ray
+// t_min, t_max and alive mask.
+//
+// Replaces raytracer_tpu/ops/pallas_intersect.py::_closest_kernel_ordered
+// (reached through _call_kernel_ordered / _call_kernel / _run), whose plain
+// PyTorch twin is
+// raytracer_tpu_torch/ops/closest_hit.py::closest_ordered_plain. Its caller
+// is the NEE shadow rays (and the unfused bounce) of large scenes.
+//
+// The TPU kernel gets each ray tile's superchunk order from a separate XLA
+// pass through scalar prefetch; here each block computes its own order in
+// shared memory (sweep.cuh::walk): a block reduction of the alive origins,
+// the gaps, a rank sort of at most MAX_SUPERS keys. That saves a launch and
+// the host ops around it per call. Outputs as closest.cu: t (+inf on a
+// miss), type (-1), index in the scene's own table order (the sorted slot's
+// orig entry, -1 on a miss), b1, b2; dead lanes miss. stats (optional, null
+// = off): per block, the chunk bodies the sphere and triangle walks ran.
+//
+// What bounds it: FP32 work on the CUDA cores, as for the flat kernel, but
+// only on the chunks a block can reach: at 65,537 spheres a camera-ray
+// block runs a few tens of the 264 chunks. The walk adds, per block, the
+// sort (k_sup^2 compares over 128 threads) and one block reduction and a
+// few barriers per superchunk and chunk visited.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "sweep.cuh"
+
+namespace {
+
+constexpr int BLOCK = 128;
+
+__global__ void __launch_bounds__(BLOCK) closest_ordered_kernel(
+    const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ tmin, const float* __restrict__ tmax,
+    const uint8_t* __restrict__ alive, int n,
+    const float* __restrict__ sph, int n_sph,
+    const float* __restrict__ rect, int n_rect,
+    const float* __restrict__ tri, int n_tri,
+    const Stage osph, const Stage otri,
+    float* __restrict__ out_t, int* __restrict__ out_ty,
+    int* __restrict__ out_ix, float* __restrict__ out_b1,
+    float* __restrict__ out_b2, int* __restrict__ stats) {
+  __shared__ __align__(16) float tile[TILE_FLOATS];
+  __shared__ WalkShared sh;
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  const bool in = i < n;
+  const bool live = in && alive[i] != 0;
+  Ray ray{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, BIG};
+  if (in) {
+    ray = Ray{o[i], o[n + i], o[2 * n + i], d[i], d[n + i], d[2 * n + i],
+              tmin[i], tmax[i]};
+  }
+  const Winner w = sweep_ordered<BLOCK>(tile, sh, live, ray, sph, n_sph, osph,
+                                        rect, n_rect, tri, n_tri, otri, stats);
+  if (!in) return;
+  const bool hit = w.ty >= 0;
+  out_t[i] = hit ? w.t : INFINITY;
+  out_ty[i] = w.ty;
+  out_ix[i] = hit ? w.ix : -1;
+  out_b1[i] = w.b1;
+  out_b2[i] = w.b2;
+}
+
+}  // namespace
+
+// Plain C entry point (loaded with ctypes). Launches on `stream`, does not
+// synchronise, allocates nothing; returns cudaGetLastError() of the launch.
+// The flat arguments are rt_closest's; each ordered stage follows as
+// (prim, orig, cull, scull, box, k_ch, chunk), null pointers for a stage
+// that is swept flat.
+extern "C" int rt_closest_ordered(
+    const float* o, const float* d, const float* tmin, const float* tmax,
+    const uint8_t* alive, int n,
+    const float* sph, int n_sph, const float* rect, int n_rect,
+    const float* tri, int n_tri,
+    const float* s_prim, const int* s_orig, const float* s_cull,
+    const float* s_scull, const float* s_box, int s_k_ch, int s_chunk,
+    const float* t_prim, const int* t_orig, const float* t_cull,
+    const float* t_scull, const float* t_box, int t_k_ch, int t_chunk,
+    float* out_t, int* out_ty, int* out_ix, float* out_b1, float* out_b2,
+    int* stats, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  if (s_k_ch / SUPER > MAX_SUPERS || t_k_ch / SUPER > MAX_SUPERS)
+    return (int)cudaErrorInvalidValue;
+  const Stage osph{s_prim, s_orig, s_cull, s_scull, s_box, s_k_ch, s_chunk};
+  const Stage otri{t_prim, t_orig, t_cull, t_scull, t_box, t_k_ch, t_chunk};
+  const int grid = (n + BLOCK - 1) / BLOCK;
+  closest_ordered_kernel<<<grid, BLOCK, 0, stream>>>(
+      o, d, tmin, tmax, alive, n, sph, n_sph, rect, n_rect, tri, n_tri, osph,
+      otri, out_t, out_ty, out_ix, out_b1, out_b2, stats);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* rt_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

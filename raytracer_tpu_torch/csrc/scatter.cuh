@@ -1,0 +1,171 @@
+// The epilogue of the fused bounces (bounce.cu, bounce_ordered.cu): the
+// winner's attributes, constant/checker texture, material scatter and spawn
+// offset for ray i, from the winner of a sweep. The winner's index is the
+// scene's own: its records are read once from the scene-order tables.
+// Compiled without --use_fast_math: the checker texture takes sin() of
+// world coordinates, far outside [-pi, pi], where __sinf is inaccurate.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "sweep.cuh"
+
+namespace {
+
+constexpr float TWO_PI = 6.283185307179586f;
+constexpr float FRAC_1_PI = 0.3183098861837907f;
+constexpr int MAT_W = 12;
+constexpr int INTER_DIFFUSE = 0, INTER_SPECULAR = 1, INTER_ABSORB = 2,
+              INTER_REFLECT = 3, INTER_REFRACT = 4;
+
+__device__ __forceinline__ void unit3(float& x, float& y, float& z) {
+  const float inv = rsqrtf(fmaxf(x * x + y * y + z * z, 1e-30f));
+  x *= inv;
+  y *= inv;
+  z *= inv;
+}
+
+__device__ __forceinline__ void bounce_epilogue(
+    int i, int n, float ox, float oy, float oz, float dx, float dy, float dz,
+    const Winner& w, const float* __restrict__ sph,
+    const int* __restrict__ sph_mat, const float* __restrict__ rect,
+    const int* __restrict__ rect_mat, const float* __restrict__ tri_nrm,
+    const int* __restrict__ tri_mat, const float* __restrict__ mat,
+    const float* __restrict__ uni,
+    float* __restrict__ out_no, float* __restrict__ out_nd,
+    float* __restrict__ out_att, float* __restrict__ out_emit,
+    float* __restrict__ out_p, float* __restrict__ out_n,
+    int* __restrict__ out_inter) {
+  const float best_t = w.t, best_b1 = w.b1, best_b2 = w.b2;
+  const int best_ty = w.ty, best_ix = w.ix;
+  // ---- epilogue: the winner's attributes; a miss acts as an all-zero
+  // winner record (zero normal, zero material features), as on the TPU
+  const bool valid = best_ty >= 0;
+  const float t = valid ? best_t : 0.f;
+  const float px = ox + t * dx, py = oy + t * dy, pz = oz + t * dz;
+  float nox = 0.f, noy = 0.f, noz = 0.f;
+  int mid = -1;
+  if (best_ty == 0) {
+    const float4 s = reinterpret_cast<const float4*>(sph)[best_ix];
+    const float inv_r = 1.0f / sqrtf(fmaxf(s.w, 1e-20f));
+    nox = (px - s.x) * inv_r;
+    noy = (py - s.y) * inv_r;
+    noz = (pz - s.z) * inv_r;
+    mid = sph_mat[best_ix];
+  } else if (best_ty == 1) {
+    const int axis = (int)rect[(size_t)best_ix * RECT_W];
+    nox = axis == 0 ? 1.f : 0.f;
+    noy = axis == 1 ? 1.f : 0.f;
+    noz = axis == 2 ? 1.f : 0.f;
+    mid = rect_mat[best_ix];
+  } else if (best_ty == 2) {
+    const float* nn = tri_nrm + (size_t)best_ix * 9;
+    const float tb0 = 1.f - best_b1 - best_b2;
+    nox = tb0 * nn[0] + best_b1 * nn[3] + best_b2 * nn[6];
+    noy = tb0 * nn[1] + best_b1 * nn[4] + best_b2 * nn[7];
+    noz = tb0 * nn[2] + best_b1 * nn[5] + best_b2 * nn[8];
+    unit3(nox, noy, noz);
+    mid = tri_mat[best_ix];
+  }
+  const bool front = (dx * nox + dy * noy + dz * noz) < 0.f;
+  const float sgn = front ? 1.f : -1.f;
+  float nx = nox * sgn, ny = noy * sgn, nz = noz * sgn;
+  unit3(nx, ny, nz);
+
+  float f[MAT_W];
+#pragma unroll
+  for (int k = 0; k < MAT_W; ++k) f[k] = 0.f;
+  if (mid >= 0) {
+#pragma unroll
+    for (int k = 0; k < 10; ++k) f[k] = mat[(size_t)mid * MAT_W + k];
+  }
+  const float kind = f[0], fuzz = f[1], ir = fmaxf(f[2], 1e-6f);
+  const float sines = sinf(10.f * px) * sinf(10.f * py) * sinf(10.f * pz);
+  const bool chk = fabsf(f[3] - 1.f) < 0.5f && sines >= 0.f;
+  const float alr = chk ? f[7] : f[4];
+  const float alg = chk ? f[8] : f[5];
+  const float alb = chk ? f[9] : f[6];
+
+  const float u0 = uni[i], u1 = uni[n + i], u2 = uni[2 * n + i];
+  const float eps = uni[3 * n + i];
+  const float z = 1.f - 2.f * u0;
+  const float phi = TWO_PI * u1;
+  const float rs = sqrtf(fmaxf(0.f, 1.f - z * z));
+  const float sx = rs * cosf(phi), sy = rs * sinf(phi);
+
+  // Lambertian / diffuse light: n + unit sphere, near-zero guard
+  float ldx = nx + sx, ldy = ny + sy, ldz = nz + z;
+  if (ldx * ldx + ldy * ldy + ldz * ldz < 1e-16f) {
+    ldx = nx; ldy = ny; ldz = nz;
+  }
+  // metal: reflect(unit d) + fuzz * unit sphere; absorb below the surface
+  float ux = dx, uy = dy, uz = dz;
+  unit3(ux, uy, uz);
+  const float dn = ux * nx + uy * ny + uz * nz;
+  const float rfx = ux - 2.f * dn * nx, rfy = uy - 2.f * dn * ny,
+              rfz = uz - 2.f * dn * nz;
+  const float mdx = rfx + fuzz * sx, mdy = rfy + fuzz * sy,
+              mdz = rfz + fuzz * z;
+  const bool metal_ok = (mdx * nx + mdy * ny + mdz * nz) > 0.f;
+  // dielectric: Schlick + total internal reflection against u2
+  const float ratio = front ? 1.f / ir : ir;
+  const float cos_t = fminf(-dn, 1.f);
+  const float sin_t = sqrtf(fmaxf(0.f, 1.f - cos_t * cos_t));
+  const bool cannot = ratio * sin_t > 1.f;
+  float r0 = (1.f - ratio) / (1.f + ratio);
+  r0 = r0 * r0;
+  const float x = 1.f - cos_t, x2 = x * x;
+  const float refl = r0 + (1.f - r0) * (x2 * x2 * x);
+  const bool do_refl = cannot || refl > u2;
+  const float ppx = ratio * (ux + cos_t * nx), ppy = ratio * (uy + cos_t * ny),
+              ppz = ratio * (uz + cos_t * nz);
+  const float par = -sqrtf(fabsf(1.f - (ppx * ppx + ppy * ppy + ppz * ppz)));
+
+  const bool is_lam = fabsf(kind - 0.f) < 0.5f;
+  const bool is_met = fabsf(kind - 1.f) < 0.5f;
+  const bool is_die = fabsf(kind - 2.f) < 0.5f;
+  const bool is_lgt = fabsf(kind - 3.f) < 0.5f;
+  const bool diffish = is_lam || is_lgt;
+  float odx, ody, odz;
+  int inter;
+  if (diffish) {
+    odx = ldx; ody = ldy; odz = ldz;
+    inter = INTER_DIFFUSE;
+  } else if (is_met) {
+    odx = mdx; ody = mdy; odz = mdz;
+    inter = metal_ok ? INTER_SPECULAR : INTER_ABSORB;
+  } else if (do_refl) {
+    odx = rfx; ody = rfy; odz = rfz;
+    inter = is_die ? INTER_REFLECT : INTER_DIFFUSE;
+  } else {
+    odx = ppx + par * nx; ody = ppy + par * ny; odz = ppz + par * nz;
+    inter = is_die ? INTER_REFRACT : INTER_DIFFUSE;
+  }
+  if (!valid) inter = INTER_ABSORB;
+  const bool lit = is_lgt && valid;
+
+  const float dot = odx * nx + ody * ny + odz * nz;
+  const float side = (dot > 0.f ? 1.f : (dot < 0.f ? -1.f : 0.f)) * eps;
+  out_no[i] = px + nx * side;
+  out_no[n + i] = py + ny * side;
+  out_no[2 * n + i] = pz + nz * side;
+  out_nd[i] = odx;
+  out_nd[n + i] = ody;
+  out_nd[2 * n + i] = odz;
+  out_att[i] = is_lgt ? FRAC_1_PI : alr;
+  out_att[n + i] = is_lgt ? FRAC_1_PI : alg;
+  out_att[2 * n + i] = is_lgt ? FRAC_1_PI : alb;
+  out_emit[i] = lit ? alr : 0.f;
+  out_emit[n + i] = lit ? alg : 0.f;
+  out_emit[2 * n + i] = lit ? alb : 0.f;
+  out_p[i] = px;
+  out_p[n + i] = py;
+  out_p[2 * n + i] = pz;
+  out_n[i] = nx;
+  out_n[n + i] = ny;
+  out_n[2 * n + i] = nz;
+  out_inter[i] = inter;
+}
+
+}  // namespace

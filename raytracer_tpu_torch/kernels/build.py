@@ -90,6 +90,29 @@ def load_library(name: str = "bounce") -> ctypes.CDLL:
     return ctypes.CDLL(str(build(name)))
 
 
+def bind(name: str, fn: str, argtypes) -> ctypes.CDLL:
+    """``load_library(name)`` with the argument types of its entry point
+    ``fn`` (returning the launch's ``cudaError_t`` as an int) and of
+    ``rt_error_string`` set. Pointers and the stream are
+    ``ctypes.c_void_p``: ctypes would pass an untyped int as 32 bits."""
+    lib = load_library(name)
+    f = getattr(lib, fn)
+    if f.argtypes is None:
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        lib.rt_error_string.argtypes = [ctypes.c_int]
+        lib.rt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_launch(lib: ctypes.CDLL, rc: int, what: str):
+    """Raise unless the launch returned cudaSuccess: a refused launch
+    never runs, and no later synchronise reports it."""
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.rt_error_string(rc).decode())
+
+
 def build_log(name: str = "bounce") -> str:
     """The compiler output of the last build of ``name`` (ptxas register
     and shared-memory use included)."""

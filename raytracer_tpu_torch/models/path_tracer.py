@@ -18,7 +18,7 @@ from typing import NamedTuple
 from raytracer_tpu_torch.models.wavefront_soa import (
     render_regen_soa, trace_radiance_soa,
 )
-from raytracer_tpu_torch.ops.dispatch import resolve
+from raytracer_tpu_torch.ops.dispatch import NO_LEAF, resolve
 from raytracer_tpu_torch.ops.fused_bounce import pack_tables, unported
 from raytracer_tpu_torch.scene.types import Scene
 from raytracer_tpu_torch.utils.config import RenderConfig
@@ -31,13 +31,16 @@ class TraceResult(NamedTuple):
 
 def _resolve(scene: Scene, intersector: str, nee: bool, mis: bool) -> str:
     """The route of a render: the kernel route ("pallas") for "auto" and
-    "pallas"; other intersectors and the scenes the port cannot render yet
-    raise ``NotImplementedError`` naming the ROADMAP item that ports them.
-    ``nee`` and ``mis`` together raise ``ValueError``, as in the JAX
-    package."""
+    "pallas", "leaf" for the leaf kernel (``ValueError`` when the scene has
+    no leaf tables); other intersectors and the scenes the port cannot
+    render yet raise ``NotImplementedError`` naming the ROADMAP item that
+    ports them. ``nee`` and ``mis`` together raise ``ValueError``, as in
+    the JAX package."""
     if mis and nee:
         raise ValueError("--mis and --nee are mutually exclusive")
     method = resolve(intersector)
+    if method == "leaf" and scene.leaf is None:
+        raise ValueError(NO_LEAF)
     missing = unported(scene)
     if missing:
         raise NotImplementedError("; ".join(missing))

@@ -24,7 +24,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.ops import closest_hit
+from raytracer_tpu_torch.ops import dispatch
 from raytracer_tpu_torch.ops import mis as mis_ops
 from raytracer_tpu_torch.ops import nee as nee_ops
 from raytracer_tpu_torch.ops.fused_bounce import (
@@ -273,31 +273,35 @@ def scatter_soa(scene: Scene, uni, d, h: HitSoA, f: FeatSoA) -> ScatterSoA:
 def use_fused(scene: Scene, intersector: str) -> bool:
     """The fused bounce kernel serves every scene the JAX package's
     ``use_fused`` gives it (``bounce_fused_eligible``: no image or noise
-    textures, no media) and also scenes past the TPU kernel's table caps,
-    which the CUDA kernel streams through shared memory."""
+    textures, no media, the "pallas" route) and also scenes past the TPU
+    kernel's table caps, which the CUDA kernels read from global memory.
+    The "leaf" route is unfused, as in the JAX package."""
     return (intersector == "pallas" and scene.images.shape[0] == 0
             and scene.textures.noise_marker.shape[0] == 0
             and (scene.media is None or scene.media.kind.shape[0] == 0))
 
 
 def bounce_step(tables: BounceTables, uni, o, d, alive, *, t_min: float,
-                spawn_eps, fused: bool = True, scene: Scene = None) -> Bounce:
+                spawn_eps, fused: bool = True, scene: Scene = None,
+                intersector: str = "pallas") -> Bounce:
     """Advance one bounce: intersect + attributes + texture + scatter.
     ``uni`` holds at least the three scatter rows; ``spawn_eps`` is a 0-d
     tensor (or float). The fused path is one kernel launch
     (``bounce_tables``); the unfused path (``fused=False``, which needs
-    ``scene`` for its textures) is the closest-hit kernel followed by
-    ``attrs_soa`` and ``scatter_soa`` in plain PyTorch. Both consume the
-    same uniform rows and give dead lanes the miss outputs, so they agree
-    lane for lane."""
+    ``scene`` for its textures) is the closest hit of ``intersector``'s
+    route (``dispatch.intersect_scene``: the closest-hit kernel, or the
+    leaf kernel for "leaf") followed by ``attrs_soa`` and ``scatter_soa``
+    in plain PyTorch. Both consume the same uniform rows and give dead
+    lanes the miss outputs, so they agree lane for lane."""
     n = o.shape[1]
     if fused:
         eps = torch.as_tensor(spawn_eps, dtype=torch.float32,
                               device=o.device)
         uni_t = torch.cat([uni[U_SPH1:U_DIEL + 1], eps.expand(1, n)], 0)
         return Bounce(*bounce_tables(tables, o, d, t_min, alive, uni_t))
-    hit = closest_hit.closest_tables(tables, o, d, t_min, float("inf"),
-                                     alive)
+    hit = dispatch.intersect_scene(scene, o, d, t_min, float("inf"),
+                                   method=intersector, alive=alive,
+                                   tables=tables)
     h, f = attrs_soa(tables, o, d, hit)
     sc = scatter_soa(scene, uni, d, h, f)
     side = torch.sign((sc.nd * h.n).sum(0)) * spawn_eps
@@ -324,12 +328,13 @@ def _extra_rows(nee: bool, mis: bool) -> int:
 
 
 def _shade(scene, tables, U, base: int, b: Bounce, alive, tput, samp,
-           prev_diff, *, nee: bool, mis: bool, spawn_eps):
+           prev_diff, *, nee: bool, mis: bool, spawn_eps,
+           intersector: str = "pallas"):
     """The part of a step that NEE and MIS touch, in the JAX loop's order:
     emission (skipped after a diffuse vertex under NEE), then the MIS
     resample, then the NEE shadow ray. ``U[base:]`` holds the NEE or MIS
-    rows. Returns (bounce, sample radiance, diffuse lanes, shadow-ray lanes
-    or None)."""
+    rows; the shadow rays take ``intersector``'s route. Returns (bounce,
+    sample radiance, diffuse lanes, shadow-ray lanes or None)."""
     emit_ok = alive & ~prev_diff
     samp = samp + torch.where(emit_ok, tput * b.emit, 0.0)
     diffuse_now = alive & (b.inter == INTER_DIFFUSE)
@@ -340,7 +345,7 @@ def _shade(scene, tables, U, base: int, b: Bounce, alive, tput, samp,
     if nee:
         dl, shadow = nee_ops.direct_light(
             scene, tables, U[base:base + nee_ops.NEE_ROWS], b.p, b.n, b.att,
-            diffuse_now, alive=alive)
+            diffuse_now, alive=alive, intersector=intersector)
         samp = samp + torch.where(diffuse_now, tput * dl, 0.0)
     return b, samp, diffuse_now, shadow
 
@@ -372,10 +377,11 @@ def trace_radiance_soa(scene: Scene, tables: BounceTables, o, d,
         U = torch.rand((U_TRACE_ROWS + _extra_rows(nee, mis), n),
                        generator=gen, device=dev)
         b = bounce_step(tables, U, o, d, alive, t_min=t_min,
-                        spawn_eps=spawn_eps, fused=fused, scene=scene)
+                        spawn_eps=spawn_eps, fused=fused, scene=scene,
+                        intersector=intersector)
         b, rad, diffuse_now, _ = _shade(
             scene, tables, U, U_TRACE_ROWS, b, alive, tput, rad, prev_diff,
-            nee=nee, mis=mis, spawn_eps=spawn_eps)
+            nee=nee, mis=mis, spawn_eps=spawn_eps, intersector=intersector)
         cont = alive & (b.inter != INTER_ABSORB)
         tput = torch.where(cont, tput * b.att, tput)
         if russian_roulette and step >= RR_START_BOUNCE:
@@ -413,7 +419,7 @@ class _Lanes(NamedTuple):
 
 
 def _step(s: _Lanes, tables, scene, gen, *, width, height, quota, max_depth,
-          t_min, spawn_eps, russian_roulette, fused, nee, mis):
+          t_min, spawn_eps, russian_roulette, fused, nee, mis, intersector):
     """One regeneration step: bounce, accumulate emission, MIS resample,
     NEE, update the throughput, Russian roulette, retire and respawn camera
     rays. With ``s.est`` (the SPPM final gather, photon_mapper.rs:326-365)
@@ -423,11 +429,13 @@ def _step(s: _Lanes, tables, scene, gen, *, width, height, quota, max_depth,
     U = torch.rand((U_REGEN_ROWS + _extra_rows(nee, mis), nl), generator=gen,
                    device=s.o.device)
     b = bounce_step(tables, U, s.o, s.d, s.alive, t_min=t_min,
-                    spawn_eps=spawn_eps, fused=fused, scene=scene)
+                    spawn_eps=spawn_eps, fused=fused, scene=scene,
+                    intersector=intersector)
     alive = s.alive
     b, samp, diffuse_now, shadow = _shade(
         scene, tables, U, U_REGEN_ROWS, b, alive, s.tput, s.samp,
-        s.prev_diff, nee=nee, mis=mis, spawn_eps=spawn_eps)
+        s.prev_diff, nee=nee, mis=mis, spawn_eps=spawn_eps,
+        intersector=intersector)
     cont = alive & (b.inter != INTER_ABSORB)
     if s.est is not None:
         samp = samp + torch.where(diffuse_now, s.tput * s.est, 0.0)
@@ -501,7 +509,8 @@ def render_regen_soa(scene, tables: BounceTables, gen: torch.Generator, *,
     kw = dict(width=width, height=height, quota=samples_per_lane,
               max_depth=max_depth, t_min=t_min, spawn_eps=spawn_eps,
               russian_roulette=russian_roulette,
-              fused=use_fused(scene, intersector), nee=nee, mis=mis)
+              fused=use_fused(scene, intersector), nee=nee, mis=mis,
+              intersector=intersector)
 
     rays = 0      # a Python int: exact at any count
     steps = 0

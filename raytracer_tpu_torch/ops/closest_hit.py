@@ -8,6 +8,12 @@ fused bounce (``csrc/sweep.cuh``); ``closest_hit_plain`` below is the same
 function in plain PyTorch. The wrapper takes the plain version only for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises.
 
+Tables with an ordered stage (``ops/ordered.py``) take the ordered kernel
+``csrc/closest_ordered.cu``, the port of ``_closest_kernel_ordered``
+(reached through ``_call_kernel_ordered``), whose plain twin is
+``closest_ordered_plain``: the near-to-far superchunk walk, with the tie
+rule (t, then type, then scene index) that gives the flat kernel's winner.
+
 The tables are ``fused_bounce.pack_tables``'s. The TPU kernel's 28 winner
 slots are not carried over (they exist because TPU gathers are slow): the
 caller rebuilds the winner's attributes from the tables with (type, index,
@@ -21,14 +27,17 @@ from typing import NamedTuple
 
 import torch
 
+from raytracer_tpu_torch.kernels.build import bind, check_launch
 from raytracer_tpu_torch.ops.fused_bounce import (
-    BounceTables, _check, _closest_plain,
+    STAGE_ARGTYPES, BounceTables, _check, _closest_plain, stage_args,
+    stats_arg,
 )
 
-# Kernel launches made by ``closest_tables`` on CUDA tensors. A plain
-# integer: a run reads it before and after to show it went through the
-# kernel.
+# Kernel launches made by ``closest_tables`` on CUDA tensors, of the flat
+# kernel and of the ordered one. Plain integers: a run reads them before
+# and after to show it went through the kernels.
 LAUNCHES = 0
+ORDERED_LAUNCHES = 0
 
 
 class Closest(NamedTuple):
@@ -54,15 +63,28 @@ def _rows(t_min, t_max, n, dev):
     return out
 
 
-def closest_hit_plain(tab: BounceTables, o, d, t_min, t_max,
-                      alive) -> Closest:
-    """The closest hit in plain PyTorch (any device): ``fused_bounce.
-    _closest_plain`` with the miss mapped to t = +inf, ix = -1. Same
-    interface and outputs as ``closest_tables``."""
-    t, ty, ix, b1, b2 = _closest_plain(tab, o, d, t_min, alive, t_max=t_max)
+def _closest(t, ty, ix, b1, b2) -> Closest:
     hit = ty >= 0
     return Closest(torch.where(hit, t, torch.inf), ty,
                    torch.where(hit, ix, -1).to(torch.int32), b1, b2)
+
+
+def closest_hit_plain(tab: BounceTables, o, d, t_min, t_max,
+                      alive) -> Closest:
+    """The closest hit in plain PyTorch (any device), over the flat
+    tables: ``fused_bounce._closest_plain`` with the miss mapped to t =
+    +inf, ix = -1. Same interface and outputs as ``closest_tables``."""
+    return _closest(*_closest_plain(tab, o, d, t_min, alive, t_max=t_max))
+
+
+def closest_ordered_plain(tab: BounceTables, o, d, t_min, t_max, alive,
+                          stats=None) -> Closest:
+    """The ordered closest hit in plain PyTorch (any device): each stage
+    with an ordered table runs ``ordered.walk_plain`` (blocks of the
+    kernel's block size, its culls and stop rule), the others the flat
+    scan. ``stats``: as for ``closest_tables``."""
+    return _closest(*_closest_plain(tab, o, d, t_min, alive, t_max=t_max,
+                                    ordered=True, stats=stats))
 
 
 # -------------------------------------------------------------- kernel
@@ -70,24 +92,13 @@ def closest_hit_plain(tab: BounceTables, o, d, t_min, t_max,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _P, _I,                 # o d tmin tmax alive n
-             _P, _I, _P, _I, _P, _I,                 # sph rect tri + counts
-             _P, _P, _P, _P, _P,                     # t ty ix b1 b2
-             _P]                                     # stream
+             _P, _I, _P, _I, _P, _I]                 # sph rect tri + counts
+_OUTS = [_P, _P, _P, _P, _P]                         # t ty ix b1 b2
 
 
-def _lib():
-    from raytracer_tpu_torch.kernels import build
-    lib = build.load_library("closest")
-    if lib.rt_closest.argtypes is None:
-        lib.rt_closest.argtypes = _ARGTYPES
-        lib.rt_closest.restype = ctypes.c_int
-        lib.rt_error_string.argtypes = [ctypes.c_int]
-        lib.rt_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _closest_cuda(tab: BounceTables, o, d, t_min, t_max, alive) -> Closest:
-    global LAUNCHES
+def _closest_cuda(tab: BounceTables, o, d, t_min, t_max, alive,
+                  stats=None) -> Closest:
+    global LAUNCHES, ORDERED_LAUNCHES
     dev = o.device
     n = o.shape[1]
     f32 = torch.float32
@@ -105,25 +116,32 @@ def _closest_cuda(tab: BounceTables, o, d, t_min, t_max, alive) -> Closest:
     ix = torch.empty((n,), dtype=torch.int32, device=dev)
     b1 = torch.empty((n,), dtype=f32, device=dev)
     b2 = torch.empty((n,), dtype=f32, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.rt_closest(
-            o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
+    args = [o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
             alive.data_ptr(), n,
             tab.sph.data_ptr(), tab.sph.shape[0],
             tab.rect.data_ptr(), tab.rect.shape[0],
-            tab.tri.data_ptr(), tab.tri.shape[0],
-            t.data_ptr(), ty.data_ptr(), ix.data_ptr(), b1.data_ptr(),
-            b2.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError("closest-hit kernel launch failed: "
-                           + lib.rt_error_string(rc).decode())
-    LAUNCHES += 1
+            tab.tri.data_ptr(), tab.tri.shape[0]]
+    outs = [x.data_ptr() for x in (t, ty, ix, b1, b2)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if tab.ordered:
+            lib = bind("closest_ordered", "rt_closest_ordered",
+                       _ARGTYPES + STAGE_ARGTYPES * 2 + _OUTS + [_P, _P])
+            rc = lib.rt_closest_ordered(
+                *args, *stage_args(tab.osph, dev), *stage_args(tab.otri, dev),
+                *outs, stats_arg(stats, n, dev), stream)
+            check_launch(lib, rc, "ordered closest-hit kernel")
+            ORDERED_LAUNCHES += 1
+        else:
+            lib = bind("closest", "rt_closest", _ARGTYPES + _OUTS + [_P])
+            rc = lib.rt_closest(*args, *outs, stream)
+            check_launch(lib, rc, "closest-hit kernel")
+            LAUNCHES += 1
     return Closest(t, ty, ix, b1, b2)
 
 
-def closest_tables(tab: BounceTables, o, d, t_min, t_max, alive) -> Closest:
+def closest_tables(tab: BounceTables, o, d, t_min, t_max, alive,
+                   stats=None) -> Closest:
     """The closest hit of each ray over packed tables. ``o``/``d`` (3, N)
     f32; ``t_min`` a float or (N,) tensor; ``t_max`` a float or (N,) f32
     tensor (+inf allowed); ``alive`` (N,) bool. A hit needs t_min <= t and
@@ -131,11 +149,17 @@ def closest_tables(tab: BounceTables, o, d, t_min, t_max, alive) -> Closest:
     before rects before triangles.
 
     Dead lanes miss. (In the TPU kernel they return real hits unless their
-    whole ray tile is dead; callers mask them either way.)
+    whole ray tile is dead; callers mask them either way.) Tables with an
+    ordered stage take the ordered kernel; ``stats`` (G, 2) int32 zeros,
+    G = ceil(N / 128), then receives its chunk bodies per block (spheres,
+    triangles).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if o.device.type == "cpu":
+        if tab.ordered:
+            return closest_ordered_plain(tab, o, d, t_min, t_max, alive,
+                                         stats)
         return closest_hit_plain(tab, o, d, t_min, t_max, alive)
     if o.device.type != "cuda":
         raise NotImplementedError(f"closest hit: no kernel for {o.device}")
-    return _closest_cuda(tab, o, d, t_min, t_max, alive)
+    return _closest_cuda(tab, o, d, t_min, t_max, alive, stats)

@@ -1,32 +1,38 @@
 """Intersection dispatch: the counterpart of
 ``raytracer_tpu/ops/dispatch.py`` for the routes the port has.
 
-``method`` "pallas" (and "auto", which resolves to it: the CUDA kernel
-streams any table size through shared memory, so the JAX package's VMEM
-caps and slabs have no counterpart) runs the closest-hit kernel
-(``ops/closest_hit.py``). Every other route raises, naming the ROADMAP item
-that ports it. Rays are (3, N) rows, as everywhere in the port.
+``method`` "pallas" (and "auto", which resolves to it: the CUDA kernels
+read any table size from global memory, so the JAX package's VMEM caps and
+slab chain have no counterpart) runs the closest-hit kernel
+(``ops/closest_hit.py``), the ordered one when ``pack_tables`` attached an
+ordered stage. "leaf" runs the leaf kernel (``ops/leaf.py``) and needs the
+scene's leaf tables (``ValueError`` without, as JAX ``pallas_bvh._run``).
+"bvh" and "bruteforce" raise, naming the ROADMAP item that ports them. Rays
+are (3, N) rows, as everywhere in the port.
 """
 
 from __future__ import annotations
 
-from raytracer_tpu_torch.ops import closest_hit
+from raytracer_tpu_torch.ops import closest_hit, leaf
 from raytracer_tpu_torch.ops.fused_bounce import BounceTables, pack_tables
 from raytracer_tpu_torch.scene.types import Scene
 
 UNPORTED = {
     "bvh": "the flat BVH is not ported yet (ROADMAP A10)",
-    "leaf": "the leaf-culled kernel is not ported yet (ROADMAP A10, B4)",
     "bruteforce": "the brute-force XLA intersector is not ported yet "
                   "(ROADMAP A3)",
 }
+NO_LEAF = "scene has no leaf tables; call with_leaf_tables"
 
 
 def resolve(method: str) -> str:
-    """"auto" and "pallas" resolve to "pallas"; any other method raises
-    ``NotImplementedError`` naming its ROADMAP item."""
+    """"auto" and "pallas" resolve to "pallas", "leaf" to itself; "bvh"
+    and "bruteforce" raise ``NotImplementedError`` naming their ROADMAP
+    item."""
     if method in ("auto", "pallas"):
         return "pallas"
+    if method == "leaf":
+        return method
     if method in UNPORTED:
         raise NotImplementedError(f"intersector {method!r}: "
                                   + UNPORTED[method])
@@ -34,11 +40,15 @@ def resolve(method: str) -> str:
 
 
 def _closest(scene, o, d, t_min, t_max, method, alive, tables):
-    resolve(method)
+    method = resolve(method)
+    if method == "leaf" and scene.leaf is None:
+        raise ValueError(NO_LEAF)
     if tables is None:
         tables = pack_tables(scene)
     if alive is None:
         alive = o.new_ones(o.shape[1], dtype=bool)
+    if method == "leaf":
+        return tables, leaf.leaf_closest(tables, o, d, t_min, t_max, alive)
     return tables, closest_hit.closest_tables(tables, o, d, t_min, t_max,
                                               alive)
 

@@ -22,15 +22,25 @@ whose Morton order and near-to-far chunk order exist for its culling):
 Winner rule, as in the TPU kernel: stages run spheres, then rects, then
 triangles, each in table order; a hit replaces the best only on a strict
 ``t < best_t``, so the lowest index wins a tie.
+
+Large tables: ``pack_tables`` also attaches a sorted copy of the sphere or
+triangle table (``ops/ordered.py``) when it qualifies for the near-to-far
+walk, and ``bounce_tables`` then launches the ordered kernel
+(``csrc/bounce_ordered.cu``, the port of ``_bounce_kernel_ordered``), whose
+plain twin is ``bounce_ordered_plain``. Its tie rule (t, then type, then
+scene index) gives the flat sweep's winner on every lane.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
+from raytracer_tpu_torch.kernels.build import bind, check_launch
+from raytracer_tpu_torch.ops import ordered as ordered_ops
+from raytracer_tpu_torch.ops.ordered import OrderedStage
 from raytracer_tpu_torch.scene.types import (
     INTER_ABSORB, INTER_DIFFUSE, INTER_REFLECT, INTER_REFRACT,
     INTER_SPECULAR, MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT, MAT_LAMBERTIAN,
@@ -40,18 +50,25 @@ from raytracer_tpu_torch.scene.types import (
 BIG = 3.0e38          # the kernels' "no hit" t; the bounce sweeps to it
 TWO_PI = 6.283185307179586
 FRAC_1_PI = 0.3183098861837907
-# plain version: at most this many (ray, primitive) pairs per chunk
+# plain version: at most this many (ray, primitive) pairs per chunk; on the
+# CPU fewer, so that a chunk's temporaries stay in cache (the winner does
+# not depend on the chunking: the lowest index wins a tie either way)
 PLAIN_PAIRS = 1 << 24
+PLAIN_PAIRS_CPU = 1 << 19
 
-# Kernel launches made by ``bounce_tables`` on CUDA tensors. A plain
-# integer: a run reads it before and after to show it went through the
-# kernel.
+# Kernel launches made by ``bounce_tables`` on CUDA tensors, of the flat
+# kernel and of the ordered one. Plain integers: a run reads them before
+# and after to show it went through the kernels.
 LAUNCHES = 0
+ORDERED_LAUNCHES = 0
 
 
 class BounceTables(NamedTuple):
     """Scene tables packed for the fused bounce (layout in the module
-    docstring). Built once per scene on the scene's device."""
+    docstring). Built once per scene on the scene's device. ``osph`` and
+    ``otri``: the sorted copies of a sphere or triangle table that takes
+    the near-to-far walk, else None; ``leaf``: the leaf kernel's tables
+    (``ops/leaf.py::LeafPack``) when the scene carries leaf tables."""
     sph: torch.Tensor
     sph_mat: torch.Tensor
     rect: torch.Tensor
@@ -60,6 +77,18 @@ class BounceTables(NamedTuple):
     tri_nrm: torch.Tensor
     tri_mat: torch.Tensor
     mat: torch.Tensor
+    osph: Optional[OrderedStage] = None
+    otri: Optional[OrderedStage] = None
+    leaf: Optional[tuple] = None
+
+    @property
+    def ordered(self) -> bool:
+        """Does a stage of these tables take the walk?"""
+        return self.osph is not None or self.otri is not None
+
+
+# the scene-order tables every kernel reads
+FLAT = BounceTables._fields[:8]
 
 
 def unported(scene: Scene) -> list:
@@ -80,9 +109,12 @@ def unported(scene: Scene) -> list:
     return out
 
 
-def pack_tables(scene: Scene) -> BounceTables:
+def pack_tables(scene: Scene, order: bool = True) -> BounceTables:
     """Pack the scene's tables for the fused bounce, on the scene's
-    device."""
+    device. A sphere or triangle table that qualifies for the near-to-far
+    walk (``ordered.wants_order``) also gets its sorted copy, unless
+    ``order`` is False, which forces the flat route; a scene with leaf
+    tables gets the leaf kernel's."""
     f32 = torch.float32
     s, r, tr = scene.spheres, scene.rects, scene.triangles
     sph = torch.cat([s.center, (s.radius * s.radius)[:, None]], 1).to(f32)
@@ -108,43 +140,113 @@ def pack_tables(scene: Scene) -> BounceTables:
         return x.contiguous()
 
     i32 = torch.int32
-    return BounceTables(c(sph), c(s.mat_id.to(i32)), c(rect),
-                        c(r.mat_id.to(i32)), c(tri), c(tri_nrm),
-                        c(tr.mat_id.to(i32)), c(mat))
+    sph, tri = c(sph), c(tri)
+    osph = otri = leaf = None
+    if order:
+        cam = scene.camera.origin
+        osph = ordered_ops.sphere_stage(sph, s.center, s.radius, cam)
+        otri = ordered_ops.tri_stage(tri, tr.v0, tr.e1, tr.e2, cam)
+    if scene.leaf is not None:
+        from raytracer_tpu_torch.ops.leaf import pack_leaf
+        leaf = pack_leaf(scene.leaf, sph)
+    return BounceTables(sph, c(s.mat_id.to(i32)), c(rect),
+                        c(r.mat_id.to(i32)), tri, c(tri_nrm),
+                        c(tr.mat_id.to(i32)), c(mat), osph, otri, leaf)
 
 
 # --------------------------------------------------------------- plain
 
-def _closest_plain(tab: BounceTables, o, d, t_min, alive, t_max=BIG):
+def _row(x, n, dev):
+    """A float or tensor as an (N,) f32 tensor."""
+    if torch.is_tensor(x):
+        return x.to(device=dev, dtype=torch.float32).expand(n)
+    return torch.full((n,), float(x), device=dev)
+
+
+def _sphere_tt(rc, cx, cy, cz, rsq):
+    """t of ray/sphere pairs, BIG where the pair misses. ``rc``: the ray
+    columns (ox, oy, oz, dx, dy, dz, a, 1/a, t_min, t_max) of
+    ``_closest_plain``; the sphere columns broadcast against them. The
+    flat sweep and the ordered walk share it, so both round alike."""
+    ox, oy, oz, dx, dy, dz, a, inv_a, t_min, t_max = rc
+    ocx = ox - cx
+    ocy = oy - cy
+    ocz = oz - cz
+    half_b = dx * ocx + dy * ocy + dz * ocz
+    c_term = ocx * ocx + ocy * ocy + ocz * ocz - rsq
+    disc = half_b * half_b - a * c_term
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    r1 = (-half_b - sq) * inv_a
+    r2 = (-half_b + sq) * inv_a
+    ok1 = (r1 >= t_min) & (r1 <= t_max)
+    ok2 = (r2 >= t_min) & (r2 <= t_max)
+    t = torch.where(ok1, r1, torch.where(ok2, r2, BIG))
+    return torch.where(disc >= 0.0, t, BIG)
+
+
+def _tri_tt(rc, p):
+    """(t, b1, b2) of ray/triangle pairs (scalar-triple Möller–Trumbore),
+    t = BIG where the pair misses; ``p`` the 16 triangle columns."""
+    ox, oy, oz, dx, dy, dz, _, _, t_min, t_max = rc
+    oxd_x = oy * dz - oz * dy
+    oxd_y = oz * dx - ox * dz
+    oxd_z = ox * dy - oy * dx
+    (ngx, ngy, ngz, e1x, e1y, e1z, e2x, e2y, e2z,
+     w2x, w2y, w2z, w1x, w1y, w1z, v0n) = p
+    div = -(dx * ngx + dy * ngy + dz * ngz)
+    safe = div != 0.0
+    inv = 1.0 / torch.where(safe, div, 1.0)
+    b1 = ((oxd_x * e2x + oxd_y * e2y + oxd_z * e2z)
+          - (dx * w2x + dy * w2y + dz * w2z)) * inv
+    b2 = (-(oxd_x * e1x + oxd_y * e1y + oxd_z * e1z)
+          + (dx * w1x + dy * w1y + dz * w1z)) * inv
+    t = ((ox * ngx + oy * ngy + oz * ngz) - v0n) * inv
+    ok = (safe & (b1 >= 0.0) & (b1 <= 1.0) & (b2 >= 0.0)
+          & (b1 + b2 <= 1.0) & (t >= t_min) & (t <= t_max))
+    return torch.where(ok, t, BIG), b1, b2
+
+
+def _walk_sph(rows, rc):
+    return _sphere_tt(rc, *(rows[:, None, :, k] for k in range(4))), None, \
+        None
+
+
+def _walk_tri(rows, rc):
+    return _tri_tt(rc, [rows[:, None, :, k] for k in range(16)])
+
+
+def _closest_plain(tab: BounceTables, o, d, t_min, alive, t_max=BIG,
+                   ordered: bool = False, stats=None):
     """Brute-force chunked closest hit. ``t_min`` and ``t_max`` are floats
     or (N,) tensors; a candidate counts when t_min <= t <= min(t_max, BIG)
     and the fold starts at best_t = min(t_max, BIG) and takes only t <
     best_t (the TPU kernel's rule), so a hit lies strictly below t_max.
-    Returns (best_t, best_ty, best_ix, b1, b2), each (N,); dead lanes and
-    misses have ty = -1 and best_t = min(t_max, BIG)."""
+    With ``ordered``, a stage that carries an ordered table (``tab.osph``,
+    ``tab.otri``) runs ``ordered.walk_plain`` instead of the flat scan,
+    adding its chunk bodies per block to ``stats`` (G, 2) (spheres,
+    triangles) if given. Returns (best_t, best_ty, best_ix, b1, b2), each
+    (N,); dead lanes and misses have ty = -1 and best_t = min(t_max,
+    BIG)."""
     n = o.shape[1]
     dev = o.device
     ox, oy, oz = (x[:, None] for x in o)
     dx, dy, dz = (x[:, None] for x in d)
     a = dx * dx + dy * dy + dz * dz
     inv_a = 1.0 / a
-    if torch.is_tensor(t_min):
-        t_min = t_min.to(torch.float32)[:, None]
-    if torch.is_tensor(t_max):
-        best_t = torch.clamp(t_max.to(torch.float32), max=BIG)
-        t_max = best_t[:, None].clone()
-    else:
-        t_max = min(float(t_max), BIG)
-        best_t = torch.full((n,), t_max, device=dev)
+    tmin_v = _row(t_min, n, dev)
+    tmax_v = torch.clamp(_row(t_max, n, dev), max=BIG)
+    rc = (ox, oy, oz, dx, dy, dz, a, inv_a, tmin_v[:, None], tmax_v[:, None])
+    best_t = tmax_v.clone()
     best_ty = torch.full((n,), -1, dtype=torch.int32, device=dev)
     best_ix = torch.zeros((n,), dtype=torch.int64, device=dev)
     best_b1 = torch.zeros((n,), device=dev)
     best_b2 = torch.zeros((n,), device=dev)
+    best = [best_t, best_ty, best_ix, best_b1, best_b2]
     dead = ~alive.bool()
-    chunk = max(1, PLAIN_PAIRS // max(n, 1))
+    pairs = PLAIN_PAIRS_CPU if dev.type == "cpu" else PLAIN_PAIRS
+    chunk = max(1, pairs // max(n, 1))
 
-    def fold(t, ok, code, base, b1=None, b2=None):
-        tt = torch.where(ok, t, BIG)
+    def fold(tt, code, base, b1=None, b2=None):
         tt = torch.where(dead[:, None], BIG, tt)
         j = tt.argmin(dim=1)                      # first index on a tie
         m = tt.gather(1, j[:, None])[:, 0]
@@ -158,22 +260,20 @@ def _closest_plain(tab: BounceTables, o, d, t_min, alive, t_max=BIG):
             best_b2.copy_(torch.where(better, b2.gather(1, j[:, None])[:, 0],
                                       best_b2))
 
-    for j0 in range(0, tab.sph.shape[0], chunk):
-        blk = tab.sph[j0:j0 + chunk]
-        ocx = ox - blk[None, :, 0]
-        ocy = oy - blk[None, :, 1]
-        ocz = oz - blk[None, :, 2]
-        half_b = dx * ocx + dy * ocy + dz * ocz
-        c_term = ocx * ocx + ocy * ocy + ocz * ocz - blk[None, :, 3]
-        disc = half_b * half_b - a * c_term
-        sq = torch.sqrt(torch.clamp(disc, min=0.0))
-        r1 = (-half_b - sq) * inv_a
-        r2 = (-half_b + sq) * inv_a
-        ok1 = (r1 >= t_min) & (r1 <= t_max)
-        ok2 = (r2 >= t_min) & (r2 <= t_max)
-        t = torch.where(ok1, r1, torch.where(ok2, r2, BIG))
-        fold(t, disc >= 0.0, PRIM_SPHERE, j0)
+    def walk(stage, tests, kind, col):
+        ordered_ops.walk_plain(stage, o, d, tmin_v, tmax_v, alive.bool(),
+                               best, tests, kind,
+                               None if stats is None else stats[:, col])
 
+    if ordered and tab.osph is not None:
+        walk(tab.osph, _walk_sph, PRIM_SPHERE, 0)
+    else:
+        for j0 in range(0, tab.sph.shape[0], chunk):
+            blk = tab.sph[j0:j0 + chunk]
+            fold(_sphere_tt(rc, *(blk[None, :, k] for k in range(4))),
+                 PRIM_SPHERE, j0)
+
+    t_min, t_max = rc[8], rc[9]
     o3, d3 = o.T, d.T                              # (N, 3)
     for j0 in range(0, tab.rect.shape[0], chunk):
         blk = tab.rect[j0:j0 + chunk]
@@ -188,26 +288,15 @@ def _closest_plain(tab: BounceTables, o, d, t_min, alive, t_max=BIG):
         ok = (safe & (pa >= blk[None, :, 2]) & (pa <= blk[None, :, 3])
               & (pb >= blk[None, :, 4]) & (pb <= blk[None, :, 5])
               & (t >= t_min) & (t <= t_max))
-        fold(t, ok, PRIM_RECT, j0)
+        fold(torch.where(ok, t, BIG), PRIM_RECT, j0)
 
-    oxd_x = oy * dz - oz * dy
-    oxd_y = oz * dx - ox * dz
-    oxd_z = ox * dy - oy * dx
-    for j0 in range(0, tab.tri.shape[0], chunk):
-        p = [tab.tri[j0:j0 + chunk, k][None] for k in range(16)]
-        (ngx, ngy, ngz, e1x, e1y, e1z, e2x, e2y, e2z,
-         w2x, w2y, w2z, w1x, w1y, w1z, v0n) = p
-        div = -(dx * ngx + dy * ngy + dz * ngz)
-        safe = div != 0.0
-        inv = 1.0 / torch.where(safe, div, 1.0)
-        b1 = ((oxd_x * e2x + oxd_y * e2y + oxd_z * e2z)
-              - (dx * w2x + dy * w2y + dz * w2z)) * inv
-        b2 = (-(oxd_x * e1x + oxd_y * e1y + oxd_z * e1z)
-              + (dx * w1x + dy * w1y + dz * w1z)) * inv
-        t = ((ox * ngx + oy * ngy + oz * ngz) - v0n) * inv
-        ok = (safe & (b1 >= 0.0) & (b1 <= 1.0) & (b2 >= 0.0)
-              & (b1 + b2 <= 1.0) & (t >= t_min) & (t <= t_max))
-        fold(t, ok, PRIM_TRIANGLE, j0, b1, b2)
+    if ordered and tab.otri is not None:
+        walk(tab.otri, _walk_tri, PRIM_TRIANGLE, 1)
+    else:
+        for j0 in range(0, tab.tri.shape[0], chunk):
+            tt, b1, b2 = _tri_tt(rc, [tab.tri[j0:j0 + chunk, k][None]
+                                      for k in range(16)])
+            fold(tt, PRIM_TRIANGLE, j0, b1, b2)
     return best_t, best_ty, best_ix, best_b1, best_b2
 
 
@@ -344,9 +433,20 @@ def _bounce_values(tab: BounceTables, o, d, uni, best_t, best_ty, best_ix,
 
 def bounce_fused_plain(tab: BounceTables, o_t, d_t, t_min: float, alive,
                        uni_t):
-    """The fused bounce in plain PyTorch (any device). Same interface and
-    outputs as ``bounce_tables``."""
+    """The fused bounce in plain PyTorch (any device), over the flat
+    tables. Same interface and outputs as ``bounce_tables``."""
     hit = _closest_plain(tab, o_t, d_t, float(t_min), alive)
+    return _bounce_values(tab, o_t, d_t, uni_t, *hit)
+
+
+def bounce_ordered_plain(tab: BounceTables, o_t, d_t, t_min: float, alive,
+                         uni_t, stats=None):
+    """The ordered bounce in plain PyTorch (any device): the walk of
+    ``ordered.walk_plain`` for each stage with an ordered table, in blocks
+    of the kernel's block size, with its culls and stop rule, then the
+    same epilogue. ``stats``: as for ``_closest_plain``."""
+    hit = _closest_plain(tab, o_t, d_t, float(t_min), alive, ordered=True,
+                         stats=stats)
     return _bounce_values(tab, o_t, d_t, uni_t, *hit)
 
 
@@ -358,20 +458,32 @@ _ARGTYPES = [_P, _P, _P, _P, ctypes.c_float, _I,     # o d alive uni tmin n
              _P, _P, _I,                             # sph sph_mat n_sph
              _P, _P, _I,                             # rect rect_mat n_rect
              _P, _P, _P, _I,                         # tri tri_nrm tri_mat n
-             _P,                                     # mat
-             _P, _P, _P, _P, _P, _P, _P,             # outputs
-             _P]                                     # stream
+             _P]                                     # mat
+_OUTS = [_P, _P, _P, _P, _P, _P, _P]                 # no nd att emit p n inter
+# an ordered stage: prim, orig, cull, scull, box, k_ch, chunk (all null/0
+# for a flat stage)
+STAGE_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I]
 
 
-def _lib():
-    from raytracer_tpu_torch.kernels import build
-    lib = build.load_library("bounce")
-    if lib.rt_bounce.argtypes is None:
-        lib.rt_bounce.argtypes = _ARGTYPES
-        lib.rt_bounce.restype = ctypes.c_int
-        lib.rt_error_string.argtypes = [ctypes.c_int]
-        lib.rt_error_string.restype = ctypes.c_char_p
-    return lib
+def stage_args(stage: Optional[OrderedStage], dev) -> list:
+    """The C arguments of an ordered stage (null pointers for None)."""
+    if stage is None:
+        return [None] * 5 + [0, 0]
+    for name, x in zip(stage._fields, stage):
+        if x.device != dev or not x.is_contiguous():
+            raise ValueError(f"ordered stage: {name} must be contiguous on "
+                             f"{dev}")
+    return [x.data_ptr() for x in stage] + [stage.cull.shape[0], stage.chunk]
+
+
+def stats_arg(stats, n: int, dev):
+    """The optional (G, 2) int32 per-block chunk-body counter of the
+    ordered kernels (null when None)."""
+    if stats is None:
+        return None
+    g = -(-n // ordered_ops.BLOCK)
+    _check("stats", stats, dev, torch.int32, (g, 2), "ordered walk")
+    return stats.data_ptr()
 
 
 def _check(name, x, dev, dtype, shape, who="bounce"):
@@ -383,8 +495,9 @@ def _check(name, x, dev, dtype, shape, who="bounce"):
         raise ValueError(f"{who}: {name} must be contiguous")
 
 
-def _bounce_cuda(tab: BounceTables, o_t, d_t, t_min: float, alive, uni_t):
-    global LAUNCHES
+def _bounce_cuda(tab: BounceTables, o_t, d_t, t_min: float, alive, uni_t,
+                 stats=None):
+    global LAUNCHES, ORDERED_LAUNCHES
     dev = o_t.device
     n = o_t.shape[1]
     f32 = torch.float32
@@ -392,44 +505,59 @@ def _bounce_cuda(tab: BounceTables, o_t, d_t, t_min: float, alive, uni_t):
     _check("d_t", d_t, dev, f32, (3, n))
     _check("alive", alive, dev, torch.bool, (n,))
     _check("uni_t", uni_t, dev, f32, (4, n))
-    for name, x in zip(tab._fields, tab):
+    for name in FLAT:
+        x = getattr(tab, name)
         if x.device != dev or not x.is_contiguous():
             raise ValueError(f"bounce: table {name} must be contiguous on "
                              f"{dev}")
     rows = [torch.empty((3, n), dtype=f32, device=dev) for _ in range(6)]
     inter = torch.empty((n,), dtype=torch.int32, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.rt_bounce(
-            o_t.data_ptr(), d_t.data_ptr(), alive.data_ptr(),
+    args = [o_t.data_ptr(), d_t.data_ptr(), alive.data_ptr(),
             uni_t.data_ptr(), float(t_min), n,
             tab.sph.data_ptr(), tab.sph_mat.data_ptr(), tab.sph.shape[0],
             tab.rect.data_ptr(), tab.rect_mat.data_ptr(), tab.rect.shape[0],
             tab.tri.data_ptr(), tab.tri_nrm.data_ptr(), tab.tri_mat.data_ptr(),
-            tab.tri.shape[0], tab.mat.data_ptr(),
-            *(r.data_ptr() for r in rows), inter.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError("bounce kernel launch failed: "
-                           + lib.rt_error_string(rc).decode())
-    LAUNCHES += 1
+            tab.tri.shape[0], tab.mat.data_ptr()]
+    outs = [r.data_ptr() for r in rows] + [inter.data_ptr()]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if tab.ordered:
+            lib = bind("bounce_ordered", "rt_bounce_ordered",
+                       _ARGTYPES + STAGE_ARGTYPES * 2 + _OUTS + [_P, _P])
+            rc = lib.rt_bounce_ordered(
+                *args, *stage_args(tab.osph, dev), *stage_args(tab.otri, dev),
+                *outs, stats_arg(stats, n, dev), stream)
+            check_launch(lib, rc, "ordered bounce kernel")
+            ORDERED_LAUNCHES += 1
+        else:
+            lib = bind("bounce", "rt_bounce", _ARGTYPES + _OUTS + [_P])
+            rc = lib.rt_bounce(*args, *outs, stream)
+            check_launch(lib, rc, "bounce kernel")
+            LAUNCHES += 1
     no, nd, att, emit, p, nrm = rows
     return inter, no, nd, att, emit, p, nrm
 
 
-def bounce_tables(tab: BounceTables, o_t, d_t, t_min: float, alive, uni_t):
+def bounce_tables(tab: BounceTables, o_t, d_t, t_min: float, alive, uni_t,
+                  stats=None):
     """One fused bounce over packed tables. ``o_t``/``d_t`` (3, N) f32,
     ``alive`` (N,) bool, ``uni_t`` (4, N) f32: scatter uniforms in rows
     0-2 and the spawn epsilon in row 3. Returns (inter (N,) int32, new_o,
     new_d, att, emit, p, n), each (3, N) f32. Dead lanes get the miss
-    outputs (inter ABSORB, zero emission, p = o).
+    outputs (inter ABSORB, zero emission, p = o). Tables with an ordered
+    stage take the ordered kernel; ``stats`` (G, 2) int32 zeros, G =
+    ceil(N / 128), then receives its chunk bodies per block (spheres,
+    triangles).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if o_t.device.type == "cpu":
+        if tab.ordered:
+            return bounce_ordered_plain(tab, o_t, d_t, t_min, alive, uni_t,
+                                        stats)
         return bounce_fused_plain(tab, o_t, d_t, t_min, alive, uni_t)
     if o_t.device.type != "cuda":
         raise NotImplementedError(f"bounce: no kernel for {o_t.device}")
-    return _bounce_cuda(tab, o_t, d_t, t_min, alive, uni_t)
+    return _bounce_cuda(tab, o_t, d_t, t_min, alive, uni_t, stats)
 
 
 def bounce_fused(scene: Scene, o_t, d_t, t_min: float, alive, uni_t):

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from raytracer_tpu_torch.ops import closest_hit
+from raytracer_tpu_torch.ops import dispatch
 from raytracer_tpu_torch.ops.lights import light_cols, pick_light
 from raytracer_tpu_torch.ops.sampling import uniform_hemisphere, unit
 from raytracer_tpu_torch.scene.types import LIGHT_SPHERE, Scene
@@ -49,12 +49,14 @@ def nee_draws(lights, rows):
 
 
 def direct_light_from(scene: Scene, tables, idx, uni, p, normal, albedo,
-                      valid, alive=None):
+                      valid, alive=None, intersector: str = "pallas"):
     """The deterministic part of NEE. ``idx`` (N,) light per lane, ``uni``
     (4, N) as ``nee_draws`` makes them; ``p``, ``normal``, ``albedo`` (3, N)
     rows of the shading point; ``valid`` (N,) bool: the lanes that shade
     (diffuse vertices); ``alive`` (N,) bool or None. ``tables``:
-    ``fused_bounce.pack_tables`` of ``scene`` for the shadow rays.
+    ``fused_bounce.pack_tables`` of ``scene`` for the shadow rays, which
+    take the render's ``intersector`` route (``dispatch.intersect_scene``,
+    as JAX ``nee.py:213-214``).
 
     Returns (direct radiance (3, N), the lanes that cast a shadow ray (N,)
     bool)."""
@@ -101,19 +103,20 @@ def direct_light_from(scene: Scene, tables, idx, uni, p, normal, albedo,
     dist_sh = torch.sqrt(torch.clamp((to_sh * to_sh).sum(0), min=1e-12))
     dir_sh = to_sh / dist_sh
     cast = candidate if alive is None else candidate & alive
-    hit = closest_hit.closest_tables(
-        tables, p_sh.contiguous(), dir_sh.contiguous(), SHADOW_T_MIN,
-        (dist_sh * SHADOW_T_MAX_REL).contiguous(), cast.contiguous())
+    hit = dispatch.intersect_scene(
+        scene, p_sh.contiguous(), dir_sh.contiguous(), SHADOW_T_MIN,
+        (dist_sh * SHADOW_T_MAX_REL).contiguous(), method=intersector,
+        alive=cast.contiguous(), tables=tables)
     visible = ~torch.isfinite(hit.t)
     contrib = flux * inv_prob * (albedo / PI) * geom
     return torch.where(visible & candidate, contrib, 0.0), cast
 
 
 def direct_light(scene: Scene, tables, rows, p, normal, albedo, valid,
-                 alive=None):
+                 alive=None, intersector: str = "pallas"):
     """NEE from ``NEE_ROWS`` uniform rows (``nee_draws`` then
     ``direct_light_from``). Returns (direct radiance (3, N), shadow-ray
     lanes (N,) bool)."""
     idx, uni = nee_draws(scene.lights, rows)
     return direct_light_from(scene, tables, idx, uni, p, normal, albedo,
-                             valid, alive)
+                             valid, alive, intersector)

@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from raytracer_tpu_torch.kernels import build
 from raytracer_tpu_torch.ops.photon_grid import QueryResult
 
 TILE = 256      # points per kernel block
@@ -151,17 +152,6 @@ _ARGTYPES = [_P, _P, _P, _I,            # points r2 cap2 n
              _P, _P]                    # out stream
 
 
-def _lib():
-    from raytracer_tpu_torch.kernels import build
-    lib = build.load_library("photon_query")
-    if lib.rt_photon_query.argtypes is None:
-        lib.rt_photon_query.argtypes = _ARGTYPES
-        lib.rt_photon_query.restype = ctypes.c_int
-        lib.rt_error_string.argtypes = [ctypes.c_int]
-        lib.rt_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _check(name, x, dev, dtype, shape):
     if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
         raise ValueError(
@@ -189,7 +179,7 @@ def _query_cuda(planes: PhotonPlanes, points, r2, cap2) -> QueryResult:
         raise ValueError(f"photon query: {p_pad} photons is not a whole "
                          f"number of {CHUNK}-photon chunks")
     out = torch.empty((n, 8), dtype=f32, device=dev)
-    lib = _lib()
+    lib = build.bind("photon_query", "rt_photon_query", _ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.rt_photon_query(
@@ -197,9 +187,7 @@ def _query_cuda(planes: PhotonPlanes, points, r2, cap2) -> QueryResult:
             planes.posf.data_ptr(), planes.payload.data_ptr(),
             planes.cull.data_ptr(), k, planes.n_live.data_ptr(),
             out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError("photon query kernel launch failed: "
-                           + lib.rt_error_string(rc).decode())
+    build.check_launch(lib, rc, "photon query kernel")
     LAUNCHES += 1
     return _result(out)
 

@@ -2,7 +2,8 @@
 field names.
 
 ``scene_from_numpy(tree)`` reads the record by field name and turns every
-leaf that ``np.asarray`` accepts into a tensor. Tests hand it a JAX scene
+leaf that ``np.asarray`` accepts into a tensor; leaf-traversal tables are
+carried into the port's layout (``leaf_from_numpy``). Tests hand it a JAX scene
 (whose arrays ``np.asarray`` reads) to compare both packages on one scene;
 this module itself imports no JAX.
 """
@@ -42,12 +43,35 @@ def _convert(cls, src):
         elif name in nested:
             vals.append(_convert(nested[name], x))
         elif cls is T.Scene and name == "leaf":
-            raise NotImplementedError(
-                "leaf-traversal tables are not ported yet (ROADMAP B, "
-                "_leaf_kernel)")
+            vals.append(leaf_from_numpy(x))
         else:
             vals.append(_leaf(x))
     return cls(*vals)
+
+
+PAD_CSQ = np.float32(3e38)   # a pad column's csq row in the JAX tables
+
+
+def leaf_from_numpy(src) -> T.LeafTables:
+    """The port's ``LeafTables`` from the JAX package's (``aabb`` (6, L'),
+    ``table`` (17, L' * LEAF), ``big`` (18, B')): leaf membership from
+    ``table`` row 16, the big set from ``big`` row 16, the boxes from
+    ``aabb``. Pad columns read 0 in row 16, like sphere 0; they are told
+    apart by row 3, where a pad holds csq = 3e38. Leaves with no member
+    (the JAX padding to a multiple of 32 leaves) are dropped."""
+    aabb = np.asarray(src.aabb, np.float32)
+    table = np.asarray(src.table, np.float32)
+    big = np.asarray(src.big, np.float32)
+    n_cols = aabb.shape[1]
+    leaf = table.shape[1] // n_cols
+    ids = np.rint(table[16]).astype(np.int32)
+    ids[table[3] == PAD_CSQ] = -1
+    ids = ids.reshape(n_cols, leaf)
+    real = (ids >= 0).any(1)
+    big_ids = np.rint(big[16]).astype(np.int32)[big[3] != PAD_CSQ]
+    return T.LeafTables(torch.from_numpy(np.ascontiguousarray(aabb[:, real].T)),
+                        torch.from_numpy(np.ascontiguousarray(ids[real])),
+                        torch.from_numpy(big_ids))
 
 
 def scene_from_numpy(tree) -> T.Scene:

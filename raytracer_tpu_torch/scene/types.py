@@ -162,6 +162,16 @@ class BVH(NamedTuple):
     prim_idx: torch.Tensor
 
 
+class LeafTables(NamedTuple):
+    """Leaf-traversal tables (``ops/leaf.py::build_leaf_tables``, the
+    port's layout of the JAX ``LeafTables``): the spheres much larger than
+    the median go to a dense "big" set; the rest are median-split into
+    leaves of at most LEAF spheres with tight boxes."""
+    aabb: torch.Tensor     # (L, 6) f32 leaf boxes: lo xyz, hi xyz
+    members: torch.Tensor  # (L, LEAF) int32 scene sphere index, -1 = empty
+    big: torch.Tensor      # (B,) int32 scene index of each big sphere
+
+
 class Scene(NamedTuple):
     """The world: all tables + camera + bounds."""
     spheres: Spheres
@@ -177,7 +187,7 @@ class Scene(NamedTuple):
     bounds_max: torch.Tensor  # (3,)
     bvh: Optional[BVH] = None
     media: Optional[Media] = None
-    leaf: None = None         # leaf-traversal tables: not ported yet
+    leaf: Optional[LeafTables] = None  # ops/leaf.py::with_leaf_tables
 
     @property
     def scale(self):
@@ -188,5 +198,5 @@ class Scene(NamedTuple):
 
 # every record moves as a whole: ``scene.to("cuda")``
 for _rec in (Textures, Materials, Spheres, Rects, Triangles, Lights, Camera,
-             Media, BVH, Scene):
+             Media, BVH, LeafTables, Scene):
     _rec.to = tree_to

@@ -242,13 +242,18 @@ def test_unfused_bounce_matches_fused(name):
                                    atol=1e-5, err_msg=field)
 
 
-@pytest.mark.parametrize("method,item", [
-    ("bvh", "A10"), ("leaf", "B4"), ("bruteforce", "A3")])
-def test_dispatch_refuses_unported_routes(method, item):
+# "leaf" is ported: without leaf tables it raises ValueError, as JAX
+# pallas_bvh._run does (the case keeps its id)
+@pytest.mark.parametrize("method,error,item", [
+    ("bvh", NotImplementedError, "A10"),
+    pytest.param("leaf", ValueError, "no leaf tables", id="leaf-B4"),
+    ("bruteforce", NotImplementedError, "A3")],
+    ids=["bvh-A10", "leaf-B4", "bruteforce-A3"])
+def test_dispatch_refuses_unported_routes(method, error, item):
     tscene = SCENES["three_spheres"][1]()
     o = torch.zeros((3, 4))
     d = torch.ones((3, 4))
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=item):
         dispatch.intersect_scene(tscene, o, d, T_MIN, float("inf"), method)
     hit, h, f = dispatch.intersect_and_attrs(tscene, o, d, T_MIN,
                                              float("inf"), "auto")

@@ -102,10 +102,13 @@ def test_camera_rays_match_jax(name):
                                rtol=1e-6, atol=1e-6)
 
 
+# "leaf" is ported: a scene without leaf tables raises ValueError (the
+# case keeps its id)
 @pytest.mark.parametrize("kw,error,item", [
     (dict(nee=True, mis=True), ValueError, "mutually exclusive"),
     (dict(intersector="bvh"), NotImplementedError, "A10"),
-    (dict(intersector="leaf"), NotImplementedError, "A10")])
+    pytest.param(dict(intersector="leaf"), ValueError, "no leaf tables",
+                 id="kw2-NotImplementedError-A10")])
 def test_render_fn_refuses_unported_options(kw, error, item):
     scene = tbuiltin.three_spheres(1.0)
     base = dict(width=4, height=4, spp=1, spp_chunk=1, max_depth=2,
