@@ -6,7 +6,7 @@ Phases, each of which raises on failure (exit code non-zero):
 
 1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
    no CUDA device is an error;
-2. build the three kernels from ``raytracer_tpu_torch/csrc`` (one nvcc
+2. build the nine kernels from ``raytracer_tpu_torch/csrc`` (one nvcc
    per source, started together), with ptxas registers and spills;
 3. the bounce kernel against its plain PyTorch version on the card, on the
    bounce cases of ``tests/test_torch_bounce.py`` and on scene_500 at the
@@ -21,7 +21,7 @@ Phases, each of which raises on failure (exit code non-zero):
    three_spheres_32.npz`` and ``cornell_sppm_32.npz``;
 6. the path tracer's main path: ``data/scene_500.json`` at 800x600,
    32 spp, depth 16, Russian roulette off and on, through
-   ``path_tracer.render``, with the bounce kernel's launch count;
+   ``path_tracer.render``, with the regeneration kernel's launch count;
 7. the SPPM path: Cornell with its mesh at 800x800, 500,000 photons per
    iteration, 4 iterations, a 16-spp gather at depth 50, through
    ``sppm.render``, with per-stage times and both kernels' launch counts;
@@ -46,12 +46,26 @@ Phases, each of which raises on failure (exit code non-zero):
 11. the leaf kernel on scene_500 at 480,000 camera rays and a second
    bounce, against the flat closest hit and ``leaf_closest_plain``, its
    time, the leaves visited per ray and the bound;
-12. the slice's renders through ``path_tracer.render``: field64k 800x600
-   32 spp depth 16 RR on, the same scene at 8 spp through the ordered and
-   the flat route (image means and ray counts within 0.5%), bunny_field(25)
-   8 spp, field64k with NEE 8 spp, and scene_500 with the leaf route RR off
-   (image mean within 0.5% of phase 6's), each with its seconds, Mrays/s
-   and kernel launches.
+12. the large scenes' renders through ``path_tracer.render``: field64k
+   800x600 32 spp depth 16 RR on, the same scene at 8 spp through the
+   ordered and the flat route (image means and ray counts within 0.5%),
+   bunny_field(25) 8 spp, field64k with NEE 8 spp (the ordered bounce and
+   closest hit), and scene_500 with the leaf route RR off (image mean
+   within 0.5% of phase 6's), each with its seconds, Mrays/s and kernel
+   launches;
+13. the regeneration kernels (one loop step in one kernel) against
+   ``regen_step_plain`` on a step captured from a scene_500 render (flat)
+   and a field64k render (ordered) at 480,000 lanes, with both times and
+   the bound; then scene_500 800x600 32 spp depth 16 RR off and on and
+   field64k 32 spp RR on through ``path_tracer.render``, the loop's own
+   step (the test hook ``wavefront_soa._ONE_KERNEL_STEP``) and the
+   one-kernel step in turns: rays and steps equal, image means within
+   0.5%;
+14. the FMA-rate probe against ``fma_chain_plain`` (f32 and bf16, passes
+   16 and 64, the script's weight and ``W_CHECK``), then its time,
+   TFLOP/s and bound per (dtype, passes) at
+   passes 16, 64, 256 and 1024, and the measured f32 rate beside the data
+   sheet's.
 
 It imports no JAX. The line before the last is a JSON object with the
 kernels' launches, errors, times and bounds; the last line is
@@ -85,7 +99,7 @@ P_TOL_REL = 1e-5        # p, no: atol = P_TOL_REL * scene.scale
 EDGE_ULPS = 24
 DEV = "cuda"
 KERNELS = ("bounce", "photon_query", "closest", "closest_ordered",
-           "bounce_ordered", "leaf")
+           "bounce_ordered", "leaf", "regen", "regen_ordered", "fma_rate")
 # photon query: flux |kernel - plain| <= Q_RTOL |plain| + Q_ATOL max|plain|.
 # Both sum non-negative float32 terms, in another order (the kernel one
 # photon at a time, the plain version by chunked matmuls); the kernel's
@@ -109,6 +123,15 @@ SPH_FLOPS, RECT_FLOPS, TRI_FLOPS = 17, 6, 38
 Q_PAIR_FLOPS, Q_NEAR_FLOPS, Q_SUM_FLOPS = 8, 11, 4
 # csrc/sweep.cuh slab test of one box: 6 subtractions and 6 products
 BOX_FLOPS = 12
+# the regeneration step's lane state per lane, read (o, d, tput, samp, acc
+# 60, alive 1, depth and done 8, px and py 8, U 32) and written (o, d,
+# tput, samp, acc 60, alive 1, depth and done 8)
+REGEN_LANE_BYTES = 109 + 69
+RR_EDGE = 1e-6          # |u_RR - p_surv| below this: an RR decision edge
+# the captured step of a 3-sample render: still all 480,000 lanes (the
+# cascade compacts later), with lanes at depth 3 and lanes past quota
+REGEN_STEP, REGEN_SPP = 3, 3
+FMA_RTOL = {"float32": 2e-6, "bfloat16": 2.0 ** -6}
 FIELD_N, BUNNIES = 65536, 25
 LARGE_SPP = 8           # the route check, bunny_field and NEE renders
 ROUTE_TOL = 0.005       # image means and ray counts, ordered vs flat route
@@ -375,14 +398,18 @@ def compare(name, scene, tab, o, d, out, ref, ty, ix, alive,
     bad_p = agree & (np.abs(p - rp) > p_tol).any(0)
     bad_no = agree & (np.abs(no - rno) > p_tol).any(0)
     colour = agree & (off(att, ratt) | off(emit, remit))
+    # a checker pick flips only where sin(10 p) is within 10 |dp| of 0, dp
+    # the two versions' hit-point difference, plus float32 rounding of sin
     checker_edge = (np.abs(np.sin(10.0 * rp.astype(np.float64))).min(0)
-                    < 10 * p_tol)
+                    <= 10.0 * np.abs(p - rp).max(0) + 1e-6)
     bad_colour = colour & ~checker_edge
+    by_checker = colour & checker_edge
     radius = tab.sph[:, 3].sqrt().cpu().numpy()
     r_win = (np.where(ty == 0, radius[np.clip(ix, 0, len(radius) - 1)],
                       np.inf) if len(radius) else np.full(ty.shape, np.inf))
     dp = np.abs(p - rp).max(0) / r_win
-    same = agree & ~colour
+    # the texture pick moves neither the normal nor the scatter direction
+    same = agree
     bad_n = same & off(n, rn, 2.0 * dp)
     # the scatter propagates the normal's own difference (x2 for a mirror,
     # more near grazing refraction): a triangle's interpolated normal
@@ -404,7 +431,8 @@ def compare(name, scene, tab, o, d, out, ref, ty, ix, alive,
             f"{float(dn[by_dn].max()):.3g} (n held to {ATOL:g} + {RTOL:g} "
             f"|n|), |d nd| / |dn| up to {float((dnd / dn[by_dn]).max()):.3g}")
     flips = int((alive & ~agree).sum())
-    edge_share = (flips + int(graze.sum())) / max(int(alive.sum()), 1)
+    excused = graze | (by_checker & ~beyond)
+    edge_share = (flips + int(excused.sum())) / max(int(alive.sum()), 1)
     held = agree & ~beyond & ~colour
     err = max(float(np.abs(a[:, held] - b[:, held]).max(initial=0.0))
               for a, b in zip(out[1:], ref[1:]))
@@ -412,7 +440,8 @@ def compare(name, scene, tab, o, d, out, ref, ty, ix, alive,
         f"inter flips {flips}; beyond tolerance: p {int(bad_p.sum())}, "
         f"no {int(bad_no.sum())}, att/emit {int(bad_colour.sum())}, "
         f"n {int(bad_n.sum())}, nd {int(bad_nd.sum())}, of which on a "
-        f"grazing edge {int(graze.sum())}; edge share {edge_share:.3g}; "
+        f"grazing edge {int(graze.sum())}; att/emit on a checker edge "
+        f"{int(by_checker.sum())}; edge share {edge_share:.3g}; "
         f"max |diff| elsewhere {err:.3g}; beyond-tolerance lanes: "
         f"{edge_note(on, ulps, share, why)}")
     if (beyond & ~graze).any() or edge_share > max_edge:
@@ -757,10 +786,11 @@ def check_golden_sppm():
 # ------------------------------------------------------------------ phase 6
 
 def main_path() -> tuple:
-    """scene_500 at 800x600, 32 spp, depth 16, RR off then on. Returns the
-    kernel launches of those two renders and the RR-off image mean."""
+    """scene_500 at 800x600, 32 spp, depth 16, RR off then on: each step
+    one launch of the regeneration kernel. Returns its launches in those
+    two renders and the RR-off image mean."""
     from raytracer_tpu_torch.models import path_tracer
-    from raytracer_tpu_torch.ops import fused_bounce as fb
+    from raytracer_tpu_torch.ops import regen
     from raytracer_tpu_torch.scene.loader import load_scene
     from raytracer_tpu_torch.utils.config import RenderConfig
     from raytracer_tpu_torch.utils.image import save_render
@@ -775,10 +805,10 @@ def main_path() -> tuple:
 
     path_tracer.render(scene, cfg(1, True), 0, device=DEV)     # warm
     torch.cuda.synchronize()
-    fb.LAUNCHES = 0
+    zero_counts()
     means = {}
     for rr in (False, True):
-        before = fb.LAUNCHES
+        before = regen.LAUNCHES
         t0 = time.perf_counter()
         img, rays = path_tracer.render(scene, cfg(SPP, rr), 1, device=DEV)
         torch.cuda.synchronize()
@@ -787,16 +817,17 @@ def main_path() -> tuple:
         tag = "rr" if rr else "norr"
         log(f"main path scene_500 {WIDTH}x{HEIGHT} {SPP} spp depth {DEPTH} "
             f"RR {'on' if rr else 'off'}: {rays} rays in {dt:.4f} s = "
-            f"{rays / dt / 1e6:.4f} Mrays/s; bounce launches "
-            f"{fb.LAUNCHES - before}; image mean {host.mean():.6f}")
+            f"{rays / dt / 1e6:.4f} Mrays/s; regen launches "
+            f"{regen.LAUNCHES - before}; image mean {host.mean():.6f}")
         if not (np.isfinite(host).all() and host.mean() > 0):
             raise AssertionError("main-path image is not finite and positive")
-        if rays <= 0 or fb.LAUNCHES == before:
-            raise AssertionError("main path traced no rays through the kernel")
+        if rays <= 0 or regen.LAUNCHES == before or counts()["bounce"]:
+            raise AssertionError("main path traced no rays through the "
+                                 f"regen kernel: {counts()}")
         save_render(os.path.join(ROOT, "output", f"chip_smoke_{tag}.png"),
                     host)
         means[rr] = float(host.mean())
-    return fb.LAUNCHES, means[False]
+    return regen.LAUNCHES, means[False]
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1457,57 +1488,72 @@ def check_leaf() -> dict:
 # ----------------------------------------------------------------- phase 12
 
 def counts() -> dict:
+    from raytracer_tpu_torch.experiments import bf16_rate_bench as probe
     from raytracer_tpu_torch.ops import closest_hit as ch
     from raytracer_tpu_torch.ops import fused_bounce as fb
     from raytracer_tpu_torch.ops import leaf
     from raytracer_tpu_torch.ops import photon_query as pq
+    from raytracer_tpu_torch.ops import regen
     return {"bounce": fb.LAUNCHES, "bounce_ordered": fb.ORDERED_LAUNCHES,
             "closest": ch.LAUNCHES, "closest_ordered": ch.ORDERED_LAUNCHES,
-            "leaf": leaf.LAUNCHES, "photon_query": pq.LAUNCHES}
+            "leaf": leaf.LAUNCHES, "photon_query": pq.LAUNCHES,
+            "regen": regen.LAUNCHES, "regen_ordered": regen.ORDERED_LAUNCHES,
+            "fma_rate": probe.LAUNCHES}
 
 
 def zero_counts():
+    from raytracer_tpu_torch.experiments import bf16_rate_bench as probe
     from raytracer_tpu_torch.ops import closest_hit as ch
     from raytracer_tpu_torch.ops import fused_bounce as fb
     from raytracer_tpu_torch.ops import leaf
     from raytracer_tpu_torch.ops import photon_query as pq
+    from raytracer_tpu_torch.ops import regen
     fb.LAUNCHES = fb.ORDERED_LAUNCHES = ch.LAUNCHES = 0
     ch.ORDERED_LAUNCHES = leaf.LAUNCHES = pq.LAUNCHES = 0
+    regen.LAUNCHES = regen.ORDERED_LAUNCHES = probe.LAUNCHES = 0
 
 
 def timed_render(tag, scene, dev, *, spp, rr=True, seed=1, tables=None,
-                 **kw):
+                 loop_step=False, stats=None, **kw):
     """One render at 800x600, depth 16, spp_chunk 1, with every kernel
     count set to 0 just before and read just after. Through
     ``path_tracer.render``, or ``render_fn`` when ``tables`` forces a
-    route. Returns (image on the host, rays, seconds, launches)."""
+    route; ``loop_step`` takes the loop's own step where the one-kernel
+    step would run (the test hook ``wavefront_soa._ONE_KERNEL_STEP``);
+    ``stats`` (a dict) receives the loop's shadow lanes and steps.
+    Returns (image on the host, rays, seconds, launches)."""
     from raytracer_tpu_torch.models import path_tracer
+    from raytracer_tpu_torch.models import wavefront_soa
     from raytracer_tpu_torch.utils.config import RenderConfig
     from raytracer_tpu_torch.utils.image import save_render
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, samples_per_pixel=spp,
                        spp_chunk=1, max_depth=DEPTH, t_min=T_MIN,
                        spawn_eps_rel=EPS_REL, russian_roulette=rr, **kw)
-    stats = {}
+    stats = {} if stats is None else stats
     torch.cuda.synchronize()
     zero_counts()
+    wavefront_soa._ONE_KERNEL_STEP = not loop_step
     t0 = time.perf_counter()
-    if tables is None:
-        img, rays = path_tracer.render(scene, cfg, seed, device=dev,
-                                       stats=stats)
-    else:
-        img, rays = path_tracer.render_fn(
-            scene, torch.Generator(device=dev).manual_seed(seed),
-            width=WIDTH, height=HEIGHT, spp=spp, spp_chunk=1,
-            max_depth=DEPTH, t_min=T_MIN, spawn_eps_rel=EPS_REL,
-            intersector=cfg.intersector, russian_roulette=rr,
-            nee=cfg.nee, mis=cfg.mis, device=dev, tables=tables,
-            stats=stats)
-    torch.cuda.synchronize()
+    try:
+        if tables is None:
+            img, rays = path_tracer.render(scene, cfg, seed, device=dev,
+                                           stats=stats)
+        else:
+            img, rays = path_tracer.render_fn(
+                scene, torch.Generator(device=dev).manual_seed(seed),
+                width=WIDTH, height=HEIGHT, spp=spp, spp_chunk=1,
+                max_depth=DEPTH, t_min=T_MIN, spawn_eps_rel=EPS_REL,
+                intersector=cfg.intersector, russian_roulette=rr,
+                nee=cfg.nee, mis=cfg.mis, device=dev, tables=tables,
+                stats=stats)
+        torch.cuda.synchronize()
+    finally:
+        wavefront_soa._ONE_KERNEL_STEP = True
     dt = time.perf_counter() - t0
     launches = {k: v for k, v in counts().items() if v}
     host = img.cpu().numpy()
-    extra = (f"; shadow lanes {stats['shadow_lanes']}"
-             if "shadow_lanes" in stats else "")
+    extra = (f"; shadow lanes {stats['shadow_lanes']}; steps "
+             f"{stats['steps']}" if "shadow_lanes" in stats else "")
     log(f"render {tag}: {WIDTH}x{HEIGHT} {spp} spp depth {DEPTH} RR "
         f"{'on' if rr else 'off'}: {rays} rays in {dt:.4f} s = "
         f"{rays / dt / 1e6:.4f} Mrays/s; launches {launches}{extra}; image "
@@ -1525,22 +1571,23 @@ def slice_renders(pt_mean: float) -> dict:
     field = large_scene("field64k").to(dev)
     total = {}
 
-    def add(launches, need):
+    def add(launches, *need):
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
-        if not launches.get(need):
-            raise AssertionError(f"the render launched no {need} kernel")
+        for k in need:
+            if not launches.get(k):
+                raise AssertionError(f"the render launched no {k} kernel")
 
     timed_render("field64k_warm", field, dev, spp=1)
-    add(timed_render("field64k", field, dev, spp=SPP)[3], "bounce_ordered")
+    add(timed_render("field64k", field, dev, spp=SPP)[3], "regen_ordered")
     img_o, rays_o, _, l_o = timed_render("field64k_route_ordered", field,
                                          dev, spp=LARGE_SPP, seed=2,
                                          tables=fb.pack_tables(field))
     img_f, rays_f, _, l_f = timed_render(
         "field64k_route_flat", field, dev, spp=LARGE_SPP, seed=2,
         tables=fb.pack_tables(field, order=False))
-    add(l_o, "bounce_ordered")
-    if l_f.get("bounce_ordered") or not l_f.get("bounce"):
+    add(l_o, "regen_ordered")
+    if l_f.get("regen_ordered") or not l_f.get("regen"):
         raise AssertionError("the forced flat route did not run flat")
     dm = abs(img_o.mean() / img_f.mean() - 1)
     dr = abs(rays_o / rays_f - 1)
@@ -1552,9 +1599,9 @@ def slice_renders(pt_mean: float) -> dict:
         raise AssertionError("ordered and flat routes disagree")
     bunny = large_scene("bunny_field").to(dev)
     add(timed_render("bunny_field", bunny, dev, spp=LARGE_SPP)[3],
-        "bounce_ordered")
+        "regen_ordered")
     add(timed_render("field64k_nee", field, dev, spp=LARGE_SPP,
-                     nee=True)[3], "closest_ordered")
+                     nee=True)[3], "bounce_ordered", "closest_ordered")
     img, _, _, l_leaf = timed_render("scene_500_leaf", leaf_scene_500(dev),
                                      dev, spp=SPP, rr=False,
                                      intersector="leaf")
@@ -1567,6 +1614,298 @@ def slice_renders(pt_mean: float) -> dict:
     return total
 
 
+# ----------------------------------------------------------------- phase 13
+
+LANE_FIELDS = ("o", "d", "tput", "samp", "acc", "alive", "depth", "done")
+
+
+def clone_lanes(lanes):
+    return lanes._replace(**{k: getattr(lanes, k).clone()
+                             for k in LANE_FIELDS})
+
+
+def regen_capture(scene, dev):
+    """The arguments of step REGEN_STEP of a REGEN_SPP-sample render of
+    ``scene`` at 800x600 (RR on), which takes the one-kernel step, the lanes
+    cloned: by then lanes respawn, lanes have used up their quota and
+    lanes are at depth >= 3."""
+    from raytracer_tpu_torch.models import path_tracer
+    from raytracer_tpu_torch.ops import regen
+    captured = []
+    real = regen.regen_step_tables
+
+    def capture(tab, cam, U, eps, lanes, **kw):
+        if len(captured) == REGEN_STEP:
+            captured.append((tab, cam, U.clone(), eps, clone_lanes(lanes), kw))
+        elif len(captured) < REGEN_STEP:
+            captured.append(None)
+        return real(tab, cam, U, eps, lanes, **kw)
+
+    regen.regen_step_tables = capture
+    try:
+        path_tracer.render_fn(
+            scene, torch.Generator(device=dev).manual_seed(9), width=WIDTH,
+            height=HEIGHT, spp=REGEN_SPP, spp_chunk=1, max_depth=DEPTH,
+            t_min=T_MIN, spawn_eps_rel=EPS_REL, device=dev)
+    finally:
+        regen.regen_step_tables = real
+    torch.cuda.synchronize()
+    if len(captured) <= REGEN_STEP:
+        raise AssertionError("the render ended before the captured step")
+    return captured[REGEN_STEP]
+
+
+def kernel_ms(tab, cam, U, eps, lanes, kw, reps: int = 10) -> float:
+    """Median of ``reps`` CUDA-event timings of one in-place kernel launch,
+    each on a fresh copy of the lanes (the copy is not timed)."""
+    from raytracer_tpu_torch.ops import regen
+    times = []
+    for _ in range(reps + 1):
+        work = clone_lanes(lanes)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        regen.regen_step_tables(tab, cam, U, eps, work, **kw)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times[1:]))
+
+
+def compare_regen(name, scene, tab, cam, U, eps, lanes, kw,
+                  max_edge: float) -> float:
+    """Hold the kernel's step to ``regen_step_plain`` on one captured
+    state. Dead lanes: every output equal. Alive lanes: o to the point
+    tolerance, d to RTOL/ATOL plus 8 |dp| / r (phase 3's nd), tput, samp and
+    acc to RTOL/ATOL, alive, depth and done equal, except on decision
+    edges, counted apart: the bounce's interaction flips (the bounce
+    kernel against its plain version on the same rays), a ray grazing a
+    winner (``grazes``), a hit point within its own float32 difference of
+    a checker edge, or an RR uniform within RR_EDGE of its survival
+    probability. Returns the largest
+    absolute difference of the float outputs over the lanes held."""
+    from raytracer_tpu_torch.ops import closest_hit as ch
+    from raytracer_tpu_torch.ops import fused_bounce as fb
+    from raytracer_tpu_torch.ops import regen
+    kern = regen.regen_step_tables(tab, cam, U, eps, clone_lanes(lanes), **kw)
+    plain = regen.regen_step_plain(tab, cam, U, eps, clone_lanes(lanes), **kw)
+    n = lanes.o.shape[1]
+    uni = torch.cat([U[:3], torch.full((1, n), eps, device=U.device)], 0)
+    kb = fb.bounce_tables(tab, lanes.o, lanes.d, T_MIN, lanes.alive, uni)
+    hit = fb._closest_plain(tab, lanes.o, lanes.d, T_MIN, lanes.alive,
+                            ordered=tab.ordered)
+    pb = fb._bounce_values(tab, lanes.o, lanes.d, uni, *hit)
+    win = ch.closest_tables(tab, lanes.o, lanes.d, T_MIN, float("inf"),
+                            lanes.alive)
+    torch.cuda.synchronize()
+    host = lambda x: x.cpu().numpy()            # noqa: E731
+    K = {k: host(getattr(kern, k)) for k in LANE_FIELDS}
+    P = {k: host(getattr(plain, k)) for k in LANE_FIELDS}
+    S = {k: host(getattr(lanes, k)) for k in LANE_FIELDS}
+    a = S["alive"]
+    for k in LANE_FIELDS:
+        if not np.array_equal(K[k][..., ~a], P[k][..., ~a]):
+            raise AssertionError(f"{name}: {k} differs on a dead lane")
+        if K[k].dtype == np.float32 and not np.isfinite(K[k]).all():
+            raise AssertionError(f"{name}: {k} is not finite")
+    flips = a & (host(kb[0]) != host(pb[0]))
+    p_tol = P_TOL_REL * float(scene.scale)
+    rp, ty, ix = host(pb[5]), host(hit[1]), host(hit[2])
+    radius = tab.sph[:, 3].sqrt().cpu().numpy()
+    r_win = (np.where(ty == 0, radius[np.clip(ix, 0, len(radius) - 1)],
+                      np.inf) if len(radius) else np.full(n, np.inf))
+    dp = np.abs(K["o"] - P["o"]).max(0) / r_win
+
+    def off(x, y, slack=0.0):
+        return (np.abs(x - y) > ATOL + RTOL * np.abs(y) + slack).any(0)
+
+    by = {"o": (np.abs(K["o"] - P["o"]) > p_tol).any(0),
+          "d": off(K["d"], P["d"], 8.0 * dp),
+          **{k: off(K[k], P[k]) for k in ("tput", "samp", "acc")},
+          **{k: K[k] != P[k] for k in ("alive", "depth", "done")}}
+    beyond = a & np.logical_or.reduce(list(by.values()))
+    # a checker pick flips only where sin(10 p) is within 10 |dp| of 0, dp
+    # the two versions' hit-point difference (the bounce kernel's p stands
+    # for the step's), plus float32 rounding of sin
+    dp_abs = np.abs(host(kb[5]) - rp).max(0)
+    checker = (np.abs(np.sin(10.0 * rp.astype(np.float64))).min(0)
+               <= 10.0 * dp_abs + 1e-6)
+    tput1 = np.where(a & (host(pb[0]) != 2), S["tput"] * host(pb[3]),
+                     S["tput"])
+    p_surv = np.clip(tput1.max(0), 0.05, 1.0)
+    rr_edge = (kw["rr_on"] & (S["depth"] >= kw["rr_start"])
+               & (np.abs(host(U[regen.U_RR]) - p_surv) < RR_EDGE))
+    check = beyond & ~flips & ~checker & ~rr_edge
+    lanes_ = np.where(check)[0]
+    graze = np.zeros_like(check)
+    cont_k = K["alive"] & (K["depth"] > 0)      # went on: o is its hit
+    pk = np.where(cont_k, K["o"], rp)
+    on, ulps, share, why = grazes(
+        tab, S["o"][:, lanes_], S["d"][:, lanes_], pk[:, lanes_], ty[lanes_],
+        ix[lanes_], host(win.ty)[lanes_], host(win.ix)[lanes_])
+    graze[lanes_] = on
+    edge = flips | (beyond & (checker | rr_edge | graze))
+    held = a & ~beyond
+    errs = {k: float(np.abs(K[k][..., held] - P[k][..., held]).max(initial=0))
+            for k in ("o", "d", "tput", "samp", "acc")}
+    err = max(errs.values())
+    respawn = a & (P["done"] > S["done"]) & P["alive"]
+    past = S["done"] >= kw["quota"]
+    log(f"  {name}: lanes {n}, alive {int(a.sum())}; respawning "
+        f"{int(respawn.sum())}, past their quota {int(past.sum())}, "
+        f"alive at depth >= 3 {int((a & (S['depth'] >= 3)).sum())}; "
+        f"beyond tolerance {int(beyond.sum())} ("
+        + ", ".join(f"{k} {int((a & v).sum())}" for k, v in by.items())
+        + f"): interaction flips "
+        f"{int((beyond & flips).sum())} (of {int(flips.sum())}), checker "
+        f"edge {int((beyond & checker).sum())}, RR edge "
+        f"{int((beyond & rr_edge).sum())}, grazing {int(graze.sum())}; edge "
+        f"share {edge.sum() / max(a.sum(), 1):.3g}; max |diff| elsewhere "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; grazing lanes: {edge_note(on, ulps, share, why)}")
+    if (check & ~graze).any() or edge.sum() > max_edge * a.sum():
+        raise AssertionError(f"{name}: the regen kernel disagrees with "
+                             "regen_step_plain")
+    if not (respawn.any() and past.any() and (a & (S["depth"] >= 3)).any()):
+        raise AssertionError(f"{name}: the captured state misses a case")
+    return err
+
+
+def check_regen() -> dict:
+    """Phase 13, the kernels. Returns the rows' numbers of ``regen`` and
+    ``regen_ordered``."""
+    from raytracer_tpu_torch.ops import ordered
+    from raytracer_tpu_torch.ops import regen
+    dev = torch.device(DEV)
+    log("regen kernels against regen_step_plain on a captured step:")
+    rows = {}
+    for key, scene, max_edge in (
+            ("regen", load("scene_500", WIDTH / HEIGHT).to(dev),
+             1.0 - INTER_AGREE),
+            ("regen_ordered", large_scene("field64k").to(dev), PLAIN_EDGE)):
+        tab, cam, U, eps, lanes, kw = regen_capture(scene, dev)
+        n = lanes.o.shape[1]
+        if tab.ordered != (key == "regen_ordered") or n != WIDTH * HEIGHT:
+            raise AssertionError(f"{key}: captured {n} lanes, ordered "
+                                 f"{tab.ordered}")
+        err = compare_regen(f"{key}, step {REGEN_STEP} of a {REGEN_SPP}-"
+                            "sample render", scene, tab, cam, U, eps, lanes,
+                            kw, max_edge)
+        ms = kernel_ms(tab, cam, U, eps, lanes, kw)
+        plain_ms = cuda_ms(lambda: regen.regen_step_plain(
+            tab, cam, U, eps, lanes, **kw), reps=3)
+        extra = (tab.sph_mat, tab.rect_mat, tab.tri_mat, tab.tri_nrm,
+                 tab.mat, cam)
+        if tab.ordered:
+            stats = torch.zeros((-(-n // ordered.BLOCK), 2),
+                                dtype=torch.int32, device=dev)
+            regen.regen_step_tables(tab, cam, U, eps, clone_lanes(lanes),
+                                    stats=stats, **kw)
+            b, pairs = walk_bound(tab, stats, lanes.alive, REGEN_LANE_BYTES,
+                                  (tab.sph,) + extra)
+            log(f"  {key}: pair tests run {pairs}")
+        else:
+            b = sweep_bound(tab, lanes.alive, REGEN_LANE_BYTES, extra)
+        log(f"  {key} at {n} lanes ({int(lanes.alive.sum())} alive): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of CUDA-event "
+            "timings: 10, the plain version's 3)")
+        rows[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+                     "library_ms": None}
+    return rows
+
+
+def regen_renders() -> dict:
+    """Phase 13, the renders: scene_500 RR off and on and field64k RR on,
+    32 spp, the loop's own step and the one-kernel step in turns (loop,
+    one kernel, one kernel, loop). Returns the summed launches of the
+    one-kernel renders."""
+    dev = torch.device(DEV)
+    total = {}
+    for tag, scene, rr in (
+            ("scene_500", load("scene_500", WIDTH / HEIGHT).to(dev), False),
+            ("scene_500", load("scene_500", WIDTH / HEIGHT).to(dev), True),
+            ("field64k", large_scene("field64k").to(dev), True)):
+        need = "regen_ordered" if tag == "field64k" else "regen"
+        runs = []
+        for fused in (False, True, True, False):
+            st = {}
+            name = (f"{tag}_rr{'on' if rr else 'off'}_"
+                    f"{'one_kernel' if fused else 'loop'}")
+            img, rays, dt, launches = timed_render(
+                name, scene, dev, spp=SPP, rr=rr, loop_step=not fused,
+                stats=st)
+            runs.append((fused, img, rays, st["steps"], dt))
+            if fused:
+                if not launches.get(need) or launches.get("bounce") \
+                        or launches.get("bounce_ordered"):
+                    raise AssertionError(f"{name}: launches {launches}")
+                for k, v in launches.items():
+                    total[k] = total.get(k, 0) + v
+        ref = runs[0]
+        secs = {f: [r[4] for r in runs if r[0] == f] for f in (False, True)}
+        dm = max(abs(r[1].mean() / ref[1].mean() - 1) for r in runs)
+        diff = max(float(np.abs(r[1] - ref[1]).max()) for r in runs)
+        log(f"route check {tag} RR {'on' if rr else 'off'} {SPP} spp: loop "
+            f"{secs[False]} s, one kernel {secs[True]} s; rays "
+            f"{[r[2] for r in runs]}, steps {[r[3] for r in runs]}; image "
+            f"means within {dm * 100:.4f}%, max |pixel diff| {diff:.3g}")
+        if any((r[2], r[3]) != (ref[2], ref[3]) for r in runs) \
+                or not dm <= ROUTE_TOL:
+            raise AssertionError(f"{tag}: the one-kernel route differs from "
+                                 "the loop's")
+    return total
+
+
+# ----------------------------------------------------------------- phase 14
+
+def check_fma() -> dict:
+    """Phase 14: the probe against its plain version, then its run (every
+    count set to 0 before it). Returns the f32 passes-1024 row with the
+    launches of the run."""
+    from raytracer_tpu_torch.experiments import bf16_rate_bench as probe
+    dev = torch.device(DEV)
+    log("FMA-rate probe against fma_chain_plain:")
+    x32, w32 = probe.make_inputs(probe.N_TILES, dev)
+    err = 0.0
+    cases = [(w, dtype, passes) for w in (probe.W, probe.W_CHECK)
+             for dtype in probe.DTYPES for passes in (16, 64)]
+    for w_val, dtype, passes in cases:
+        x = x32.to(dtype)
+        w = torch.full_like(x32, w_val).to(dtype)
+        k = probe.fma_chain(x, w, passes).float()
+        p = probe.fma_chain_plain(x, w, passes).float()
+        rel = float(((k - p).abs() / p.abs()).max())
+        exact = float((k == p).double().mean())
+        name = str(dtype).removeprefix("torch.")
+        log(f"  {name} w {w_val} passes {passes}: max relative difference "
+            f"{rel:.3g} (held to {FMA_RTOL[name]:.3g}), {exact:.4f} of the "
+            f"{k.numel()} elements equal")
+        if not rel <= FMA_RTOL[name]:
+            raise AssertionError(f"fma probe {name} w {w_val} passes "
+                                 f"{passes} disagrees with its plain version")
+        err = max(err, float((k - p).abs().max()))
+    torch.cuda.synchronize()
+    zero_counts()
+    rows = probe.bench(device=dev)
+    launches = counts()["fma_rate"]
+    for r in rows:
+        log(f"  probe {r['dtype']} passes {r['passes']}: {r['ms']:.4f} ms, "
+            f"{r['tflops']:.4f} TFLOP/s; bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; {r['flops']:.6g} flops, {r['bytes']:.6g} "
+            "bytes)")
+    top = [r for r in rows if r["dtype"] == "float32"
+           and r["passes"] == max(probe.PASSES)][0]
+    log(f"  measured f32 FMA rate {top['tflops']:.4f} TFLOP/s against the "
+        f"data sheet's {PEAK_FP32 / 1e12:.0f} "
+        f"({top['tflops'] * 1e12 / PEAK_FP32 * 100:.2f}%); launches "
+        f"{launches}")
+    plain_ms = cuda_ms(lambda: probe.fma_chain_plain(x32, w32, top["passes"]),
+                       reps=3)
+    return {"launches": launches, "max_abs_err": err, "ms": top["ms"],
+            "plain_ms": plain_ms, "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": None}
+
+
 def main() -> int:
     device = card()
     sys.path.insert(0, ROOT)
@@ -1575,7 +1914,7 @@ def main() -> int:
     q_stats = check_query()
     check_golden()
     check_golden_sppm()
-    pt_launches, pt_mean = main_path()
+    pt_regen, pt_mean = main_path()
     sppm_launches = sppm_path()
     c_stats = check_closest()
     check_golden_nee_mis()
@@ -1584,6 +1923,9 @@ def main() -> int:
     o_rows = check_ordered()
     l_row = check_leaf()
     sl = slice_renders(pt_mean)
+    r_rows = check_regen()
+    rl = regen_renders()
+    f_row = check_fma()
 
     def row(d):
         return {k: v for k, v in d.items()
@@ -1594,8 +1936,8 @@ def main() -> int:
         {"name": "bounce", "route": "cuda",
          "source": "raytracer_tpu_torch/csrc/bounce.cu",
          "replaces": "raytracer_tpu/ops/pallas_intersect.py:1731",
-         "launches": pt_launches + sppm_launches["bounce"]
-         + nm["nee"]["bounce"] + nm["mis"]["bounce"], **stats},
+         "launches": sppm_launches["bounce"] + nm["nee"]["bounce"]
+         + nm["mis"]["bounce"], **stats},
         {"name": "photon_query", "route": "cuda",
          "source": "raytracer_tpu_torch/csrc/photon_query.cu",
          "replaces": "raytracer_tpu/ops/pallas_photon.py:82",
@@ -1618,7 +1960,21 @@ def main() -> int:
         {"name": "leaf", "route": "cuda",
          "source": "raytracer_tpu_torch/csrc/leaf.cu",
          "replaces": "raytracer_tpu/ops/pallas_bvh.py:475",
-         "launches": sl.get("leaf", 0), **row(l_row)}]
+         "launches": sl.get("leaf", 0), **row(l_row)},
+        {"name": "regen", "route": "cuda",
+         "source": "raytracer_tpu_torch/csrc/regen.cu",
+         "replaces": "raytracer_tpu/ops/pallas_intersect.py:1873",
+         "launches": pt_regen + sl.get("regen", 0) + rl.get("regen", 0),
+         **row(r_rows["regen"])},
+        {"name": "regen_ordered", "route": "cuda",
+         "source": "raytracer_tpu_torch/csrc/regen_ordered.cu",
+         "replaces": "raytracer_tpu/ops/pallas_intersect.py:1906",
+         "launches": sl.get("regen_ordered", 0)
+         + rl.get("regen_ordered", 0),
+         **row(r_rows["regen_ordered"])},
+        {"name": "fma_rate", "route": "cuda",
+         "source": "raytracer_tpu_torch/csrc/fma_rate.cu",
+         "replaces": "experiments/bf16_rate_bench.py:35", **f_row}]
     if min(k["launches"] for k in kernels) <= 0:
         raise AssertionError("a kernel was launched no time on its path")
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,81 @@
+// One step of the regeneration loop for Hopper (sm_90a), one thread per
+// lane: the flat closest-hit sweep (sweep.cuh), the bounce's values
+// (scatter.cuh), then emission, throughput, Russian roulette, retire and
+// quota counting and the camera respawn (regen.cuh), the lane state updated
+// in place.
+//
+// Replaces raytracer_tpu/ops/pallas_intersect.py::_regen_kernel (reached
+// through _call_regen / regen_step_fused), whose plain PyTorch twin is
+// raytracer_tpu_torch/ops/regen.py::regen_step_plain.
+//
+// What bounds it: the sweep's FP32 work, as in bounce.cu. The bookkeeping
+// adds ~60 flops and ~180 bytes of lane state per lane (read and written
+// once), which the eager loop spreads over ~30 kernels that each read and
+// write whole rows; here it stays in registers. The design is bounce.cu's:
+// SoA rows, tables through a 16 KB shared tile, the winner in registers.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "regen.cuh"
+#include "scatter.cuh"
+#include "sweep.cuh"
+
+namespace {
+
+constexpr int BLOCK = 128;
+
+__global__ void __launch_bounds__(BLOCK) regen_kernel(
+    const Lanes L, const RegenParams P, float tmin, int n,
+    const float* __restrict__ sph, const int* __restrict__ sph_mat, int n_sph,
+    const float* __restrict__ rect, const int* __restrict__ rect_mat,
+    int n_rect,
+    const float* __restrict__ tri, const float* __restrict__ tri_nrm,
+    const int* __restrict__ tri_mat, int n_tri,
+    const float* __restrict__ mat) {
+  __shared__ __align__(16) float tile[TILE_FLOATS];
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  const bool in = i < n;
+  const bool live = in && L.alive[i] != 0;
+  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
+  if (in) {
+    ox = L.o[i]; oy = L.o[n + i]; oz = L.o[2 * n + i];
+    dx = L.d[i]; dy = L.d[n + i]; dz = L.d[2 * n + i];
+  }
+  const Winner w = sweep<BLOCK>(tile, live, Ray{ox, oy, oz, dx, dy, dz,
+                                                  tmin, BIG},
+                                 sph, n_sph, rect, n_rect, tri, n_tri);
+  if (!in) return;
+  regen_epilogue(i, n, ox, oy, oz, dx, dy, dz, live, w, sph, sph_mat, rect,
+                 rect_mat, tri_nrm, tri_mat, mat, L, P);
+}
+
+}  // namespace
+
+// Plain C entry point (loaded with ctypes). Launches on `stream`, does not
+// synchronise, allocates nothing; returns cudaGetLastError() of the launch.
+// Lane state (updated in place): o, d, tput, samp, acc (3, n) f32, alive
+// (n,) bytes, depth, done (n,) int32; read only: px, py (n,) f32, U (8, n)
+// f32, cam (32,) f32. The tables are rt_bounce's.
+extern "C" int rt_regen(
+    float* o, float* d, float* tput, float* samp, float* acc, uint8_t* alive,
+    int* depth, int* done, const float* px, const float* py, const float* U,
+    const float* cam, float tmin, float eps, int n, int width, int height,
+    int quota, int max_depth, int rr_on, int rr_start,
+    const float* sph, const int* sph_mat, int n_sph,
+    const float* rect, const int* rect_mat, int n_rect,
+    const float* tri, const float* tri_nrm, const int* tri_mat, int n_tri,
+    const float* mat, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  const Lanes L{o, d, tput, samp, acc, alive, depth, done, px, py, U, cam};
+  const RegenParams P{eps, width, height, quota, max_depth, rr_on, rr_start};
+  const int grid = (n + BLOCK - 1) / BLOCK;
+  regen_kernel<<<grid, BLOCK, 0, stream>>>(
+      L, P, tmin, n, sph, sph_mat, n_sph, rect, rect_mat, n_rect, tri,
+      tri_nrm, tri_mat, n_tri, mat);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* rt_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

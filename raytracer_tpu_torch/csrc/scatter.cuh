@@ -1,7 +1,9 @@
-// The epilogue of the fused bounces (bounce.cu, bounce_ordered.cu): the
-// winner's attributes, constant/checker texture, material scatter and spawn
-// offset for ray i, from the winner of a sweep. The winner's index is the
-// scene's own: its records are read once from the scene-order tables.
+// The epilogue of the fused bounces (bounce.cu, bounce_ordered.cu) and of
+// the regeneration steps (regen.cuh): the winner's attributes,
+// constant/checker texture, material scatter and spawn offset of one ray,
+// from the winner of a sweep. The winner's index is the scene's own: its
+// records are read once from the scene-order tables. bounce_values returns
+// them; bounce_epilogue writes them out.
 // Compiled without --use_fast_math: the checker texture takes sin() of
 // world coordinates, far outside [-pi, pi], where __sinf is inaccurate.
 
@@ -26,17 +28,24 @@ __device__ __forceinline__ void unit3(float& x, float& y, float& z) {
   z *= inv;
 }
 
-__device__ __forceinline__ void bounce_epilogue(
-    int i, int n, float ox, float oy, float oz, float dx, float dy, float dz,
+// The bounce's values for one ray (the counterpart of _bounce_values): the
+// interaction code, the next ray (spawn-offset origin no, scattered
+// direction nd), attenuation, emission, hit point and shading normal.
+struct Scatter {
+  int inter;
+  float nox, noy, noz, ndx, ndy, ndz, ar, ag, ab, er, eg, eb;
+  float px, py, pz, nx, ny, nz;
+};
+
+// u0, u1: the unit-sphere pair; u2: the dielectric's reflect choice; eps:
+// the spawn offset.
+__device__ __forceinline__ Scatter bounce_values(
+    float ox, float oy, float oz, float dx, float dy, float dz,
     const Winner& w, const float* __restrict__ sph,
     const int* __restrict__ sph_mat, const float* __restrict__ rect,
     const int* __restrict__ rect_mat, const float* __restrict__ tri_nrm,
     const int* __restrict__ tri_mat, const float* __restrict__ mat,
-    const float* __restrict__ uni,
-    float* __restrict__ out_no, float* __restrict__ out_nd,
-    float* __restrict__ out_att, float* __restrict__ out_emit,
-    float* __restrict__ out_p, float* __restrict__ out_n,
-    int* __restrict__ out_inter) {
+    float u0, float u1, float u2, float eps) {
   const float best_t = w.t, best_b1 = w.b1, best_b2 = w.b2;
   const int best_ty = w.ty, best_ix = w.ix;
   // ---- epilogue: the winner's attributes; a miss acts as an all-zero
@@ -87,8 +96,6 @@ __device__ __forceinline__ void bounce_epilogue(
   const float alg = chk ? f[8] : f[5];
   const float alb = chk ? f[9] : f[6];
 
-  const float u0 = uni[i], u1 = uni[n + i], u2 = uni[2 * n + i];
-  const float eps = uni[3 * n + i];
   const float z = 1.f - 2.f * u0;
   const float phi = TWO_PI * u1;
   const float rs = sqrtf(fmaxf(0.f, 1.f - z * z));
@@ -147,25 +154,51 @@ __device__ __forceinline__ void bounce_epilogue(
 
   const float dot = odx * nx + ody * ny + odz * nz;
   const float side = (dot > 0.f ? 1.f : (dot < 0.f ? -1.f : 0.f)) * eps;
-  out_no[i] = px + nx * side;
-  out_no[n + i] = py + ny * side;
-  out_no[2 * n + i] = pz + nz * side;
-  out_nd[i] = odx;
-  out_nd[n + i] = ody;
-  out_nd[2 * n + i] = odz;
-  out_att[i] = is_lgt ? FRAC_1_PI : alr;
-  out_att[n + i] = is_lgt ? FRAC_1_PI : alg;
-  out_att[2 * n + i] = is_lgt ? FRAC_1_PI : alb;
-  out_emit[i] = lit ? alr : 0.f;
-  out_emit[n + i] = lit ? alg : 0.f;
-  out_emit[2 * n + i] = lit ? alb : 0.f;
-  out_p[i] = px;
-  out_p[n + i] = py;
-  out_p[2 * n + i] = pz;
-  out_n[i] = nx;
-  out_n[n + i] = ny;
-  out_n[2 * n + i] = nz;
-  out_inter[i] = inter;
+  return Scatter{inter,
+                 px + nx * side, py + ny * side, pz + nz * side,
+                 odx, ody, odz,
+                 is_lgt ? FRAC_1_PI : alr, is_lgt ? FRAC_1_PI : alg,
+                 is_lgt ? FRAC_1_PI : alb,
+                 lit ? alr : 0.f, lit ? alg : 0.f, lit ? alb : 0.f,
+                 px, py, pz, nx, ny, nz};
+}
+
+// bounce_values for ray i, its uniforms read from uni (4, n): rows 0-2
+// u0-u2, row 3 the spawn offset; the values written to the (3, n) rows
+// and inter (n,).
+__device__ __forceinline__ void bounce_epilogue(
+    int i, int n, float ox, float oy, float oz, float dx, float dy, float dz,
+    const Winner& w, const float* __restrict__ sph,
+    const int* __restrict__ sph_mat, const float* __restrict__ rect,
+    const int* __restrict__ rect_mat, const float* __restrict__ tri_nrm,
+    const int* __restrict__ tri_mat, const float* __restrict__ mat,
+    const float* __restrict__ uni,
+    float* __restrict__ out_no, float* __restrict__ out_nd,
+    float* __restrict__ out_att, float* __restrict__ out_emit,
+    float* __restrict__ out_p, float* __restrict__ out_n,
+    int* __restrict__ out_inter) {
+  const Scatter v = bounce_values(
+      ox, oy, oz, dx, dy, dz, w, sph, sph_mat, rect, rect_mat, tri_nrm,
+      tri_mat, mat, uni[i], uni[n + i], uni[2 * n + i], uni[3 * n + i]);
+  out_no[i] = v.nox;
+  out_no[n + i] = v.noy;
+  out_no[2 * n + i] = v.noz;
+  out_nd[i] = v.ndx;
+  out_nd[n + i] = v.ndy;
+  out_nd[2 * n + i] = v.ndz;
+  out_att[i] = v.ar;
+  out_att[n + i] = v.ag;
+  out_att[2 * n + i] = v.ab;
+  out_emit[i] = v.er;
+  out_emit[n + i] = v.eg;
+  out_emit[2 * n + i] = v.eb;
+  out_p[i] = v.px;
+  out_p[n + i] = v.py;
+  out_p[2 * n + i] = v.pz;
+  out_n[i] = v.nx;
+  out_n[n + i] = v.ny;
+  out_n[2 * n + i] = v.nz;
+  out_inter[i] = v.inter;
 }
 
 }  // namespace

@@ -78,7 +78,8 @@ def render_fn(scene: Scene, generator: torch.Generator, *, width: int,
     regeneration wavefront (``spp_chunk`` lanes per pixel). ``generator``
     must live on that device; ``tables`` may carry ``pack_tables`` of the
     scene on it from an earlier call; ``stats``, if given, gets the NEE
-    shadow rays as ``shadow_lanes`` (they are not counted as rays).
+    shadow rays as ``shadow_lanes`` (they are not counted as rays) and the
+    loop's ``steps``.
     Returns ((H, W, 3) linear image on the device, rays traced as an
     int)."""
     method = _resolve(scene, intersector, nee, mis)

@@ -5,7 +5,8 @@ The PyTorch counterpart of ``raytracer_tpu/models/wavefront_soa.py``:
 ``camera_rays_soa``, ``block_order``, the drain cascade ``_drain_sizes``,
 ``bounce_step`` (fused, and unfused: ``attrs_soa``, ``eval_texture_soa``,
 ``scatter_soa``), ``_mis_bounce``, ``trace_radiance_soa`` and
-``render_regen_soa`` with NEE and MIS, and for SPPM ``gather_regen_soa``,
+``render_regen_soa`` with NEE and MIS (and, where neither is on, its
+one-kernel step, ``ops/regen.py``), and for SPPM ``gather_regen_soa``,
 ``measurement_soa``, ``emit_photons_soa`` and
 ``trace_photon_deposits_regen_soa``. Media, image and noise textures and
 motion blur are not ported yet (ROADMAP A7, A8, A9).
@@ -13,8 +14,9 @@ motion blur are not ported yet (ROADMAP A7, A8, A9).
 Lane state is kept as (3, N) rows (origin, direction, throughput, sample
 radiance, accumulated radiance) and (N,) vectors (alive, depth, done), so
 one tensor op updates all three components. The loop runs eagerly: a
-Python ``while`` around one bounce-kernel launch plus the bookkeeping ops,
-with one host sync per step for the loop condition.
+Python ``while`` around one regeneration-kernel launch per step, or, with
+NEE, MIS or the SPPM gather, one bounce-kernel launch plus the
+bookkeeping ops, with one host sync per step for the loop condition.
 """
 
 from __future__ import annotations
@@ -27,16 +29,19 @@ import torch
 from raytracer_tpu_torch.ops import dispatch
 from raytracer_tpu_torch.ops import mis as mis_ops
 from raytracer_tpu_torch.ops import nee as nee_ops
+from raytracer_tpu_torch.ops import regen as regen_ops
 from raytracer_tpu_torch.ops.fused_bounce import (
     BounceTables, _take, _unit3, bounce_tables,
 )
 from raytracer_tpu_torch.ops.lights import light_cols, pick_light
-from raytracer_tpu_torch.ops.sampling import uniform_sphere_from
+from raytracer_tpu_torch.ops.sampling import (
+    camera_rays_soa, uniform_sphere_from,
+)
 from raytracer_tpu_torch.scene.types import (
     INTER_ABSORB, INTER_DIFFUSE, INTER_REFLECT, INTER_REFRACT,
     INTER_SPECULAR, LIGHT_SPHERE, MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT,
     MAT_ISOTROPIC, MAT_LAMBERTIAN, MAT_METAL, PRIM_RECT, PRIM_SPHERE,
-    PRIM_TRIANGLE, TEX_CHECKER, Camera, Lights, Scene,
+    PRIM_TRIANGLE, TEX_CHECKER, Lights, Scene,
 )
 
 PI = 3.141592653589793
@@ -76,25 +81,6 @@ class Bounce(NamedTuple):
     emit: torch.Tensor
     p: torch.Tensor
     n: torch.Tensor
-
-
-def camera_rays_soa(cam: Camera, px, py, width: int, height: int, uni):
-    """Thin-lens camera rays (camera.rs:57-64 with the jitter and y-flip of
-    camera.rs:97-99). ``px, py`` (N,) f32 pixel coordinates; ``uni`` (4, N)
-    uniform rows (jitter x, jitter y, lens radius, lens angle). Returns
-    (o, d), each (3, N)."""
-    u = (px + uni[0]) / (width - 1)
-    v = (py + uni[1]) / (height - 1)
-    t = 1.0 - v  # y axis is reverted (camera.rs:99)
-    r = torch.sqrt(uni[2]) * cam.lens_radius
-    phi = TWO_PI * uni[3]
-    rdx = r * torch.cos(phi)
-    rdy = r * torch.sin(phi)
-    o = torch.stack([cam.origin[c] + cam.u[c] * rdx + cam.v[c] * rdy
-                     for c in range(3)])
-    d = torch.stack([cam.lower_left_corner[c] + u * cam.horizontal[c]
-                     + t * cam.vertical[c] - o[c] for c in range(3)])
-    return o, d
 
 
 def block_order(width: int, height: int, bs: int = 16):
@@ -436,35 +422,22 @@ def _step(s: _Lanes, tables, scene, gen, *, width, height, quota, max_depth,
         scene, tables, U, U_REGEN_ROWS, b, alive, s.tput, s.samp,
         s.prev_diff, nee=nee, mis=mis, spawn_eps=spawn_eps,
         intersector=intersector)
-    cont = alive & (b.inter != INTER_ABSORB)
+    stop = None
     if s.est is not None:
         samp = samp + torch.where(diffuse_now, s.tput * s.est, 0.0)
-        cont = cont & ~diffuse_now
-    tput = torch.where(cont, s.tput * b.att, s.tput)
-    if russian_roulette:
-        p_surv = torch.clamp(tput.amax(0), 0.05, 1.0)
-        do_rr = s.depth >= RR_START_BOUNCE
-        survive = ~do_rr | (U[U_RR] < p_surv)
-        tput = tput * torch.where(do_rr & cont & survive, 1.0 / p_surv, 1.0)
-        cont = cont & survive
-    depth = s.depth + 1
-    cont = cont & (depth < max_depth)
-
-    retire = alive & ~cont
-    acc = s.acc + torch.where(retire, samp, 0.0)
-    done = s.done + retire.to(torch.int32)
-    regen = retire & (done < quota)
-    co, cd = camera_rays_soa(scene.camera, s.px, s.py, width, height,
-                             U[U_JX:U_LPHI + 1])
-    o = torch.where(regen, co, torch.where(cont, b.no, s.o))
-    d = torch.where(regen, cd, torch.where(cont, b.nd, s.d))
+        stop = diffuse_now
+    s2, regen = regen_ops.regen_bookkeeping(
+        s, scene.camera, U, b.inter, b.no, b.nd, b.att, samp, width=width,
+        height=height, quota=quota, max_depth=max_depth,
+        rr_on=russian_roulette, rr_start=RR_START_BOUNCE, stop=stop)
     prev_diff = (diffuse_now if nee else s.prev_diff) & ~regen
-    return s._replace(
-        o=o, d=d, tput=torch.where(regen, 1.0, tput),
-        samp=torch.where(regen, 0.0, samp), acc=acc,
-        alive=(alive & cont) | regen,
-        depth=torch.where(regen, 0, depth), done=done,
-        prev_diff=prev_diff), shadow
+    return s2._replace(prev_diff=prev_diff), shadow
+
+
+# Test hook: False sends the one-kernel step's route through the loop's own
+# step (``_step``: a bounce launch and the bookkeeping in eager ops), the
+# reference that the one-kernel step is held to.
+_ONE_KERNEL_STEP = True
 
 
 def render_regen_soa(scene, tables: BounceTables, gen: torch.Generator, *,
@@ -482,7 +455,11 @@ def render_regen_soa(scene, tables: BounceTables, gen: torch.Generator, *,
     estimates of ``gather_regen_soa``. ``nee``/``mis`` add next-event
     estimation or the mixture resample at diffuse vertices. ``stats``, if
     given, gets ``shadow_lanes``: the NEE shadow rays cast, which are not
-    counted as rays.
+    counted as rays, and ``steps``. On the fused route without NEE, MIS
+    or ``est`` (where JAX's ``RAYTRACER_TPU_REGEN_FUSED`` route runs) each
+    step is one ``regen_ops.regen_step_tables`` launch on the loop's
+    uniform draw, with the loop's own step's result; elsewhere it is
+    ``_step``.
 
     Returns ((npix, 3) radiance sum over all samples in pixel order, rays
     traced (alive lanes summed over steps, an int), loop steps)."""
@@ -511,6 +488,14 @@ def render_regen_soa(scene, tables: BounceTables, gen: torch.Generator, *,
               russian_roulette=russian_roulette,
               fused=use_fused(scene, intersector), nee=nee, mis=mis,
               intersector=intersector)
+    one_kernel = (_ONE_KERNEL_STEP and kw["fused"] and not (nee or mis)
+                  and est is None)
+    if one_kernel:
+        cam_pack = regen_ops.pack_camera(cam)
+        eps = float(spawn_eps)                 # one host read, not per step
+        rkw = dict(width=width, height=height, quota=samples_per_lane,
+                   max_depth=max_depth, rr_on=russian_roulette,
+                   rr_start=RR_START_BOUNCE, t_min=t_min)
 
     rays = 0      # a Python int: exact at any count
     steps = 0
@@ -523,9 +508,15 @@ def render_regen_soa(scene, tables: BounceTables, gen: torch.Generator, *,
             if n_alive <= floor:
                 break
             rays += n_alive
-            s, cast = _step(s, tables, scene, gen, **kw)
-            if cast is not None:
-                shadow += cast.sum()
+            if one_kernel:
+                U = torch.rand((U_REGEN_ROWS, s.o.shape[1]), generator=gen,
+                               device=dev)
+                s = regen_ops.regen_step_tables(tables, cam_pack, U, eps, s,
+                                                **rkw)
+            else:
+                s, cast = _step(s, tables, scene, gen, **kw)
+                if cast is not None:
+                    shadow += cast.sum()
             steps += 1
         if level == 0:
             # level 0 keeps its static lane -> slot map: a reshape-sum
@@ -540,6 +531,7 @@ def render_regen_soa(scene, tables: BounceTables, gen: torch.Generator, *,
             s = s._replace(acc=torch.zeros_like(s.acc))
     if stats is not None:
         stats["shadow_lanes"] = stats.get("shadow_lanes", 0) + int(shadow)
+        stats["steps"] = stats.get("steps", 0) + steps
     return accum.T[torch.as_tensor(inv, device=dev).long()], rays, steps
 
 

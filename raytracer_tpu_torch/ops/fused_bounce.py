@@ -460,6 +460,9 @@ _ARGTYPES = [_P, _P, _P, _P, ctypes.c_float, _I,     # o d alive uni tmin n
              _P, _P, _P, _I,                         # tri tri_nrm tri_mat n
              _P]                                     # mat
 _OUTS = [_P, _P, _P, _P, _P, _P, _P]                 # no nd att emit p n inter
+# the scene-order tables, as every kernel that ends in the epilogue takes
+# them (the tail of _ARGTYPES)
+TABLE_ARGTYPES = _ARGTYPES[6:]
 # an ordered stage: prim, orig, cull, scull, box, k_ch, chunk (all null/0
 # for a flat stage)
 STAGE_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I]
@@ -495,6 +498,20 @@ def _check(name, x, dev, dtype, shape, who="bounce"):
         raise ValueError(f"{who}: {name} must be contiguous")
 
 
+def table_args(tab: BounceTables, dev, who: str = "bounce") -> list:
+    """The C arguments of the scene-order tables (``TABLE_ARGTYPES``),
+    each checked to be contiguous on ``dev``."""
+    for name in FLAT:
+        x = getattr(tab, name)
+        if x.device != dev or not x.is_contiguous():
+            raise ValueError(f"{who}: table {name} must be contiguous on "
+                             f"{dev}")
+    return [tab.sph.data_ptr(), tab.sph_mat.data_ptr(), tab.sph.shape[0],
+            tab.rect.data_ptr(), tab.rect_mat.data_ptr(), tab.rect.shape[0],
+            tab.tri.data_ptr(), tab.tri_nrm.data_ptr(), tab.tri_mat.data_ptr(),
+            tab.tri.shape[0], tab.mat.data_ptr()]
+
+
 def _bounce_cuda(tab: BounceTables, o_t, d_t, t_min: float, alive, uni_t,
                  stats=None):
     global LAUNCHES, ORDERED_LAUNCHES
@@ -505,19 +522,10 @@ def _bounce_cuda(tab: BounceTables, o_t, d_t, t_min: float, alive, uni_t,
     _check("d_t", d_t, dev, f32, (3, n))
     _check("alive", alive, dev, torch.bool, (n,))
     _check("uni_t", uni_t, dev, f32, (4, n))
-    for name in FLAT:
-        x = getattr(tab, name)
-        if x.device != dev or not x.is_contiguous():
-            raise ValueError(f"bounce: table {name} must be contiguous on "
-                             f"{dev}")
     rows = [torch.empty((3, n), dtype=f32, device=dev) for _ in range(6)]
     inter = torch.empty((n,), dtype=torch.int32, device=dev)
     args = [o_t.data_ptr(), d_t.data_ptr(), alive.data_ptr(),
-            uni_t.data_ptr(), float(t_min), n,
-            tab.sph.data_ptr(), tab.sph_mat.data_ptr(), tab.sph.shape[0],
-            tab.rect.data_ptr(), tab.rect_mat.data_ptr(), tab.rect.shape[0],
-            tab.tri.data_ptr(), tab.tri_nrm.data_ptr(), tab.tri_mat.data_ptr(),
-            tab.tri.shape[0], tab.mat.data_ptr()]
+            uni_t.data_ptr(), float(t_min), n, *table_args(tab, dev)]
     outs = [r.data_ptr() for r in rows] + [inter.data_ptr()]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
