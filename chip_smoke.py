@@ -65,7 +65,22 @@ Phases, each of which raises on failure (exit code non-zero):
    16 and 64, the script's weight and ``W_CHECK``), then its time,
    TFLOP/s and bound per (dtype, passes) at
    passes 16, 64, 256 and 1024, and the measured f32 rate beside the data
-   sheet's.
+   sheet's;
+15. motion blur: the six motion forms (per-ray shutter times, spheres at
+   c + v t) against their plain versions with times drawn in the shutter:
+   the flat bounce, closest hit and regen step on ``motion_field(1000)``
+   at 480,000 lanes (camera rays, a second bounce, a motion NEE step's
+   shadow rays, a captured regen step), the ordered ones on
+   ``motion_field(65536)`` (against the flat motion kernels and the plain
+   walk), with their times and bounds; then the renders at 800x600, 8
+   spp, depth 16, RR on: ``motion_field(1000)`` through the one-kernel
+   step and the loop's own step in turns (rays and steps equal, means
+   within 0.5%), with MIS (mean within 3% of plain PT's) and with NEE
+   (its mean ratio to plain PT's in ``MOTION_NEE_RATIO``: the reference's
+   shadow-ray offset is larger than the spheres at this scene's scale),
+   with a frozen shutter (the image must differ), and
+   ``motion_field(65536)`` through the ordered and the flat route (means
+   and rays within 0.5%) and with NEE.
 
 It imports no JAX. The line before the last is a JSON object with the
 kernels' launches, errors, times and bounds; the last line is
@@ -123,6 +138,22 @@ SPH_FLOPS, RECT_FLOPS, TRI_FLOPS = 17, 6, 38
 Q_PAIR_FLOPS, Q_NEAR_FLOPS, Q_SUM_FLOPS = 8, 11, 4
 # csrc/sweep.cuh slab test of one box: 6 subtractions and 6 products
 BOX_FLOPS = 12
+# csrc/sweep.cuh::moved, per moving sphere pair: 3 products and 3 sums
+MOTION_FLOPS = 6
+# Motion blur (phase 15): bench.py:96-102's motion_field(1000) at 8 spp,
+# depth 16, RR on, and motion_field(65536), whose spheres take the walk
+MOTION_N, MOTION_BIG, MOTION_SPP = 1000, 65536, 8
+# the frozen shutter's image against the full one's: mean |pixel diff|
+# above this share of the mean
+FROZEN_DIFF = 0.01
+# motion_field's NEE image is brighter than its plain PT's in both
+# packages: the shadow ray's offset min(1e-4 scale, 0.1 dist) is 3.47 at
+# the field's scale of 34,687 (its ground sphere's radius is 1e4) and
+# lifts the ray over the spheres (r <= 0.32) that would block it. On the
+# CPU the NEE/PT mean ratio is 1.137 in the JAX package (32x24, 32 spp, 2
+# seeds) and 1.145 in the port (48x36, 32 spp, 3 seeds); MIS stays within
+# MEAN_TOL of plain PT.
+MOTION_NEE_RATIO = (1.08, 1.20)
 # the regeneration step's lane state per lane, read (o, d, tput, samp, acc
 # 60, alive 1, depth and done 8, px and py 8, U 32) and written (o, d,
 # tput, samp, acc 60, alive 1, depth and done 8)
@@ -182,11 +213,25 @@ def build() -> float:
         kbuild.load_library(name)
     dt = time.perf_counter() - t0
     for name in KERNELS:
-        ptxas = [ln.strip() for ln in kbuild.build_log(name).splitlines()
-                 if "registers" in ln or "spill" in ln]
-        log(f"build: lib{name}.so; " + " | ".join(ptxas))
+        log(f"build: lib{name}.so; " + " | ".join(ptxas(name)))
     log(f"build: {len(KERNELS)} libraries in {dt:.2f} s (in parallel)")
     return dt
+
+
+def ptxas(name: str) -> list:
+    """The register and spill lines of ``name``'s build, each tagged with
+    its kernel's form where the kernel is a template on MOTION: "[static]"
+    or "[motion]"."""
+    from raytracer_tpu_torch.kernels import build as kbuild
+    out, form = [], ""
+    for ln in kbuild.build_log(name).splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+            form = ("[motion] " if "ILb1E" in entry else
+                    "[static] " if "ILb0E" in entry else "")
+        elif "registers" in ln or "spill" in ln:
+            out.append(form + ln.strip())
+    return out
 
 
 # ------------------------------------------------------------------ phase 3
@@ -259,7 +304,21 @@ def plain_bounce(tab, o, d, alive, uni):
     return fb._bounce_values(tab, o, d, uni, *hit), hit[1], hit[2]
 
 
-def grazes(tab, o, d, p, ty, ix, ty2=None, ix2=None, cap=float("inf")):
+def sphere_centres(tab, ix, time=None) -> np.ndarray:
+    """Per lane, the centre of sphere ``ix`` (float64 of the float32
+    value): at the lane's shutter ``time``, c + v t rounded as the kernels
+    and the plain versions round it (a float32 product, then a float32
+    sum), where the tables move; else the static centre."""
+    c = tab.sph[:, :3].cpu().numpy()[ix]
+    if time is None or tab.sph_vel is None:
+        return c.astype(np.float64)
+    v = tab.sph_vel[:, :3].cpu().numpy()[ix]
+    t = np.asarray(time, np.float32).reshape(-1, *([1] * (v.ndim - 1)))
+    return (c + v * t).astype(np.float64)
+
+
+def grazes(tab, o, d, p, ty, ix, ty2=None, ix2=None, cap=float("inf"),
+           time=None, t_lo=T_MIN, t_hi=float("inf")):
     """Per lane: is the ray on a float32 decision edge of a winner of one
     of the two versions (``ty``/``ix``, and ``ty2``/``ix2`` if given)?
     Spheres: the ray grazes the silhouette of such a sphere, or of the
@@ -272,7 +331,12 @@ def grazes(tab, o, d, p, ty, ix, ty2=None, ix2=None, cap=float("inf")):
     to tangent to the interpolated normal. Returns (on_edge, ulps, share,
     why) per lane: the nearest edge's float64 distance in those units
     ("ulps"), as a share of r^2 (0 for a triangle), and which edge it
-    is."""
+    is. ``time`` (per lane, motion blur): the spheres stand at their
+    centres at the lane's shutter time (``sphere_centres``). A sphere's
+    other edge: a root of the ray within EDGE_ULPS of the ray's t range
+    [``t_lo``, ``t_hi``] (floats or per lane), in the units one 2^-24 of
+    |o - c|^2 and of |o - c| |d| move the root by (a ray that starts within
+    float32 rounding of a large sphere's surface)."""
     n = len(o.T)
     score = np.full(n, np.inf)
     ulps, share = np.full(n, np.inf), np.zeros(n)
@@ -295,20 +359,64 @@ def grazes(tab, o, d, p, ty, ix, ty2=None, ix2=None, cap=float("inf")):
         o, d, p = (x.T.astype(np.float64) for x in (o, d, p))
         kern = np.empty(n, np.int64)
         step = max(1, 2 ** 22 // (3 * len(c)))     # bounded host memory
+        every = np.arange(len(c))[None]
         for i in range(0, n, step):
-            q = p[i:i + step, None] - c[None]
+            cen = (c[None] if time is None
+                   else sphere_centres(tab, every, time[i:i + step]))
+            q = p[i:i + step, None] - cen
             kern[i:i + step] = np.argmin(np.abs(np.linalg.norm(q, axis=2)
                                                 - np.sqrt(r2)[None]), axis=1)
         cands = [(np.clip(b, 0, len(c) - 1), a == 0) for a, b in pairs]
         for cand, ok in cands + [(kern, np.ones(n, bool))]:
-            oc = o - c[cand]
+            oc = o - sphere_centres(tab, cand, time)
             along = (oc * d).sum(1) / np.linalg.norm(d, axis=1)
             oc2 = (oc * oc).sum(1)
             gap = np.abs(r2[cand] - (oc2 - along * along))
             take(np.where(ok, gap / (2.0 ** -24 * oc2), np.inf),
                  gap / np.maximum(r2[cand], 1e-300),
                  np.full(n, "sphere", object))
+            take(np.where(ok, range_ulps(oc, d, r2[cand], t_lo, t_hi),
+                          np.inf), np.zeros(n),
+                 np.full(n, "sphere t range", object))
     return score <= 1.0, ulps, share, why
+
+
+def range_ulps(oc, d, r2, t_lo, t_hi) -> np.ndarray:
+    """Per lane (float64 rows ``oc`` = o - c and ``d``): the distance of
+    the ray's nearer root to either end of its t range, in the units one
+    2^-24 of the terms that make the root moves it by: c = |oc|^2 - r^2
+    moves a root by dc / (2 sqrt(disc)), half_b by d(half_b) / a; inf
+    where the ray misses the sphere."""
+    a = (d * d).sum(1)
+    hb = (oc * d).sum(1)
+    oc2 = (oc * oc).sum(1)
+    disc = hb * hb - a * (oc2 - r2)
+    sq = np.sqrt(np.maximum(disc, 0.0))
+    unit = 2.0 ** -24 * (oc2 / (2.0 * np.maximum(sq, 1e-300))
+                         + np.sqrt(oc2 * a) / a)
+    dist = np.full(len(a), np.inf)
+    for root in ((-hb - sq) / a, (-hb + sq) / a):
+        for bound in (t_lo, t_hi):
+            with np.errstate(invalid="ignore"):
+                gap = np.abs(root - bound)
+            dist = np.minimum(dist, np.where(np.isfinite(gap), gap, np.inf))
+    return np.where(disc >= 0.0, dist / unit, np.inf)
+
+
+def lane_rows(x, lanes) -> np.ndarray:
+    """A float or an (N,) tensor as a numpy row on ``lanes``."""
+    if torch.is_tensor(x):
+        return x.cpu().numpy()[lanes]
+    return np.full(len(lanes), float(x))
+
+
+def log_lanes(name, lanes, **rows):
+    """Log up to three failing lanes with their rows (numpy, per lane on
+    the last axis)."""
+    for i in lanes[:3]:
+        log(f"  {name}: failing lane {i}: " + "; ".join(
+            f"{k} {np.array2string(np.asarray(v)[..., i], precision=8)}"
+            for k, v in rows.items()))
 
 
 def edge_note(on, ulps, share, why) -> str:
@@ -372,8 +480,19 @@ def tri_edges(tab, o, d, ty, ix) -> tuple:
     return out, why
 
 
+def on_checker_edge(rp, dp) -> np.ndarray:
+    """Per lane: can the checker pick flip between two versions whose hit
+    points differ by ``dp`` (per lane) around the plain version's ``rp``
+    (3, N)? sin(10 p) changes sign only within 10 dp of a zero, plus the
+    float32 rounding of the argument 10 p (half an ulp in each version,
+    0.004 at |p| = 9,400) and of sin."""
+    arg = 10.0 * rp.astype(np.float64)
+    return (np.abs(np.sin(arg)) <= 10.0 * dp + 2.0 ** -23 * np.abs(arg)
+            + 1e-6).any(0)
+
+
 def compare(name, scene, tab, o, d, out, ref, ty, ix, alive,
-            max_edge: float = 1.0 - INTER_AGREE) -> float:
+            max_edge: float = 1.0 - INTER_AGREE, time=None) -> float:
     """Hold the kernel's outputs to the plain version's with the
     tolerances of tests/test_torch_bounce.py. A lane on a decision edge
     may differ: an interaction flip, or a ray that grazes a sphere's
@@ -382,7 +501,9 @@ def compare(name, scene, tab, o, d, out, ref, ty, ix, alive,
     front face. Such lanes may make up at most ``max_edge`` of the alive
     lanes; every other lane must be within tolerance. Returns the
     largest absolute difference over the float outputs of the lanes held
-    to the tolerance (edge lanes, counted apart, left out)."""
+    to the tolerance (edge lanes, counted apart, left out). ``time``: the
+    rays' shutter times (motion blur), for the edges' moved centres."""
+    tn = None if time is None else time.cpu().numpy()
     out = [x.cpu().numpy() for x in out]
     ref = [x.cpu().numpy() for x in ref]
     alive = alive.cpu().numpy()
@@ -398,10 +519,7 @@ def compare(name, scene, tab, o, d, out, ref, ty, ix, alive,
     bad_p = agree & (np.abs(p - rp) > p_tol).any(0)
     bad_no = agree & (np.abs(no - rno) > p_tol).any(0)
     colour = agree & (off(att, ratt) | off(emit, remit))
-    # a checker pick flips only where sin(10 p) is within 10 |dp| of 0, dp
-    # the two versions' hit-point difference, plus float32 rounding of sin
-    checker_edge = (np.abs(np.sin(10.0 * rp.astype(np.float64))).min(0)
-                    <= 10.0 * np.abs(p - rp).max(0) + 1e-6)
+    checker_edge = on_checker_edge(rp, np.abs(p - rp).max(0))
     bad_colour = colour & ~checker_edge
     by_checker = colour & checker_edge
     radius = tab.sph[:, 3].sqrt().cpu().numpy()
@@ -422,7 +540,8 @@ def compare(name, scene, tab, o, d, out, ref, ty, ix, alive,
     graze = np.zeros_like(beyond)
     on, ulps, share, why = grazes(tab, o.cpu().numpy()[:, lanes],
                                   d.cpu().numpy()[:, lanes], p[:, lanes],
-                                  ty[lanes], ix[lanes])
+                                  ty[lanes], ix[lanes],
+                                  time=None if tn is None else tn[lanes])
     graze[lanes] = on
     if by_dn.any():
         dnd = np.abs(nd - rnd).max(0)[by_dn]
@@ -445,6 +564,10 @@ def compare(name, scene, tab, o, d, out, ref, ty, ix, alive,
         f"max |diff| elsewhere {err:.3g}; beyond-tolerance lanes: "
         f"{edge_note(on, ulps, share, why)}")
     if (beyond & ~graze).any() or edge_share > max_edge:
+        bad = np.where(beyond & ~graze)[0]
+        log_lanes(name, bad, o=o.cpu().numpy(), d=d.cpu().numpy(),
+                  time=np.zeros(len(ty)) if tn is None else tn, ty=ty, ix=ix,
+                  p=p, p_plain=rp)
         raise AssertionError(f"bounce kernel disagrees with the plain "
                              f"version on {name}")
     if len(np.unique(out[0][alive])) < 2:
@@ -478,11 +601,12 @@ def bound(flops: float, nbytes: float) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def sweep_bound(tab, alive, ray_bytes: int, extra_tables=()) -> dict:
+def sweep_bound(tab, alive, ray_bytes: int, extra_tables=(),
+                sph_flops: int = SPH_FLOPS) -> dict:
     """``bound`` of one sweep: every alive lane tests every primitive;
     ``ray_bytes`` per lane read and written, each table read once."""
     lanes = int(alive.sum())
-    flops = lanes * (tab.sph.shape[0] * SPH_FLOPS
+    flops = lanes * (tab.sph.shape[0] * sph_flops
                      + tab.rect.shape[0] * RECT_FLOPS
                      + tab.tri.shape[0] * TRI_FLOPS)
     tables = (tab.sph, tab.rect, tab.tri) + tuple(extra_tables)
@@ -893,7 +1017,7 @@ def with_tmax(scene, o, d, seed: int):
 
 
 def compare_closest(name, scene, tab, o, d, t_min, t_max, alive, out,
-                    ref) -> float:
+                    ref, time=None) -> float:
     """Hold the kernel's winners to the plain version's: type and index on
     >= INTER_AGREE of the alive lanes and visibility (a finite t) too; t
     within 1e-5 * scale / |d| (+ 1e-5 relative) wherever the winners
@@ -901,7 +1025,8 @@ def compare_closest(name, scene, tab, o, d, t_min, t_max, alive, out,
     tolerance on a ray that grazes a sphere's silhouette, ``grazes``) are
     counted apart and may make up at most 1 - INTER_AGREE of the alive
     lanes. Returns the largest |t| difference over the lanes held to the
-    tolerance."""
+    tolerance. ``time``: as for ``compare``."""
+    tn = None if time is None else time.cpu().numpy()
     t, ty, ix = (x.cpu().numpy() for x in out[:3])
     rt, rty, rix = (x.cpu().numpy() for x in ref[:3])
     alive = alive.cpu().numpy()
@@ -918,7 +1043,10 @@ def compare_closest(name, scene, tab, o, d, t_min, t_max, alive, out,
     graze = np.zeros_like(beyond)
     oc, dc = o.cpu().numpy()[:, lanes], d.cpu().numpy()[:, lanes]
     on, ulps, share, why = grazes(tab, oc, dc, oc + t[lanes] * dc,
-                                  ty[lanes], ix[lanes])
+                                  ty[lanes], ix[lanes],
+                                  time=None if tn is None else tn[lanes],
+                                  t_lo=lane_rows(t_min, lanes),
+                                  t_hi=lane_rows(t_max, lanes))
     graze[lanes] = on
     flips = int((alive & ~agree).sum())
     edge = (flips + int(graze.sum())) / n_alive
@@ -933,24 +1061,27 @@ def compare_closest(name, scene, tab, o, d, t_min, t_max, alive, out,
         f"{err:.3g}; t beyond tolerance: {edge_note(on, ulps, share, why)}")
     if ((beyond & ~graze).any() or edge > 1.0 - INTER_AGREE
             or vis.sum() / n_alive < INTER_AGREE or not dead_ok):
+        log_lanes(name, np.where(beyond & ~graze)[0], o=o.cpu().numpy(),
+                  d=d.cpu().numpy(),
+                  time=np.zeros(len(t)) if tn is None else tn, t=t, t_plain=rt,
+                  ty=ty, ix=ix)
         raise AssertionError(f"closest-hit kernel disagrees with the plain "
                              f"version on {name}")
     return err
 
 
-def nee_shadow_inputs(dev):
-    """The closest-hit inputs of the NEE shadow rays of the first step of
-    an 800x600 scene_500 render (one sample, depth 1), captured from
-    ``direct_light``'s call."""
+def shadow_inputs(scene, dev) -> tuple:
+    """The closest-hit inputs (arguments, keywords) of the NEE shadow rays
+    of the first step of an 800x600 render of ``scene`` (one sample, depth
+    1), captured from ``direct_light``'s call."""
     from raytracer_tpu_torch.models import path_tracer
     from raytracer_tpu_torch.ops import closest_hit as ch
-    scene = load("scene_500", WIDTH / HEIGHT)
     captured = []
     real = ch.closest_tables
 
-    def capture(*args):
-        captured.append(args)
-        return real(*args)
+    def capture(*args, **kw):
+        captured.append((args, kw))
+        return real(*args, **kw)
 
     ch.closest_tables = capture
     try:
@@ -963,7 +1094,13 @@ def nee_shadow_inputs(dev):
     torch.cuda.synchronize()
     if len(captured) != 1:
         raise AssertionError(f"one NEE step made {len(captured)} casts")
-    return scene, captured[0]
+    return captured[0]
+
+
+def nee_shadow_inputs(dev):
+    """``shadow_inputs`` of scene_500: (scene, arguments)."""
+    scene = load("scene_500", WIDTH / HEIGHT)
+    return scene, shadow_inputs(scene, dev)[0]
 
 
 def check_closest() -> dict:
@@ -1149,10 +1286,11 @@ def large_scene(name: str):
     return _SCENES[name]
 
 
-def hit_t64(tab, o, d, ty, ix, t_ref) -> np.ndarray:
+def hit_t64(tab, o, d, ty, ix, t_ref, time=None) -> np.ndarray:
     """Per lane: the float64 t at which the ray (``o``, ``d`` (3, N))
     meets primitive (``ty``, ``ix``) of the flat tables (a sphere's root
-    nearest ``t_ref``), NaN where it misses or there is no winner."""
+    nearest ``t_ref``, at the lane's shutter ``time`` if given), NaN where
+    it misses or there is no winner."""
     out = np.full(len(t_ref), np.nan)
     o, d = o.T.astype(np.float64), d.T.astype(np.float64)
     for kind, table in ((0, tab.sph), (1, tab.rect), (2, tab.tri)):
@@ -1162,7 +1300,8 @@ def hit_t64(tab, o, d, ty, ix, t_ref) -> np.ndarray:
         q = table.double().cpu().numpy()[ix[lanes]]
         ol, dl = o[lanes], d[lanes]
         if kind == 0:
-            oc = ol - q[:, :3]
+            oc = ol - sphere_centres(tab, ix[lanes],
+                                     None if time is None else time[lanes])
             a, hb = (dl * dl).sum(1), (oc * dl).sum(1)
             disc = hb * hb - a * ((oc * oc).sum(1) - q[:, 3])
             sq = np.sqrt(np.where(disc >= 0, disc, np.nan))
@@ -1180,7 +1319,8 @@ def hit_t64(tab, o, d, ty, ix, t_ref) -> np.ndarray:
 
 
 def compare_winners(name, scene, tab, o, d, out, ref, alive,
-                    max_edge: float = 1.0 - INTER_AGREE) -> float:
+                    max_edge: float = 1.0 - INTER_AGREE,
+                    time=None) -> float:
     """Two versions of one closest hit: the same winner (type, scene index)
     on every alive lane but the decision-edge lanes, counted apart: a ray
     on the float32 edge of a winner (``grazes``, a sphere's band capped at
@@ -1190,7 +1330,8 @@ def compare_winners(name, scene, tab, o, d, out, ref, alive,
     / |d| + 1e-5 |t| where the winners agree, but on glancing hits
     (``grazes`` without the cap). The edge lanes may make up at most
     ``max_edge`` of the alive lanes. Returns the largest |t| difference
-    over the lanes held to the tolerance."""
+    over the lanes held to the tolerance. ``time``: as for ``compare``."""
+    tn = None if time is None else time.cpu().numpy()
     t, ty, ix = (x.cpu().numpy() for x in out[:3])
     rt, rty, rix = (x.cpu().numpy() for x in ref[:3])
     al = alive.cpu().numpy()
@@ -1206,7 +1347,8 @@ def compare_winners(name, scene, tab, o, d, out, ref, alive,
     lanes = np.where(tie)[0]
     for ta, tya, ixa in ((t, ty, ix), (rt, rty, rix)):
         t64 = hit_t64(tab, on[:, lanes], dn[:, lanes], tya[lanes],
-                      ixa[lanes], ta[lanes])
+                      ixa[lanes], ta[lanes],
+                      None if tn is None else tn[lanes])
         tie[lanes] &= np.abs(t64 - ta[lanes]) <= tol[lanes]
     beyond = al & same & np.isfinite(rt) & (diff > tol)
     check = (flips & ~tie) | beyond
@@ -1222,7 +1364,8 @@ def compare_winners(name, scene, tab, o, d, out, ref, alive,
         tp = np.where(np.isfinite(t[lanes]), t[lanes], rt[lanes])
         edge_ok, ulps, share, why = grazes(
             tab, on[:, lanes], dn[:, lanes], on[:, lanes] + tp * dn[:, lanes],
-            rty[lanes], rix[lanes], ty[lanes], ix[lanes], cap=cap)
+            rty[lanes], rix[lanes], ty[lanes], ix[lanes], cap=cap,
+            time=None if tn is None else tn[lanes])
         graze[lanes] = edge_ok
         if len(lanes):
             notes.append(f"{what}: {edge_note(edge_ok, ulps, share, why)}")
@@ -1250,7 +1393,8 @@ def live_per_block(alive) -> torch.Tensor:
     return a.reshape(g, ordered.BLOCK).sum(1)
 
 
-def walk_bound(tab, stats, alive, ray_bytes: int, extra=()) -> tuple:
+def walk_bound(tab, stats, alive, ray_bytes: int, extra=(),
+               sph_flops: int = SPH_FLOPS) -> tuple:
     """``bound`` of one ordered call from the chunk bodies it ran (``stats``
     (G, 2)): every live lane of a block tests every primitive of each chunk
     the block runs; flat stages, every primitive. Bytes: ray I/O once per
@@ -1267,8 +1411,8 @@ def walk_bound(tab, stats, alive, ray_bytes: int, extra=()) -> tuple:
             tables.append(flat)
         else:
             pairs[key] = float((st[:, col] * live).sum()) * stage.chunk
-            tables += list(stage)
-    flops = (pairs["sph"] * SPH_FLOPS + pairs["rect"] * RECT_FLOPS
+            tables += [x for x in stage if x is not None]
+    flops = (pairs["sph"] * sph_flops + pairs["rect"] * RECT_FLOPS
              + pairs["tri"] * TRI_FLOPS)
     nbytes = alive.numel() * ray_bytes + sum(
         x.numel() * x.element_size() for x in tables)
@@ -1276,30 +1420,8 @@ def walk_bound(tab, stats, alive, ray_bytes: int, extra=()) -> tuple:
 
 
 def field_shadow_inputs(dev):
-    """The closest-hit inputs of the NEE shadow rays of the first step of
-    an 800x600 field64k render (one sample, depth 1), as phase 8 captures
-    them."""
-    from raytracer_tpu_torch.models import path_tracer
-    from raytracer_tpu_torch.ops import closest_hit as ch
-    captured = []
-    real = ch.closest_tables
-
-    def capture(*args, **kw):
-        captured.append(args)
-        return real(*args, **kw)
-
-    ch.closest_tables = capture
-    try:
-        path_tracer.render_fn(
-            large_scene("field64k"), torch.Generator(device=dev).manual_seed(5),
-            width=WIDTH, height=HEIGHT, spp=1, spp_chunk=1, max_depth=1,
-            t_min=T_MIN, spawn_eps_rel=EPS_REL, nee=True, device=dev)
-    finally:
-        ch.closest_tables = real
-    torch.cuda.synchronize()
-    if len(captured) != 1:
-        raise AssertionError(f"one NEE step made {len(captured)} casts")
-    return captured[0]
+    """``shadow_inputs`` of field64k: the arguments."""
+    return shadow_inputs(large_scene("field64k"), dev)[0]
 
 
 def check_ordered() -> dict:
@@ -1494,11 +1616,14 @@ def counts() -> dict:
     from raytracer_tpu_torch.ops import leaf
     from raytracer_tpu_torch.ops import photon_query as pq
     from raytracer_tpu_torch.ops import regen
-    return {"bounce": fb.LAUNCHES, "bounce_ordered": fb.ORDERED_LAUNCHES,
-            "closest": ch.LAUNCHES, "closest_ordered": ch.ORDERED_LAUNCHES,
-            "leaf": leaf.LAUNCHES, "photon_query": pq.LAUNCHES,
-            "regen": regen.LAUNCHES, "regen_ordered": regen.ORDERED_LAUNCHES,
-            "fma_rate": probe.LAUNCHES}
+    out = {"leaf": leaf.LAUNCHES, "photon_query": pq.LAUNCHES,
+           "fma_rate": probe.LAUNCHES}
+    for name, mod in (("bounce", fb), ("closest", ch), ("regen", regen)):
+        out[name] = mod.LAUNCHES
+        out[f"{name}_ordered"] = mod.ORDERED_LAUNCHES
+        out[f"{name}_motion"] = mod.MOTION_LAUNCHES
+        out[f"{name}_ordered_motion"] = mod.ORDERED_MOTION_LAUNCHES
+    return out
 
 
 def zero_counts():
@@ -1508,9 +1633,10 @@ def zero_counts():
     from raytracer_tpu_torch.ops import leaf
     from raytracer_tpu_torch.ops import photon_query as pq
     from raytracer_tpu_torch.ops import regen
-    fb.LAUNCHES = fb.ORDERED_LAUNCHES = ch.LAUNCHES = 0
-    ch.ORDERED_LAUNCHES = leaf.LAUNCHES = pq.LAUNCHES = 0
-    regen.LAUNCHES = regen.ORDERED_LAUNCHES = probe.LAUNCHES = 0
+    leaf.LAUNCHES = pq.LAUNCHES = probe.LAUNCHES = 0
+    for mod in (fb, ch, regen):
+        mod.LAUNCHES = mod.ORDERED_LAUNCHES = 0
+        mod.MOTION_LAUNCHES = mod.ORDERED_MOTION_LAUNCHES = 0
 
 
 def timed_render(tag, scene, dev, *, spp, rr=True, seed=1, tables=None,
@@ -1619,9 +1745,15 @@ def slice_renders(pt_mean: float) -> dict:
 LANE_FIELDS = ("o", "d", "tput", "samp", "acc", "alive", "depth", "done")
 
 
+def lane_fields(lanes) -> tuple:
+    """The lane fields a regen step writes: LANE_FIELDS, and the shutter
+    time where the lanes carry one."""
+    return LANE_FIELDS + (("time",) if lanes.time is not None else ())
+
+
 def clone_lanes(lanes):
     return lanes._replace(**{k: getattr(lanes, k).clone()
-                             for k in LANE_FIELDS})
+                             for k in lane_fields(lanes)})
 
 
 def regen_capture(scene, dev):
@@ -1677,7 +1809,7 @@ def compare_regen(name, scene, tab, cam, U, eps, lanes, kw,
     """Hold the kernel's step to ``regen_step_plain`` on one captured
     state. Dead lanes: every output equal. Alive lanes: o to the point
     tolerance, d to RTOL/ATOL plus 8 |dp| / r (phase 3's nd), tput, samp and
-    acc to RTOL/ATOL, alive, depth and done equal, except on decision
+    acc to RTOL/ATOL, alive, depth, done (and time) equal, except on decision
     edges, counted apart: the bounce's interaction flips (the bounce
     kernel against its plain version on the same rays), a ray grazing a
     winner (``grazes``), a hit point within its own float32 difference of
@@ -1690,20 +1822,23 @@ def compare_regen(name, scene, tab, cam, U, eps, lanes, kw,
     kern = regen.regen_step_tables(tab, cam, U, eps, clone_lanes(lanes), **kw)
     plain = regen.regen_step_plain(tab, cam, U, eps, clone_lanes(lanes), **kw)
     n = lanes.o.shape[1]
+    tm = lanes.time
     uni = torch.cat([U[:3], torch.full((1, n), eps, device=U.device)], 0)
-    kb = fb.bounce_tables(tab, lanes.o, lanes.d, T_MIN, lanes.alive, uni)
+    kb = fb.bounce_tables(tab, lanes.o, lanes.d, T_MIN, lanes.alive, uni,
+                          time=tm)
     hit = fb._closest_plain(tab, lanes.o, lanes.d, T_MIN, lanes.alive,
-                            ordered=tab.ordered)
-    pb = fb._bounce_values(tab, lanes.o, lanes.d, uni, *hit)
+                            ordered=tab.ordered, time=tm)
+    pb = fb._bounce_values(tab, lanes.o, lanes.d, uni, *hit, time=tm)
     win = ch.closest_tables(tab, lanes.o, lanes.d, T_MIN, float("inf"),
-                            lanes.alive)
+                            lanes.alive, time=tm)
     torch.cuda.synchronize()
     host = lambda x: x.cpu().numpy()            # noqa: E731
-    K = {k: host(getattr(kern, k)) for k in LANE_FIELDS}
-    P = {k: host(getattr(plain, k)) for k in LANE_FIELDS}
-    S = {k: host(getattr(lanes, k)) for k in LANE_FIELDS}
+    fields = lane_fields(lanes)
+    K = {k: host(getattr(kern, k)) for k in fields}
+    P = {k: host(getattr(plain, k)) for k in fields}
+    S = {k: host(getattr(lanes, k)) for k in fields}
     a = S["alive"]
-    for k in LANE_FIELDS:
+    for k in fields:
         if not np.array_equal(K[k][..., ~a], P[k][..., ~a]):
             raise AssertionError(f"{name}: {k} differs on a dead lane")
         if K[k].dtype == np.float32 and not np.isfinite(K[k]).all():
@@ -1722,14 +1857,17 @@ def compare_regen(name, scene, tab, cam, U, eps, lanes, kw,
     by = {"o": (np.abs(K["o"] - P["o"]) > p_tol).any(0),
           "d": off(K["d"], P["d"], 8.0 * dp),
           **{k: off(K[k], P[k]) for k in ("tput", "samp", "acc")},
-          **{k: K[k] != P[k] for k in ("alive", "depth", "done")}}
+          **{k: K[k] != P[k] for k in ("alive", "depth", "done", "time")
+             if k in fields}}
     beyond = a & np.logical_or.reduce(list(by.values()))
-    # a checker pick flips only where sin(10 p) is within 10 |dp| of 0, dp
-    # the two versions' hit-point difference (the bounce kernel's p stands
-    # for the step's), plus float32 rounding of sin
-    dp_abs = np.abs(host(kb[5]) - rp).max(0)
-    checker = (np.abs(np.sin(10.0 * rp.astype(np.float64))).min(0)
-               <= 10.0 * dp_abs + 1e-6)
+    # the checker edge (on_checker_edge) with dp the two versions'
+    # hit-point difference: the bounce kernel's p on the same rays, and
+    # where both steps went on, their own new origins (p plus the spawn
+    # offset), which may differ from the bounce kernel's by an ulp
+    went_on = K["alive"] & (K["depth"] > 0) & P["alive"] & (P["depth"] > 0)
+    dp_abs = np.maximum(np.abs(host(kb[5]) - rp).max(0),
+                        np.where(went_on, np.abs(K["o"] - P["o"]).max(0), 0.0))
+    checker = on_checker_edge(rp, dp_abs)
     tput1 = np.where(a & (host(pb[0]) != 2), S["tput"] * host(pb[3]),
                      S["tput"])
     p_surv = np.clip(tput1.max(0), 0.05, 1.0)
@@ -1742,7 +1880,8 @@ def compare_regen(name, scene, tab, cam, U, eps, lanes, kw,
     pk = np.where(cont_k, K["o"], rp)
     on, ulps, share, why = grazes(
         tab, S["o"][:, lanes_], S["d"][:, lanes_], pk[:, lanes_], ty[lanes_],
-        ix[lanes_], host(win.ty)[lanes_], host(win.ix)[lanes_])
+        ix[lanes_], host(win.ty)[lanes_], host(win.ix)[lanes_],
+        time=None if tm is None else S["time"][lanes_])
     graze[lanes_] = on
     edge = flips | (beyond & (checker | rr_edge | graze))
     held = a & ~beyond
@@ -1764,6 +1903,13 @@ def compare_regen(name, scene, tab, cam, U, eps, lanes, kw,
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
         + f"; grazing lanes: {edge_note(on, ulps, share, why)}")
     if (check & ~graze).any() or edge.sum() > max_edge * a.sum():
+        log_lanes(name, np.where(check & ~graze)[0], o=S["o"], d=S["d"],
+                  time=S.get("time", np.zeros(n)), ty=ty, ix=ix,
+                  kernel_ty=host(win.ty), kernel_ix=host(win.ix),
+                  o_kernel=K["o"], o_plain=P["o"], p_plain=rp,
+                  tput_kernel=K["tput"], tput_plain=P["tput"],
+                  **{f"{k}_kernel": K[k] for k in ("alive", "depth", "done")},
+                  **{f"{k}_plain": P[k] for k in ("alive", "depth", "done")})
         raise AssertionError(f"{name}: the regen kernel disagrees with "
                              "regen_step_plain")
     if not (respawn.any() and past.any() and (a & (S["depth"] >= 3)).any()):
@@ -1771,47 +1917,60 @@ def compare_regen(name, scene, tab, cam, U, eps, lanes, kw,
     return err
 
 
+def regen_row(key: str, scene, max_edge: float, ordered: bool) -> dict:
+    """One regen kernel against ``regen_step_plain`` on the step captured
+    from a render of ``scene`` (``regen_capture``), then its time, the
+    plain version's and the bound. A key ending in "motion" needs lanes
+    that carry a shutter time (the kernels' motion form). Returns the
+    row's numbers."""
+    from raytracer_tpu_torch.ops import ordered as ordered_ops
+    from raytracer_tpu_torch.ops import regen
+    dev = torch.device(DEV)
+    tab, cam, U, eps, lanes, kw = regen_capture(scene, dev)
+    n = lanes.o.shape[1]
+    motion = lanes.time is not None
+    if (tab.ordered != ordered or n != WIDTH * HEIGHT
+            or motion != key.endswith("motion")):
+        raise AssertionError(f"{key}: captured {n} lanes, ordered "
+                             f"{tab.ordered}, shutter time {motion}")
+    err = compare_regen(f"{key}, step {REGEN_STEP} of a {REGEN_SPP}-sample "
+                        "render", scene, tab, cam, U, eps, lanes, kw,
+                        max_edge)
+    ms = kernel_ms(tab, cam, U, eps, lanes, kw)
+    plain_ms = cuda_ms(lambda: regen.regen_step_plain(
+        tab, cam, U, eps, lanes, **kw), reps=3)
+    extra = (tab.sph_mat, tab.rect_mat, tab.tri_mat, tab.tri_nrm, tab.mat,
+             cam) + ((tab.sph_vel,) if motion else ())
+    # with motion: the time read and written and U's row 8, 4 bytes each
+    lane_bytes = REGEN_LANE_BYTES + (12 if motion else 0)
+    sph_flops = SPH_FLOPS + (MOTION_FLOPS if motion else 0)
+    if tab.ordered:
+        stats = torch.zeros((-(-n // ordered_ops.BLOCK), 2),
+                            dtype=torch.int32, device=dev)
+        regen.regen_step_tables(tab, cam, U, eps, clone_lanes(lanes),
+                                stats=stats, **kw)
+        b, pairs = walk_bound(tab, stats, lanes.alive, lane_bytes,
+                              (tab.sph,) + extra, sph_flops)
+        log(f"  {key}: pair tests run {pairs}")
+    else:
+        b = sweep_bound(tab, lanes.alive, lane_bytes, extra, sph_flops)
+    log(f"  {key} at {n} lanes ({int(lanes.alive.sum())} alive): kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of CUDA-event "
+        "timings: 10, the plain version's 3)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": None}
+
+
 def check_regen() -> dict:
     """Phase 13, the kernels. Returns the rows' numbers of ``regen`` and
     ``regen_ordered``."""
-    from raytracer_tpu_torch.ops import ordered
-    from raytracer_tpu_torch.ops import regen
     dev = torch.device(DEV)
     log("regen kernels against regen_step_plain on a captured step:")
-    rows = {}
-    for key, scene, max_edge in (
-            ("regen", load("scene_500", WIDTH / HEIGHT).to(dev),
-             1.0 - INTER_AGREE),
-            ("regen_ordered", large_scene("field64k").to(dev), PLAIN_EDGE)):
-        tab, cam, U, eps, lanes, kw = regen_capture(scene, dev)
-        n = lanes.o.shape[1]
-        if tab.ordered != (key == "regen_ordered") or n != WIDTH * HEIGHT:
-            raise AssertionError(f"{key}: captured {n} lanes, ordered "
-                                 f"{tab.ordered}")
-        err = compare_regen(f"{key}, step {REGEN_STEP} of a {REGEN_SPP}-"
-                            "sample render", scene, tab, cam, U, eps, lanes,
-                            kw, max_edge)
-        ms = kernel_ms(tab, cam, U, eps, lanes, kw)
-        plain_ms = cuda_ms(lambda: regen.regen_step_plain(
-            tab, cam, U, eps, lanes, **kw), reps=3)
-        extra = (tab.sph_mat, tab.rect_mat, tab.tri_mat, tab.tri_nrm,
-                 tab.mat, cam)
-        if tab.ordered:
-            stats = torch.zeros((-(-n // ordered.BLOCK), 2),
-                                dtype=torch.int32, device=dev)
-            regen.regen_step_tables(tab, cam, U, eps, clone_lanes(lanes),
-                                    stats=stats, **kw)
-            b, pairs = walk_bound(tab, stats, lanes.alive, REGEN_LANE_BYTES,
-                                  (tab.sph,) + extra)
-            log(f"  {key}: pair tests run {pairs}")
-        else:
-            b = sweep_bound(tab, lanes.alive, REGEN_LANE_BYTES, extra)
-        log(f"  {key} at {n} lanes ({int(lanes.alive.sum())} alive): kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of CUDA-event "
-            "timings: 10, the plain version's 3)")
-        rows[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
-                     "library_ms": None}
-    return rows
+    return {"regen": regen_row("regen", load("scene_500", WIDTH / HEIGHT)
+                               .to(dev), 1.0 - INTER_AGREE, False),
+            "regen_ordered": regen_row("regen_ordered",
+                                       large_scene("field64k").to(dev),
+                                       PLAIN_EDGE, True)}
 
 
 def regen_renders() -> dict:
@@ -1906,6 +2065,324 @@ def check_fma() -> dict:
             "bound_by": top["bound_by"], "library_ms": None}
 
 
+# ----------------------------------------------------------------- phase 15
+
+def motion_scene(n: int):
+    """motion_field(n) at 800x600's aspect, built once."""
+    from raytracer_tpu_torch.scene import builtin
+    key = f"motion{n}"
+    if key not in _SCENES:
+        t0 = time.perf_counter()
+        _SCENES[key] = builtin.motion_field(n, WIDTH / HEIGHT)
+        log(f"scene {key}: built in {time.perf_counter() - t0:.3f} s")
+    return _SCENES[key]
+
+
+def shutter_times(scene, seed: int, n: int, dev) -> torch.Tensor:
+    """(n,) f32 shutter times in [time0, time1] (numpy draws)."""
+    rng = np.random.default_rng(300 + seed)
+    t0 = np.float32(float(scene.camera.time0))
+    t1 = np.float32(float(scene.camera.time1))
+    return torch.from_numpy(t0 + rng.random(n, dtype=np.float32)
+                            * (t1 - t0)).to(dev)
+
+
+def next_bounce(out, alive, uni, seed: int):
+    """The rays, alive lanes and uniforms of the bounce after ``out``."""
+    n = alive.shape[0]
+    gen = torch.Generator(device=alive.device).manual_seed(seed)
+    uni = torch.cat([torch.rand((3, n), generator=gen, device=alive.device),
+                     uni[3:]], 0)
+    return (out[1].contiguous(), out[2].contiguous(),
+            alive & (out[0] != 2), uni)     # INTER_ABSORB retires
+
+
+def check_motion_flat() -> dict:
+    """Phase 15, the flat motion forms on motion_field(1000) at 480,000
+    lanes with per-lane shutter times: the bounce and the closest hit
+    against their plain versions on camera rays and a second bounce (and
+    the winners against the t = 0 scene's, which must differ), the closest
+    hit on a motion NEE step's shadow rays, and the regen step on a
+    captured step. Returns the rows' numbers."""
+    from raytracer_tpu_torch.ops import closest_hit as ch
+    from raytracer_tpu_torch.ops import fused_bounce as fb
+    dev = torch.device(DEV)
+    log("motion forms (flat) against their plain versions, motion_field"
+        f"({MOTION_N}):")
+    scene = motion_scene(MOTION_N).to(dev)
+    tab = fb.pack_tables(scene)
+    if tab.sph_vel is None or tab.ordered:
+        raise AssertionError("motion_field did not pack flat moving tables")
+    n = WIDTH * HEIGHT
+    inf = float("inf")
+    o, d, alive, uni = image_rays(scene.to("cpu"), 30, dev)
+    tm = shutter_times(scene, 30, n, dev)
+    rows = {"bounce_motion": {"max_abs_err": 0.0},
+            "closest_motion": {"max_abs_err": 0.0}}
+    for bounce in (1, 2):
+        tag = f"motion{MOTION_N} {n} lanes, bounce {bounce}"
+        out = fb.bounce_tables(tab, o, d, T_MIN, alive, uni, time=tm)
+        win = ch.closest_tables(tab, o, d, T_MIN, inf, alive, time=tm)
+        still = ch.closest_tables(tab, o, d, T_MIN, inf, alive)
+        torch.cuda.synchronize()
+        hit = fb._closest_plain(tab, o, d, T_MIN, alive, time=tm)
+        ref = fb._bounce_values(tab, o, d, uni, *hit, time=tm)
+        r = rows["bounce_motion"]
+        r["max_abs_err"] = max(r["max_abs_err"], compare(
+            f"{tag}: bounce (motion) vs plain", scene, tab, o, d, out, ref,
+            hit[1], hit[2], alive, time=tm))
+        pwin = ch.closest_hit_plain(tab, o, d, T_MIN, inf, alive, time=tm)
+        r = rows["closest_motion"]
+        r["max_abs_err"] = max(r["max_abs_err"], compare_closest(
+            f"{tag}: closest hit (motion) vs plain", scene, tab, o, d, T_MIN,
+            inf, alive, win, pwin, time=tm))
+        moved = int((alive & ((win.ty != still.ty)
+                              | (win.ix != still.ix))).sum())
+        log(f"  {tag}: winners other than at t = 0 on {moved} lanes")
+        if not moved:
+            raise AssertionError(f"{tag}: the shutter time moved no winner")
+        if bounce == 1:
+            ms = cuda_ms(lambda: fb.bounce_tables(tab, o, d, T_MIN, alive,
+                                                  uni, time=tm))
+            still_ms = cuda_ms(lambda: fb.bounce_tables(tab, o, d, T_MIN,
+                                                        alive, uni))
+            plain_ms = cuda_ms(lambda: fb.bounce_fused_plain(
+                tab, o, d, T_MIN, alive, uni, tm), reps=3)
+            cms = cuda_ms(lambda: ch.closest_tables(tab, o, d, T_MIN, inf,
+                                                    alive, time=tm))
+            cplain = cuda_ms(lambda: ch.closest_hit_plain(
+                tab, o, d, T_MIN, inf, alive, time=tm), reps=3)
+            log(f"  {tag}: bounce (motion) {ms:.4f} ms, its static form on "
+                f"the same rays {still_ms:.4f} ms, plain {plain_ms:.4f} ms; "
+                f"closest hit (motion) {cms:.4f} ms, plain {cplain:.4f} ms "
+                "(median of CUDA-event timings: 10, the plain versions' 3)")
+            flops = SPH_FLOPS + MOTION_FLOPS
+            # per lane as the static rows, plus the 4-byte time
+            rows["bounce_motion"].update(
+                ms=ms, plain_ms=plain_ms, static_ms=still_ms,
+                **sweep_bound(tab, alive, 24 + 16 + 1 + 72 + 4 + 4,
+                              (tab.sph_mat, tab.rect_mat, tab.tri_mat,
+                               tab.tri_nrm, tab.mat, tab.sph_vel), flops),
+                library_ms=None)
+            rows["closest_motion"].update(
+                ms=cms, plain_ms=cplain,
+                **sweep_bound(tab, alive, 24 + 8 + 1 + 20 + 4,
+                              (tab.sph_vel,), flops), library_ms=None)
+            o, d, alive, uni = next_bounce(out, alive, uni, 31)
+
+    args, kw = shadow_inputs(scene, dev)
+    sh_tab, so, sd, s_tmin, s_tmax, s_alive = args
+    st = kw["time"]
+    out = ch.closest_tables(sh_tab, so, sd, s_tmin, s_tmax, s_alive, time=st)
+    torch.cuda.synchronize()
+    ref = ch.closest_hit_plain(sh_tab, so, sd, s_tmin, s_tmax, s_alive,
+                               time=st)
+    r = rows["closest_motion"]
+    r["max_abs_err"] = max(r["max_abs_err"], compare_closest(
+        f"motion{MOTION_N} NEE shadow rays of the first step", scene, sh_tab,
+        so, sd, s_tmin, s_tmax, s_alive, out, ref, time=st))
+    rows["regen_motion"] = regen_row("regen_motion", scene,
+                                     1.0 - INTER_AGREE, False)
+    return rows
+
+
+def check_motion_ordered() -> dict:
+    """Phase 15, the ordered motion forms on motion_field(65536) at
+    480,000 lanes with per-lane shutter times: the ordered closest hit and
+    bounce against the flat motion kernels (every alive lane) and against
+    the plain walk (every 10th block), on camera rays and a second bounce,
+    and the ordered regen step on a captured step. Returns the rows'
+    numbers."""
+    from raytracer_tpu_torch.ops import closest_hit as ch
+    from raytracer_tpu_torch.ops import fused_bounce as fb
+    from raytracer_tpu_torch.ops import ordered
+    dev = torch.device(DEV)
+    log("motion forms (ordered) against the flat ones and the plain walk, "
+        f"motion_field({MOTION_BIG}):")
+    scene = motion_scene(MOTION_BIG).to(dev)
+    tab = fb.pack_tables(scene)
+    flat = fb.pack_tables(scene, order=False)
+    st = tab.osph
+    if st is None or st.vel is None or flat.sph_vel is None:
+        raise AssertionError("motion_field did not pack a moving walk")
+    log(f"  {tab.sph.shape[0]} spheres; ordered stage of {st.cull.shape[0]} "
+        f"chunks of {st.chunk} in {st.scull.shape[0]} superchunks")
+    n = WIDTH * HEIGHT
+    inf = float("inf")
+    g = -(-n // ordered.BLOCK)
+    every = (torch.arange(n, device=dev) // ordered.BLOCK) % 10 == 0
+    o, d, alive, uni = image_rays(scene.to("cpu"), 40, dev)
+    tm = shutter_times(scene, 40, n, dev)
+    rows = {"closest_ordered_motion": {"max_abs_err": 0.0},
+            "bounce_ordered_motion": {"max_abs_err": 0.0}}
+    for bounce in (1, 2):
+        tag = f"motion{MOTION_BIG} {n} lanes, bounce {bounce}"
+        stats = torch.zeros((g, 2), dtype=torch.int32, device=dev)
+        win = ch.closest_tables(tab, o, d, T_MIN, inf, alive, stats=stats,
+                                time=tm)
+        fwin = ch.closest_tables(flat, o, d, T_MIN, inf, alive, time=tm)
+        out = fb.bounce_tables(tab, o, d, T_MIN, alive, uni, time=tm)
+        fout = fb.bounce_tables(flat, o, d, T_MIN, alive, uni, time=tm)
+        torch.cuda.synchronize()
+        compare_winners(f"{tag}: ordered vs flat kernel (motion)", scene,
+                        flat, o, d, win, fwin, alive, time=tm)
+        compare(f"{tag}: ordered vs flat bounce kernel (motion)", scene,
+                flat, o, d, out, fout, fwin.ty, fwin.ix.long(), alive,
+                time=tm)
+        sub = [x[..., every].contiguous() for x in (o, d, alive, uni, tm)]
+        pwin = ch.closest_ordered_plain(tab, *sub[:2], T_MIN, inf, sub[2],
+                                        time=sub[4])
+        r = rows["closest_ordered_motion"]
+        r["max_abs_err"] = max(r["max_abs_err"], compare_winners(
+            f"{tag}: ordered kernel (motion) vs plain walk, every 10th "
+            "block", scene, flat, sub[0], sub[1],
+            ch.Closest(*(x[every] for x in win)), pwin, sub[2], PLAIN_EDGE,
+            time=sub[4]))
+        pout = fb.bounce_ordered_plain(tab, *sub[:2], T_MIN, sub[2], sub[3],
+                                       time=sub[4])
+        r = rows["bounce_ordered_motion"]
+        r["max_abs_err"] = max(r["max_abs_err"], compare(
+            f"{tag}: ordered bounce kernel (motion) vs plain, every 10th "
+            "block", scene, flat, sub[0], sub[1],
+            [x[..., every] for x in out], pout, pwin.ty, pwin.ix.long(),
+            sub[2], PLAIN_EDGE, time=sub[4]))
+        live = live_per_block(alive)
+        log(f"  {tag}: chunk bodies per live block "
+            f"{float(stats.double().sum(1)[live > 0].mean()):.3f} of "
+            f"{st.cull.shape[0]}")
+        if bounce == 1:
+            ms = cuda_ms(lambda: ch.closest_tables(tab, o, d, T_MIN, inf,
+                                                   alive, time=tm))
+            fms = cuda_ms(lambda: ch.closest_tables(flat, o, d, T_MIN, inf,
+                                                    alive, time=tm))
+            bms = cuda_ms(lambda: fb.bounce_tables(tab, o, d, T_MIN, alive,
+                                                   uni, time=tm))
+            fbms = cuda_ms(lambda: fb.bounce_tables(flat, o, d, T_MIN, alive,
+                                                    uni, time=tm))
+            pms = cuda_ms(lambda: ch.closest_ordered_plain(
+                tab, o, d, T_MIN, inf, alive, time=tm), reps=3)
+            pbms = cuda_ms(lambda: fb.bounce_ordered_plain(
+                tab, o, d, T_MIN, alive, uni, time=tm), reps=3)
+            log(f"  {tag}: closest hit ordered {ms:.4f} ms, flat {fms:.4f} "
+                f"ms, plain walk {pms:.4f} ms; bounce ordered {bms:.4f} ms, "
+                f"flat {fbms:.4f} ms, plain walk {pbms:.4f} ms (motion forms;"
+                " median of CUDA-event timings: 10, the plain walks' 3)")
+            flops = SPH_FLOPS + MOTION_FLOPS
+            cb, pairs = walk_bound(tab, stats, alive, 24 + 8 + 1 + 20 + 4,
+                                   (tab.sph_vel,), flops)
+            bb, _ = walk_bound(tab, stats, alive, 24 + 16 + 1 + 72 + 4 + 4,
+                               (tab.sph, tab.sph_vel, tab.sph_mat,
+                                tab.rect_mat, tab.tri_mat, tab.tri_nrm,
+                                tab.mat), flops)
+            log(f"  {tag}: pair tests run {pairs}")
+            rows["closest_ordered_motion"].update(
+                ms=ms, flat_ms=fms, plain_ms=pms, **cb, library_ms=None)
+            rows["bounce_ordered_motion"].update(
+                ms=bms, flat_ms=fbms, plain_ms=pbms, **bb, library_ms=None)
+            o, d, alive, uni = next_bounce(out, alive, uni, 41)
+    rows["regen_ordered_motion"] = regen_row("regen_ordered_motion", scene,
+                                             PLAIN_EDGE, True)
+    return rows
+
+
+def motion_renders() -> dict:
+    """Phase 15, the renders, 800x600, depth 16, RR on (bench.py:82-84,
+    99-101): motion_field(1000) at 8 spp through the one-kernel step and
+    the loop's own step in turns (rays and steps equal, means within
+    ROUTE_TOL), with MIS (mean within MEAN_TOL of plain PT's) and NEE
+    (``MOTION_NEE_RATIO``), with its shutter frozen (time1 = time0: the
+    image must differ);
+    motion_field(65536) at 8 spp through the ordered and the forced flat
+    route (means and rays within ROUTE_TOL) and with NEE. Returns the
+    summed launches of these renders."""
+    from raytracer_tpu_torch.ops import fused_bounce as fb
+    dev = torch.device(DEV)
+    total = {}
+
+    def add(tag, launches, need, never=()):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        if not all(launches.get(k) for k in need) or any(
+                launches.get(k) for k in never):
+            raise AssertionError(f"{tag}: launches {launches}")
+
+    static = ("bounce", "bounce_ordered", "closest", "closest_ordered",
+              "regen", "regen_ordered")
+    scene = motion_scene(MOTION_N).to(dev)
+    timed_render("motion1k_warm", scene, dev, spp=1)
+    runs = []
+    for fused in (False, True, True, False):
+        st = {}
+        tag = f"motion1k_{'one_kernel' if fused else 'loop'}"
+        img, rays, dt, launches = timed_render(
+            tag, scene, dev, spp=MOTION_SPP, loop_step=not fused, stats=st)
+        add(tag, launches, ["regen_motion" if fused else "bounce_motion"],
+            static)
+        runs.append((fused, img, rays, st["steps"], dt))
+    ref = runs[1]
+    dm = max(abs(r[1].mean() / ref[1].mean() - 1) for r in runs)
+    log(f"route check motion1k {MOTION_SPP} spp: loop "
+        f"{[r[4] for r in runs if not r[0]]} s, one kernel "
+        f"{[r[4] for r in runs if r[0]]} s; rays {[r[2] for r in runs]}, "
+        f"steps {[r[3] for r in runs]}; image means within {dm * 100:.4f}%, "
+        f"max |pixel diff| "
+        f"{max(float(np.abs(r[1] - ref[1]).max()) for r in runs):.3g}")
+    if any((r[2], r[3]) != (ref[2], ref[3]) for r in runs) \
+            or not dm <= ROUTE_TOL:
+        raise AssertionError("motion1k: the one-kernel route differs from "
+                             "the loop's")
+    pt = ref[1]
+    for kw, need, lo, hi in (
+            (dict(nee=True), ["bounce_motion", "closest_motion"],
+             *MOTION_NEE_RATIO),
+            (dict(mis=True), ["bounce_motion"], 1 - MEAN_TOL, 1 + MEAN_TOL)):
+        tag = "motion1k_" + ("nee" if kw.get("nee") else "mis")
+        img, _, _, launches = timed_render(tag, scene, dev, spp=MOTION_SPP,
+                                           **kw)
+        add(tag, launches, need, static)
+        ratio = img.mean() / pt.mean()
+        log(f"{tag}: image mean {img.mean():.6f} against plain PT "
+            f"{pt.mean():.6f}: ratio {ratio:.6f} (held to [{lo:g}, {hi:g}])")
+        if not lo <= ratio <= hi:
+            raise AssertionError(f"{tag}: image mean off plain PT's")
+    cam = scene.camera
+    frozen = scene._replace(camera=cam._replace(time1=cam.time0))
+    img, _, _, launches = timed_render("motion1k_frozen", frozen, dev,
+                                       spp=MOTION_SPP)
+    add("motion1k_frozen", launches, ["regen_motion"], static)
+    diff = float(np.abs(img - pt).mean())
+    log(f"motion1k frozen shutter: mean |pixel diff| against the full "
+        f"shutter {diff:.6g} ({diff / pt.mean():.4g} of the mean)")
+    if not diff > FROZEN_DIFF * pt.mean():
+        raise AssertionError("the frozen shutter renders the full shutter's "
+                             "image")
+
+    big = motion_scene(MOTION_BIG).to(dev)
+    timed_render("motion64k_warm", big, dev, spp=1)
+    img_o, rays_o, _, l_o = timed_render(
+        "motion64k_route_ordered", big, dev, spp=MOTION_SPP, seed=2,
+        tables=fb.pack_tables(big))
+    add("motion64k_route_ordered", l_o, ["regen_ordered_motion"], static)
+    img_f, rays_f, _, l_f = timed_render(
+        "motion64k_route_flat", big, dev, spp=MOTION_SPP, seed=2,
+        tables=fb.pack_tables(big, order=False))
+    add("motion64k_route_flat", l_f, ["regen_motion"],
+        static + ("regen_ordered_motion",))
+    dm = abs(img_o.mean() / img_f.mean() - 1)
+    dr = abs(rays_o / rays_f - 1)
+    log(f"route check motion64k {MOTION_SPP} spp: image means "
+        f"{img_o.mean():.6f} (ordered) vs {img_f.mean():.6f} (flat), "
+        f"{dm * 100:.4f}%; rays {rays_o} vs {rays_f}, {dr * 100:.4f}%; max "
+        f"|pixel diff| {float(np.abs(img_o - img_f).max()):.3g}")
+    if dm > ROUTE_TOL or dr > ROUTE_TOL:
+        raise AssertionError("motion64k: ordered and flat routes disagree")
+    _, _, _, launches = timed_render("motion64k_nee", big, dev,
+                                     spp=MOTION_SPP, nee=True)
+    add("motion64k_nee", launches,
+        ["bounce_ordered_motion", "closest_ordered_motion"], static)
+    return total
+
+
 def main() -> int:
     device = card()
     sys.path.insert(0, ROOT)
@@ -1926,6 +2403,8 @@ def main() -> int:
     r_rows = check_regen()
     rl = regen_renders()
     f_row = check_fma()
+    m_rows = {**check_motion_flat(), **check_motion_ordered()}
+    ml = motion_renders()
 
     def row(d):
         return {k: v for k, v in d.items()
@@ -1975,6 +2454,16 @@ def main() -> int:
         {"name": "fma_rate", "route": "cuda",
          "source": "raytracer_tpu_torch/csrc/fma_rate.cu",
          "replaces": "experiments/bf16_rate_bench.py:35", **f_row}]
+    # the motion forms (has_time=True) of the same TPU kernels
+    for name, line in (("bounce", 1731), ("closest", 1054),
+                       ("closest_ordered", 1068), ("bounce_ordered", 1750),
+                       ("regen", 1873), ("regen_ordered", 1906)):
+        key = f"{name}_motion"
+        kernels.append(
+            {"name": key, "route": "cuda",
+             "source": f"raytracer_tpu_torch/csrc/{name}.cu",
+             "replaces": f"raytracer_tpu/ops/pallas_intersect.py:{line}",
+             "launches": ml.get(key, 0), **row(m_rows[key])})
     if min(k["launches"] for k in kernels) <= 0:
         raise AssertionError("a kernel was launched no time on its path")
     print(json.dumps({"kernels": kernels}))

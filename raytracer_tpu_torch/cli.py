@@ -9,10 +9,13 @@ Usage:
     python -m raytracer_tpu_torch render --scene cornell --integrator sppm \
         --width 800 --height 800 --spp 256 --device cuda \
         --checkpoint output/sppm.npz
+    python -m raytracer_tpu_torch render --scene motion --width 800 \
+        --height 600 --spp 8 --max-depth 16 --device cuda
 
 The other integrators and flags of the JAX CLI are accepted by name so that
 a command written for it fails with a message naming the ROADMAP item that
-ports the feature, instead of an argparse error.
+ports the feature, instead of an argparse error; ``--jax-cache`` is
+accepted and does nothing (the port compiles no XLA programs).
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ UNPORTED = {
     "bvh": "A10 (large scenes)",
     "sharded": "A12 (multi-device)",
     "preset": "A13 (the rest of the CLI)",
+    "profile_dir": "A13 (the rest of the CLI)",
+    "debug_nans": "A13 (the rest of the CLI)",
 }
 
 
@@ -34,9 +39,10 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="command", required=True)
     r = sub.add_parser("render", help="render a scene to a PNG")
     r.add_argument("--scene", default="cornell",
-                   help="'cornell', 'spheres', 'field[:N]' (N-sphere field), "
-                        "'bunnies[:N]' (N bunnies) or a data/*.json|yaml "
-                        "path")
+                   help="'cornell', 'spheres', 'smoke', 'field[:N]' "
+                        "(N-sphere field), 'bunnies[:N]' (N bunnies), "
+                        "'motion[:N]' (N moving spheres) or a "
+                        "data/*.json|yaml path")
     r.add_argument("--integrator", choices=["pt", "sppm"], default="pt",
                    help="path tracer or SPPM (the reference's algorithm)")
     r.add_argument("--width", type=int, default=800)
@@ -66,6 +72,13 @@ def build_parser() -> argparse.ArgumentParser:
                        help=f"not ported yet (ROADMAP {UNPORTED[flag]})")
     r.add_argument("--preset", default=None,
                    help=f"not ported yet (ROADMAP {UNPORTED['preset']})")
+    r.add_argument("--profile-dir", default=None,
+                   help=f"not ported yet (ROADMAP {UNPORTED['profile_dir']})")
+    r.add_argument("--debug-nans", action="store_true",
+                   help=f"not ported yet (ROADMAP {UNPORTED['debug_nans']})")
+    r.add_argument("--jax-cache", default=None,
+                   help="accepted for the JAX CLI's sake; no effect (the "
+                        "port has no XLA compilation cache)")
     # SPPM knobs (reference defaults, photon_mapper.rs:17-19,148-149)
     r.add_argument("--sppm-iters", type=int, default=50)
     r.add_argument("--sppm-photons", type=int, default=500_000)
@@ -84,6 +97,8 @@ def load_scene_arg(name: str, aspect: float):
         return builtin.cornell_box(aspect_ratio=aspect)
     if name == "spheres":
         return builtin.three_spheres(aspect_ratio=aspect)
+    if name == "smoke":
+        return builtin.cornell_smoke(aspect_ratio=aspect)
 
     def count(default: int) -> int:
         if ":" not in name:
@@ -101,6 +116,8 @@ def load_scene_arg(name: str, aspect: float):
         return builtin.sphere_field(count(65536), aspect_ratio=aspect)
     if name == "bunnies" or name.startswith("bunnies:"):
         return builtin.bunny_field(count(25), aspect_ratio=aspect)
+    if name == "motion" or name.startswith("motion:"):
+        return builtin.motion_field(count(1000), aspect_ratio=aspect)
     from raytracer_tpu_torch.scene.loader import load_scene
     return load_scene(name, aspect_ratio=aspect)
 
@@ -108,13 +125,17 @@ def load_scene_arg(name: str, aspect: float):
 def cmd_render(args) -> int:
     for flag, item in UNPORTED.items():
         if getattr(args, flag):
-            print(f"raytracer_tpu_torch: --{flag} is not ported yet "
-                  f"(ROADMAP {item})", file=sys.stderr)
+            print(f"raytracer_tpu_torch: --{flag.replace('_', '-')} is not "
+                  f"ported yet (ROADMAP {item})", file=sys.stderr)
             return 2
+    if args.jax_cache is not None:
+        print("raytracer_tpu_torch: --jax-cache has no effect: the port has "
+              "no XLA compilation cache", file=sys.stderr)
 
     import torch
 
     from raytracer_tpu_torch.models import path_tracer, sppm
+    from raytracer_tpu_torch.ops.fused_bounce import moving
     from raytracer_tpu_torch.utils import checkpoint as ckpt
     from raytracer_tpu_torch.utils.config import RenderConfig, SPPMConfig
     from raytracer_tpu_torch.utils.image import save_render
@@ -130,7 +151,8 @@ def cmd_render(args) -> int:
                         alpha=args.sppm_alpha))
     t0 = time.perf_counter()
     scene = load_scene_arg(args.scene, cfg.width / cfg.height)
-    if args.intersector == "leaf":
+    # a moving scene takes the kernel route instead (dispatch.resolve)
+    if args.intersector == "leaf" and not moving(scene):
         from raytracer_tpu_torch.ops.leaf import build_leaf_tables
         scene = scene._replace(leaf=build_leaf_tables(scene))
     t1 = time.perf_counter()

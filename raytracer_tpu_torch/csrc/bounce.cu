@@ -24,6 +24,12 @@
 // The sweep is sweep.cuh's, shared with the closest-hit kernel
 // (closest.cu); the bounce calls it with t_max = BIG. The epilogue is
 // scatter.cuh's, shared with the ordered bounce (bounce_ordered.cu).
+//
+// Motion blur: rt_bounce_motion launches the same kernel with MOTION = true
+// (the TPU kernel with has_time=True): a per-ray shutter time row, spheres
+// tested at c + v t from the velocity table sph_vel (S, 4), the winner's
+// attributes at the moved centre. The static entry point compiles to the
+// static code (sweep.cuh: every motion branch is `if constexpr`).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,6 +41,7 @@ namespace {
 
 constexpr int BLOCK = 128;
 
+template <bool MOTION>
 __global__ void __launch_bounds__(BLOCK) bounce_kernel(
     const float* __restrict__ o, const float* __restrict__ d,
     const uint8_t* __restrict__ alive, const float* __restrict__ uni,
@@ -48,24 +55,28 @@ __global__ void __launch_bounds__(BLOCK) bounce_kernel(
     float* __restrict__ out_no, float* __restrict__ out_nd,
     float* __restrict__ out_att, float* __restrict__ out_emit,
     float* __restrict__ out_p, float* __restrict__ out_n,
-    int* __restrict__ out_inter) {
+    int* __restrict__ out_inter, const float* __restrict__ sph_vel,
+    const float* __restrict__ time) {
   __shared__ __align__(16) float tile[TILE_FLOATS];
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   const bool in = i < n;
   const bool live = in && alive[i] != 0;
   float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
+  float tm = 0.f;
   if (in) {
     ox = o[i]; oy = o[n + i]; oz = o[2 * n + i];
     dx = d[i]; dy = d[n + i]; dz = d[2 * n + i];
+    if constexpr (MOTION) tm = time[i];
   }
-  const Winner w = sweep<BLOCK>(tile, live, Ray{ox, oy, oz, dx, dy, dz,
-                                                  tmin, BIG},
-                                 sph, n_sph, rect, n_rect, tri, n_tri);
+  const Winner w = sweep<BLOCK, MOTION>(
+      tile, live, Ray{ox, oy, oz, dx, dy, dz, tmin, BIG}, sph, n_sph, rect,
+      n_rect, tri, n_tri, sph_vel, tm);
   if (!in) return;
 
-  bounce_epilogue(i, n, ox, oy, oz, dx, dy, dz, w, sph, sph_mat, rect,
-                  rect_mat, tri_nrm, tri_mat, mat, uni, out_no, out_nd,
-                  out_att, out_emit, out_p, out_n, out_inter);
+  bounce_epilogue<MOTION>(i, n, ox, oy, oz, dx, dy, dz, w, sph, sph_mat,
+                          rect, rect_mat, tri_nrm, tri_mat, mat, uni, out_no,
+                          out_nd, out_att, out_emit, out_p, out_n, out_inter,
+                          sph_vel, tm);
 }
 
 }  // namespace
@@ -83,10 +94,31 @@ extern "C" int rt_bounce(
     float* out_p, float* out_n, int* out_inter, cudaStream_t stream) {
   if (n <= 0) return 0;
   const int grid = (n + BLOCK - 1) / BLOCK;
-  bounce_kernel<<<grid, BLOCK, 0, stream>>>(
+  bounce_kernel<false><<<grid, BLOCK, 0, stream>>>(
       o, d, alive, uni, tmin, n, sph, sph_mat, n_sph, rect, rect_mat, n_rect,
       tri, tri_nrm, tri_mat, n_tri, mat, out_no, out_nd, out_att, out_emit,
-      out_p, out_n, out_inter);
+      out_p, out_n, out_inter, nullptr, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// rt_bounce with motion blur: the arguments of rt_bounce, then the sphere
+// velocities sph_vel (n_sph, 4) and the per-ray shutter time (n,).
+extern "C" int rt_bounce_motion(
+    const float* o, const float* d, const uint8_t* alive, const float* uni,
+    float tmin, int n,
+    const float* sph, const int* sph_mat, int n_sph,
+    const float* rect, const int* rect_mat, int n_rect,
+    const float* tri, const float* tri_nrm, const int* tri_mat, int n_tri,
+    const float* mat,
+    float* out_no, float* out_nd, float* out_att, float* out_emit,
+    float* out_p, float* out_n, int* out_inter, const float* sph_vel,
+    const float* time, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  const int grid = (n + BLOCK - 1) / BLOCK;
+  bounce_kernel<true><<<grid, BLOCK, 0, stream>>>(
+      o, d, alive, uni, tmin, n, sph, sph_mat, n_sph, rect, rect_mat, n_rect,
+      tri, tri_nrm, tri_mat, n_tri, mat, out_no, out_nd, out_att, out_emit,
+      out_p, out_n, out_inter, sph_vel, time);
   return (int)cudaGetLastError();
 }
 

@@ -18,6 +18,13 @@
 // What bounds it: FP32 work on the chunks a block can reach (see
 // closest_ordered.cu); the epilogue's ~200 flops per ray are the same as
 // the flat bounce's.
+//
+// Motion blur: rt_bounce_ordered_motion launches the kernel with MOTION =
+// true (the TPU kernel with has_time=True): the walk tests the sorted
+// spheres at c + v t (their velocities in the stage's sorted vel rows, the
+// boxes dilated over the shutter when the stage was packed), a flat sphere
+// stage reads sph_vel, and the epilogue takes the winner at its moved
+// centre.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -29,6 +36,7 @@ namespace {
 
 constexpr int BLOCK = 128;
 
+template <bool MOTION>
 __global__ void __launch_bounds__(BLOCK) bounce_ordered_kernel(
     const float* __restrict__ o, const float* __restrict__ d,
     const uint8_t* __restrict__ alive, const float* __restrict__ uni,
@@ -42,24 +50,28 @@ __global__ void __launch_bounds__(BLOCK) bounce_ordered_kernel(
     float* __restrict__ out_no, float* __restrict__ out_nd,
     float* __restrict__ out_att, float* __restrict__ out_emit,
     float* __restrict__ out_p, float* __restrict__ out_n,
-    int* __restrict__ out_inter, int* __restrict__ stats) {
+    int* __restrict__ out_inter, int* __restrict__ stats,
+    const float* __restrict__ sph_vel, const float* __restrict__ time) {
   __shared__ __align__(16) float tile[TILE_FLOATS];
   __shared__ WalkShared sh;
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   const bool in = i < n;
   const bool live = in && alive[i] != 0;
   float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
+  float tm = 0.f;
   if (in) {
     ox = o[i]; oy = o[n + i]; oz = o[2 * n + i];
     dx = d[i]; dy = d[n + i]; dz = d[2 * n + i];
+    if constexpr (MOTION) tm = time[i];
   }
-  const Winner w = sweep_ordered<BLOCK>(
+  const Winner w = sweep_ordered<BLOCK, MOTION>(
       tile, sh, live, Ray{ox, oy, oz, dx, dy, dz, tmin, BIG}, sph, n_sph,
-      osph, rect, n_rect, tri, n_tri, otri, stats);
+      osph, rect, n_rect, tri, n_tri, otri, stats, sph_vel, tm);
   if (!in) return;
-  bounce_epilogue(i, n, ox, oy, oz, dx, dy, dz, w, sph, sph_mat, rect,
-                  rect_mat, tri_nrm, tri_mat, mat, uni, out_no, out_nd,
-                  out_att, out_emit, out_p, out_n, out_inter);
+  bounce_epilogue<MOTION>(i, n, ox, oy, oz, dx, dy, dz, w, sph, sph_mat,
+                          rect, rect_mat, tri_nrm, tri_mat, mat, uni, out_no,
+                          out_nd, out_att, out_emit, out_p, out_n, out_inter,
+                          sph_vel, tm);
 }
 
 }  // namespace
@@ -89,10 +101,45 @@ extern "C" int rt_bounce_ordered(
   const Stage osph{s_prim, s_orig, s_cull, s_scull, s_box, s_k_ch, s_chunk};
   const Stage otri{t_prim, t_orig, t_cull, t_scull, t_box, t_k_ch, t_chunk};
   const int grid = (n + BLOCK - 1) / BLOCK;
-  bounce_ordered_kernel<<<grid, BLOCK, 0, stream>>>(
+  bounce_ordered_kernel<false><<<grid, BLOCK, 0, stream>>>(
       o, d, alive, uni, tmin, n, sph, sph_mat, n_sph, rect, rect_mat, n_rect,
       tri, tri_nrm, tri_mat, n_tri, mat, osph, otri, out_no, out_nd, out_att,
-      out_emit, out_p, out_n, out_inter, stats);
+      out_emit, out_p, out_n, out_inter, stats, nullptr, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// rt_bounce_ordered with motion blur: its arguments up to stats, then the
+// sphere velocities sph_vel (n_sph, 4) in scene order, the sphere stage's
+// sorted velocities s_vel (s_k_ch * s_chunk, 4; null when the spheres are
+// swept flat) and the per-ray shutter time (n,).
+extern "C" int rt_bounce_ordered_motion(
+    const float* o, const float* d, const uint8_t* alive, const float* uni,
+    float tmin, int n,
+    const float* sph, const int* sph_mat, int n_sph,
+    const float* rect, const int* rect_mat, int n_rect,
+    const float* tri, const float* tri_nrm, const int* tri_mat, int n_tri,
+    const float* mat,
+    const float* s_prim, const int* s_orig, const float* s_cull,
+    const float* s_scull, const float* s_box, int s_k_ch, int s_chunk,
+    const float* t_prim, const int* t_orig, const float* t_cull,
+    const float* t_scull, const float* t_box, int t_k_ch, int t_chunk,
+    float* out_no, float* out_nd, float* out_att, float* out_emit,
+    float* out_p, float* out_n, int* out_inter, int* stats,
+    const float* sph_vel, const float* s_vel, const float* time,
+    cudaStream_t stream) {
+  if (n <= 0) return 0;
+  if (s_k_ch / SUPER > MAX_SUPERS || t_k_ch / SUPER > MAX_SUPERS)
+    return (int)cudaErrorInvalidValue;
+  if (s_prim != nullptr && s_vel == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Stage osph{s_prim, s_orig, s_cull, s_scull, s_box, s_k_ch, s_chunk,
+                   s_vel};
+  const Stage otri{t_prim, t_orig, t_cull, t_scull, t_box, t_k_ch, t_chunk};
+  const int grid = (n + BLOCK - 1) / BLOCK;
+  bounce_ordered_kernel<true><<<grid, BLOCK, 0, stream>>>(
+      o, d, alive, uni, tmin, n, sph, sph_mat, n_sph, rect, rect_mat, n_rect,
+      tri, tri_nrm, tri_mat, n_tri, mat, osph, otri, out_no, out_nd, out_att,
+      out_emit, out_p, out_n, out_inter, stats, sph_vel, time);
   return (int)cudaGetLastError();
 }
 

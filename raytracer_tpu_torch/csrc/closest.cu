@@ -22,6 +22,11 @@
 // tile read as a broadcast, the winner stays in registers, and a block of
 // dead lanes skips the sweep. No occlusion early exit: the kernel computes
 // the same closest hit as the TPU kernel.
+//
+// Motion blur: rt_closest_motion launches the kernel with MOTION = true
+// (the TPU kernel with has_time=True): spheres tested at c + v t, v from
+// sph_vel (S, 4) and t the ray's shutter time (the NEE shadow rays inherit
+// their lane's). The static entry point compiles to the static code.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -33,6 +38,7 @@ namespace {
 
 constexpr int BLOCK = 128;
 
+template <bool MOTION>
 __global__ void __launch_bounds__(BLOCK) closest_kernel(
     const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ tmin, const float* __restrict__ tmax,
@@ -42,18 +48,21 @@ __global__ void __launch_bounds__(BLOCK) closest_kernel(
     const float* __restrict__ tri, int n_tri,
     float* __restrict__ out_t, int* __restrict__ out_ty,
     int* __restrict__ out_ix, float* __restrict__ out_b1,
-    float* __restrict__ out_b2) {
+    float* __restrict__ out_b2, const float* __restrict__ sph_vel,
+    const float* __restrict__ time) {
   __shared__ __align__(16) float tile[TILE_FLOATS];
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   const bool in = i < n;
   const bool live = in && alive[i] != 0;
   Ray ray{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, BIG};
+  float tm = 0.f;
   if (in) {
     ray = Ray{o[i], o[n + i], o[2 * n + i], d[i], d[n + i], d[2 * n + i],
               tmin[i], tmax[i]};
+    if constexpr (MOTION) tm = time[i];
   }
-  const Winner w = sweep<BLOCK>(tile, live, ray, sph, n_sph, rect, n_rect,
-                                tri, n_tri);
+  const Winner w = sweep<BLOCK, MOTION>(tile, live, ray, sph, n_sph, rect,
+                                        n_rect, tri, n_tri, sph_vel, tm);
   if (!in) return;
   const bool hit = w.ty >= 0;
   out_t[i] = hit ? w.t : INFINITY;
@@ -77,9 +86,26 @@ extern "C" int rt_closest(
     cudaStream_t stream) {
   if (n <= 0) return 0;
   const int grid = (n + BLOCK - 1) / BLOCK;
-  closest_kernel<<<grid, BLOCK, 0, stream>>>(
+  closest_kernel<false><<<grid, BLOCK, 0, stream>>>(
       o, d, tmin, tmax, alive, n, sph, n_sph, rect, n_rect, tri, n_tri,
-      out_t, out_ty, out_ix, out_b1, out_b2);
+      out_t, out_ty, out_ix, out_b1, out_b2, nullptr, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// rt_closest with motion blur: its arguments, then the sphere velocities
+// sph_vel (n_sph, 4) and the per-ray shutter time (n,).
+extern "C" int rt_closest_motion(
+    const float* o, const float* d, const float* tmin, const float* tmax,
+    const uint8_t* alive, int n,
+    const float* sph, int n_sph, const float* rect, int n_rect,
+    const float* tri, int n_tri,
+    float* out_t, int* out_ty, int* out_ix, float* out_b1, float* out_b2,
+    const float* sph_vel, const float* time, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  const int grid = (n + BLOCK - 1) / BLOCK;
+  closest_kernel<true><<<grid, BLOCK, 0, stream>>>(
+      o, d, tmin, tmax, alive, n, sph, n_sph, rect, n_rect, tri, n_tri,
+      out_t, out_ty, out_ix, out_b1, out_b2, sph_vel, time);
   return (int)cudaGetLastError();
 }
 

@@ -23,6 +23,11 @@
 // block runs a few tens of the 264 chunks. The walk adds, per block, the
 // sort (k_sup^2 compares over 128 threads) and one block reduction and a
 // few barriers per superchunk and chunk visited.
+//
+// Motion blur: rt_closest_ordered_motion launches the kernel with MOTION =
+// true (the TPU kernel with has_time=True): the walk tests the sorted
+// spheres at c + v t from the stage's sorted vel rows (its boxes dilated
+// over the shutter when it was packed), a flat sphere stage reads sph_vel.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -34,6 +39,7 @@ namespace {
 
 constexpr int BLOCK = 128;
 
+template <bool MOTION>
 __global__ void __launch_bounds__(BLOCK) closest_ordered_kernel(
     const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ tmin, const float* __restrict__ tmax,
@@ -44,19 +50,23 @@ __global__ void __launch_bounds__(BLOCK) closest_ordered_kernel(
     const Stage osph, const Stage otri,
     float* __restrict__ out_t, int* __restrict__ out_ty,
     int* __restrict__ out_ix, float* __restrict__ out_b1,
-    float* __restrict__ out_b2, int* __restrict__ stats) {
+    float* __restrict__ out_b2, int* __restrict__ stats,
+    const float* __restrict__ sph_vel, const float* __restrict__ time) {
   __shared__ __align__(16) float tile[TILE_FLOATS];
   __shared__ WalkShared sh;
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   const bool in = i < n;
   const bool live = in && alive[i] != 0;
   Ray ray{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, BIG};
+  float tm = 0.f;
   if (in) {
     ray = Ray{o[i], o[n + i], o[2 * n + i], d[i], d[n + i], d[2 * n + i],
               tmin[i], tmax[i]};
+    if constexpr (MOTION) tm = time[i];
   }
-  const Winner w = sweep_ordered<BLOCK>(tile, sh, live, ray, sph, n_sph, osph,
-                                        rect, n_rect, tri, n_tri, otri, stats);
+  const Winner w = sweep_ordered<BLOCK, MOTION>(
+      tile, sh, live, ray, sph, n_sph, osph, rect, n_rect, tri, n_tri, otri,
+      stats, sph_vel, tm);
   if (!in) return;
   const bool hit = w.ty >= 0;
   out_t[i] = hit ? w.t : INFINITY;
@@ -90,9 +100,40 @@ extern "C" int rt_closest_ordered(
   const Stage osph{s_prim, s_orig, s_cull, s_scull, s_box, s_k_ch, s_chunk};
   const Stage otri{t_prim, t_orig, t_cull, t_scull, t_box, t_k_ch, t_chunk};
   const int grid = (n + BLOCK - 1) / BLOCK;
-  closest_ordered_kernel<<<grid, BLOCK, 0, stream>>>(
+  closest_ordered_kernel<false><<<grid, BLOCK, 0, stream>>>(
       o, d, tmin, tmax, alive, n, sph, n_sph, rect, n_rect, tri, n_tri, osph,
-      otri, out_t, out_ty, out_ix, out_b1, out_b2, stats);
+      otri, out_t, out_ty, out_ix, out_b1, out_b2, stats, nullptr, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// rt_closest_ordered with motion blur: its arguments up to stats, then the
+// sphere velocities sph_vel (n_sph, 4) in scene order, the sphere stage's
+// sorted velocities s_vel (s_k_ch * s_chunk, 4; null when the spheres are
+// swept flat) and the per-ray shutter time (n,).
+extern "C" int rt_closest_ordered_motion(
+    const float* o, const float* d, const float* tmin, const float* tmax,
+    const uint8_t* alive, int n,
+    const float* sph, int n_sph, const float* rect, int n_rect,
+    const float* tri, int n_tri,
+    const float* s_prim, const int* s_orig, const float* s_cull,
+    const float* s_scull, const float* s_box, int s_k_ch, int s_chunk,
+    const float* t_prim, const int* t_orig, const float* t_cull,
+    const float* t_scull, const float* t_box, int t_k_ch, int t_chunk,
+    float* out_t, int* out_ty, int* out_ix, float* out_b1, float* out_b2,
+    int* stats, const float* sph_vel, const float* s_vel, const float* time,
+    cudaStream_t stream) {
+  if (n <= 0) return 0;
+  if (s_k_ch / SUPER > MAX_SUPERS || t_k_ch / SUPER > MAX_SUPERS)
+    return (int)cudaErrorInvalidValue;
+  if (s_prim != nullptr && s_vel == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Stage osph{s_prim, s_orig, s_cull, s_scull, s_box, s_k_ch, s_chunk,
+                   s_vel};
+  const Stage otri{t_prim, t_orig, t_cull, t_scull, t_box, t_k_ch, t_chunk};
+  const int grid = (n + BLOCK - 1) / BLOCK;
+  closest_ordered_kernel<true><<<grid, BLOCK, 0, stream>>>(
+      o, d, tmin, tmax, alive, n, sph, n_sph, rect, n_rect, tri, n_tri, osph,
+      otri, out_t, out_ty, out_ix, out_b1, out_b2, stats, sph_vel, time);
   return (int)cudaGetLastError();
 }
 

@@ -13,6 +13,11 @@
 // once), which the eager loop spreads over ~30 kernels that each read and
 // write whole rows; here it stays in registers. The design is bounce.cu's:
 // SoA rows, tables through a 16 KB shared tile, the winner in registers.
+//
+// Motion blur: rt_regen_motion launches the kernel with MOTION = true (the
+// TPU kernel with has_time=True): each lane's shutter time (read before the
+// sweep) moves the spheres to c + v t in the sweep and the epilogue, and a
+// respawned lane writes its next sample's time from U row 8 (regen.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -25,6 +30,7 @@ namespace {
 
 constexpr int BLOCK = 128;
 
+template <bool MOTION>
 __global__ void __launch_bounds__(BLOCK) regen_kernel(
     const Lanes L, const RegenParams P, float tmin, int n,
     const float* __restrict__ sph, const int* __restrict__ sph_mat, int n_sph,
@@ -32,22 +38,26 @@ __global__ void __launch_bounds__(BLOCK) regen_kernel(
     int n_rect,
     const float* __restrict__ tri, const float* __restrict__ tri_nrm,
     const int* __restrict__ tri_mat, int n_tri,
-    const float* __restrict__ mat) {
+    const float* __restrict__ mat, const float* __restrict__ sph_vel,
+    float* __restrict__ time) {
   __shared__ __align__(16) float tile[TILE_FLOATS];
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   const bool in = i < n;
   const bool live = in && L.alive[i] != 0;
   float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
+  float tm = 0.f;
   if (in) {
     ox = L.o[i]; oy = L.o[n + i]; oz = L.o[2 * n + i];
     dx = L.d[i]; dy = L.d[n + i]; dz = L.d[2 * n + i];
+    if constexpr (MOTION) tm = time[i];
   }
-  const Winner w = sweep<BLOCK>(tile, live, Ray{ox, oy, oz, dx, dy, dz,
-                                                  tmin, BIG},
-                                 sph, n_sph, rect, n_rect, tri, n_tri);
+  const Winner w = sweep<BLOCK, MOTION>(
+      tile, live, Ray{ox, oy, oz, dx, dy, dz, tmin, BIG}, sph, n_sph, rect,
+      n_rect, tri, n_tri, sph_vel, tm);
   if (!in) return;
-  regen_epilogue(i, n, ox, oy, oz, dx, dy, dz, live, w, sph, sph_mat, rect,
-                 rect_mat, tri_nrm, tri_mat, mat, L, P);
+  regen_epilogue<MOTION>(i, n, ox, oy, oz, dx, dy, dz, live, w, sph, sph_mat,
+                         rect, rect_mat, tri_nrm, tri_mat, mat, L, P, sph_vel,
+                         tm, time);
 }
 
 }  // namespace
@@ -70,9 +80,32 @@ extern "C" int rt_regen(
   const Lanes L{o, d, tput, samp, acc, alive, depth, done, px, py, U, cam};
   const RegenParams P{eps, width, height, quota, max_depth, rr_on, rr_start};
   const int grid = (n + BLOCK - 1) / BLOCK;
-  regen_kernel<<<grid, BLOCK, 0, stream>>>(
+  regen_kernel<false><<<grid, BLOCK, 0, stream>>>(
       L, P, tmin, n, sph, sph_mat, n_sph, rect, rect_mat, n_rect, tri,
-      tri_nrm, tri_mat, n_tri, mat);
+      tri_nrm, tri_mat, n_tri, mat, nullptr, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// rt_regen with motion blur: its arguments (U now (9, n)), then the sphere
+// velocities sph_vel (n_sph, 4) and the lanes' shutter time (n,), updated
+// in place.
+extern "C" int rt_regen_motion(
+    float* o, float* d, float* tput, float* samp, float* acc, uint8_t* alive,
+    int* depth, int* done, const float* px, const float* py, const float* U,
+    const float* cam, float tmin, float eps, int n, int width, int height,
+    int quota, int max_depth, int rr_on, int rr_start,
+    const float* sph, const int* sph_mat, int n_sph,
+    const float* rect, const int* rect_mat, int n_rect,
+    const float* tri, const float* tri_nrm, const int* tri_mat, int n_tri,
+    const float* mat, const float* sph_vel, float* time,
+    cudaStream_t stream) {
+  if (n <= 0) return 0;
+  const Lanes L{o, d, tput, samp, acc, alive, depth, done, px, py, U, cam};
+  const RegenParams P{eps, width, height, quota, max_depth, rr_on, rr_start};
+  const int grid = (n + BLOCK - 1) / BLOCK;
+  regen_kernel<true><<<grid, BLOCK, 0, stream>>>(
+      L, P, tmin, n, sph, sph_mat, n_sph, rect, rect_mat, n_rect, tri,
+      tri_nrm, tri_mat, n_tri, mat, sph_vel, time);
   return (int)cudaGetLastError();
 }
 

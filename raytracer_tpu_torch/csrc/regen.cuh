@@ -19,6 +19,12 @@
 // and all of it before it writes any of it (o, d and alive before the
 // sweep, the rest after it, to keep registers free during the sweep). The
 // wrapper checks that no two lane tensors share memory.
+//
+// Motion blur (MOTION): the lane's shutter time rides beside the lanes
+// (time (n,), in place); the sweep and bounce_values take it, and a lane
+// that respawns draws its next sample's time from U row 8:
+// time0 + U[8] (time1 - time0), rounded as ops/regen.py::regen_bookkeeping
+// rounds it.
 
 #pragma once
 
@@ -30,14 +36,15 @@
 
 namespace {
 
-// Rows of the loop's per-step draw U (8, n): 0-2 the scatter's, 3 Russian
-// roulette, 4-7 the respawn's jitter x, jitter y, lens radius, lens angle.
-constexpr int U_RR = 3, U_JX = 4, U_JY = 5, U_LR = 6, U_LPHI = 7;
+// Rows of the loop's per-step draw U (8, n; 9 with motion): 0-2 the
+// scatter's, 3 Russian roulette, 4-7 the respawn's jitter x, jitter y, lens
+// radius, lens angle, 8 the respawn's shutter time.
+constexpr int U_RR = 3, U_JX = 4, U_JY = 5, U_LR = 6, U_LPHI = 7, U_TIME = 8;
 // The camera as ops/regen.py::pack_camera packs it, (32,) f32: origin 0-2,
 // u 3-5, v 6-8, lower-left corner 9-11, horizontal 12-14, vertical 15-17,
-// lens radius 18 (the shutter times 19-20 wait for motion blur).
+// lens radius 18, shutter times 19-20.
 constexpr int CAM_U = 3, CAM_V = 6, CAM_LLC = 9, CAM_HOR = 12, CAM_VER = 15,
-              CAM_LENS = 18;
+              CAM_LENS = 18, CAM_T0 = 19, CAM_T1 = 20;
 
 // The lane state of the regeneration loop (models/wavefront_soa.py::_Lanes):
 // (3, n) rows, alive as bytes 0/1, depth and done int32; px, py, U and cam
@@ -62,19 +69,23 @@ struct RegenParams {
   int width, height, quota, max_depth, rr_on, rr_start;
 };
 
-// One lane's step after the sweep: ray (ox..dz), alive a, winner w.
+// One lane's step after the sweep: ray (ox..dz), alive a, winner w. MOTION:
+// sph_vel the velocities, tm the lane's shutter time (read before the
+// sweep), time_out the lane's time row, written here.
+template <bool MOTION = false>
 __device__ __forceinline__ void regen_epilogue(
     int i, int n, float ox, float oy, float oz, float dx, float dy, float dz,
     bool a, const Winner& w, const float* __restrict__ sph,
     const int* __restrict__ sph_mat, const float* __restrict__ rect,
     const int* __restrict__ rect_mat, const float* __restrict__ tri_nrm,
     const int* __restrict__ tri_mat, const float* __restrict__ mat,
-    const Lanes& L, const RegenParams& P) {
+    const Lanes& L, const RegenParams& P,
+    const float* __restrict__ sph_vel = nullptr, float tm = 0.f,
+    float* __restrict__ time_out = nullptr) {
   const float* __restrict__ U = L.U;
-  const Scatter v =
-      bounce_values(ox, oy, oz, dx, dy, dz, w, sph, sph_mat, rect, rect_mat,
-                    tri_nrm, tri_mat, mat, U[i], U[n + i], U[2 * n + i],
-                    P.eps);
+  const Scatter v = bounce_values<MOTION>(
+      ox, oy, oz, dx, dy, dz, w, sph, sph_mat, rect, rect_mat, tri_nrm,
+      tri_mat, mat, U[i], U[n + i], U[2 * n + i], P.eps, sph_vel, tm);
   float tr = L.tput[i], tg = L.tput[n + i], tb = L.tput[2 * n + i];
   float sr = L.samp[i], sg = L.samp[n + i], sb = L.samp[2 * n + i];
   float cr = L.acc[i], cg = L.acc[n + i], cb = L.acc[2 * n + i];
@@ -159,6 +170,13 @@ __device__ __forceinline__ void regen_epilogue(
   L.alive[i] = (cont || regen) ? 1 : 0;
   L.depth[i] = regen ? 0 : depth2;
   L.done[i] = done2;
+  if constexpr (MOTION) {
+    const float* __restrict__ c = L.cam;
+    const float t_new = __fadd_rn(
+        c[CAM_T0], __fmul_rn(U[U_TIME * n + i], __fsub_rn(c[CAM_T1],
+                                                          c[CAM_T0])));
+    time_out[i] = regen ? t_new : tm;
+  }
 }
 
 }  // namespace

@@ -3,7 +3,9 @@
 // constant/checker texture, material scatter and spawn offset of one ray,
 // from the winner of a sweep. The winner's index is the scene's own: its
 // records are read once from the scene-order tables. bounce_values returns
-// them; bounce_epilogue writes them out.
+// them; bounce_epilogue writes them out. MOTION (motion blur): a sphere
+// winner's normal is taken at its centre moved to c + v t (sweep.cuh::moved),
+// with v from the velocity table sph_vel and t the ray's shutter time.
 // Compiled without --use_fast_math: the checker texture takes sin() of
 // world coordinates, far outside [-pi, pi], where __sinf is inaccurate.
 
@@ -38,14 +40,17 @@ struct Scatter {
 };
 
 // u0, u1: the unit-sphere pair; u2: the dielectric's reflect choice; eps:
-// the spawn offset.
+// the spawn offset; sph_vel, time: the velocities and the shutter time
+// (MOTION).
+template <bool MOTION = false>
 __device__ __forceinline__ Scatter bounce_values(
     float ox, float oy, float oz, float dx, float dy, float dz,
     const Winner& w, const float* __restrict__ sph,
     const int* __restrict__ sph_mat, const float* __restrict__ rect,
     const int* __restrict__ rect_mat, const float* __restrict__ tri_nrm,
     const int* __restrict__ tri_mat, const float* __restrict__ mat,
-    float u0, float u1, float u2, float eps) {
+    float u0, float u1, float u2, float eps,
+    const float* __restrict__ sph_vel = nullptr, float time = 0.f) {
   const float best_t = w.t, best_b1 = w.b1, best_b2 = w.b2;
   const int best_ty = w.ty, best_ix = w.ix;
   // ---- epilogue: the winner's attributes; a miss acts as an all-zero
@@ -56,7 +61,9 @@ __device__ __forceinline__ Scatter bounce_values(
   float nox = 0.f, noy = 0.f, noz = 0.f;
   int mid = -1;
   if (best_ty == 0) {
-    const float4 s = reinterpret_cast<const float4*>(sph)[best_ix];
+    float4 s = reinterpret_cast<const float4*>(sph)[best_ix];
+    if constexpr (MOTION)
+      s = moved(s, reinterpret_cast<const float4*>(sph_vel)[best_ix], time);
     const float inv_r = 1.0f / sqrtf(fmaxf(s.w, 1e-20f));
     nox = (px - s.x) * inv_r;
     noy = (py - s.y) * inv_r;
@@ -165,7 +172,8 @@ __device__ __forceinline__ Scatter bounce_values(
 
 // bounce_values for ray i, its uniforms read from uni (4, n): rows 0-2
 // u0-u2, row 3 the spawn offset; the values written to the (3, n) rows
-// and inter (n,).
+// and inter (n,). sph_vel, time: as for bounce_values.
+template <bool MOTION = false>
 __device__ __forceinline__ void bounce_epilogue(
     int i, int n, float ox, float oy, float oz, float dx, float dy, float dz,
     const Winner& w, const float* __restrict__ sph,
@@ -176,10 +184,12 @@ __device__ __forceinline__ void bounce_epilogue(
     float* __restrict__ out_no, float* __restrict__ out_nd,
     float* __restrict__ out_att, float* __restrict__ out_emit,
     float* __restrict__ out_p, float* __restrict__ out_n,
-    int* __restrict__ out_inter) {
-  const Scatter v = bounce_values(
+    int* __restrict__ out_inter, const float* __restrict__ sph_vel = nullptr,
+    float time = 0.f) {
+  const Scatter v = bounce_values<MOTION>(
       ox, oy, oz, dx, dy, dz, w, sph, sph_mat, rect, rect_mat, tri_nrm,
-      tri_mat, mat, uni[i], uni[n + i], uni[2 * n + i], uni[3 * n + i]);
+      tri_mat, mat, uni[i], uni[n + i], uni[2 * n + i], uni[3 * n + i],
+      sph_vel, time);
   out_no[i] = v.nox;
   out_no[n + i] = v.noy;
   out_no[2 * n + i] = v.noz;

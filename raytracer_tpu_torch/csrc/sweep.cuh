@@ -32,6 +32,17 @@
 // synchronise the block while staging. A block whose lanes are all dead
 // skips them; a dead lane inside a live block takes no part and keeps the
 // miss winner.
+//
+// Motion blur (MOTION = true, the TPU kernels' has_time): each ray carries
+// a shutter time t, and sphere j is tested at its centre moved to
+// c_j + v_j t (moved(): the product and the sum each rounded on its own, as
+// the plain version computes them), with v_j from a velocity table beside
+// the sphere table ((S, 4): vx, vy, vz, 0). The flat sweep stages the
+// spheres and their velocities together, half a tile each; the walk stages
+// a sub-tile of velocities after the sub-tile of spheres. The cull boxes
+// of an ordered stage were dilated over the shutter when it was packed
+// (ops/ordered.py), so the walk's culls need no time. MOTION = false
+// compiles to the static code: every motion branch is `if constexpr`.
 
 #pragma once
 
@@ -72,6 +83,7 @@ struct Stage {
   const float* scull;   // (k_ch / SUPER, 6) superchunk boxes
   const float* box;     // (6,) the stage box
   int k_ch, chunk;
+  const float* vel;     // (k_ch * chunk, SPH_W) sorted velocities (MOTION)
 };
 
 // Shared memory of the walk (besides the staging tile).
@@ -138,25 +150,39 @@ __device__ __forceinline__ float tri_t(const Ray& r, const float* oxd,
   return ok ? t : BIG;
 }
 
+// The sphere s (centre, r^2) with its centre moved to c + v t.
+__device__ __forceinline__ float4 moved(float4 s, float4 v, float t) {
+  return make_float4(__fadd_rn(s.x, __fmul_rn(v.x, t)),
+                     __fadd_rn(s.y, __fmul_rn(v.y, t)),
+                     __fadd_rn(s.z, __fmul_rn(v.z, t)), s.w);
+}
+
 // ---- the flat stages
 
-template <int BLOCK>
-__device__ __forceinline__ void sweep_spheres(float* tile, bool live,
-                                              const Ray& r,
-                                              const float* __restrict__ sph,
-                                              int n_sph, Winner& w) {
+template <int BLOCK, bool MOTION = false>
+__device__ __forceinline__ void sweep_spheres(
+    float* tile, bool live, const Ray& r, const float* __restrict__ sph,
+    int n_sph, Winner& w, const float* __restrict__ vel = nullptr,
+    float time = 0.f) {
   const float a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
   const float inv_a = 1.0f / a;
-  const int sph_tile = TILE_FLOATS / SPH_W;
+  // with MOTION the velocities take the tile's second half
+  constexpr int sph_tile = TILE_FLOATS / (MOTION ? 2 * SPH_W : SPH_W);
   for (int base = 0; base < n_sph; base += sph_tile) {
     const int cnt = min(sph_tile, n_sph - base);
     __syncthreads();
     stage<BLOCK>(tile, sph, base, cnt, SPH_W);
+    if constexpr (MOTION)
+      stage<BLOCK>(tile + TILE_FLOATS / 2, vel, base, cnt, SPH_W);
     __syncthreads();
     if (!live) continue;
     const float4* s4 = reinterpret_cast<const float4*>(tile);
+    [[maybe_unused]] const float4* v4 =
+        reinterpret_cast<const float4*>(tile + TILE_FLOATS / 2);
     for (int j = 0; j < cnt; ++j) {
-      const float t = sphere_t(r, a, inv_a, s4[j]);
+      float4 s = s4[j];
+      if constexpr (MOTION) s = moved(s, v4[j], time);
+      const float t = sphere_t(r, a, inv_a, s);
       if (t < w.t) {
         w.t = t;
         w.ty = PRIM_SPHERE;
@@ -224,16 +250,18 @@ __device__ __forceinline__ Ray clamped(const Ray& ray) {
   return r;
 }
 
-template <int BLOCK>
+// vel, time: the sphere velocities and the ray's shutter time (MOTION).
+template <int BLOCK, bool MOTION = false>
 __device__ __forceinline__ Winner sweep(
     float* tile, bool live, const Ray& ray,
     const float* __restrict__ sph, int n_sph,
     const float* __restrict__ rect, int n_rect,
-    const float* __restrict__ tri, int n_tri) {
+    const float* __restrict__ tri, int n_tri,
+    const float* __restrict__ vel = nullptr, float time = 0.f) {
   const Ray r = clamped(ray);
   Winner w{r.tmax, -1, 0, 0.f, 0.f};
   if (!__syncthreads_or(live)) return w;
-  sweep_spheres<BLOCK>(tile, live, r, sph, n_sph, w);
+  sweep_spheres<BLOCK, MOTION>(tile, live, r, sph, n_sph, w, vel, time);
   sweep_rects<BLOCK>(tile, live, r, rect, n_rect, w);
   sweep_tris<BLOCK>(tile, live, r, tri, n_tri, w);
   return w;
@@ -338,10 +366,13 @@ __device__ __forceinline__ void block_box(const Ray& r, bool live, float* red,
 }
 
 // ---- the walk of one ordered stage (KIND: PRIM_SPHERE or PRIM_TRIANGLE).
-// Returns the chunk bodies the block ran.
-template <int BLOCK, int KIND>
+// Returns the chunk bodies the block ran. MOTION: spheres at the ray's
+// shutter time, their velocities from st.vel.
+template <int BLOCK, int KIND, bool MOTION = false>
 __device__ int walk(float* tile, WalkShared& sh, bool live, const Ray& r,
-                    const CullRay& cu, const Stage& st, Winner& w) {
+                    const CullRay& cu, const Stage& st, Winner& w,
+                    float time = 0.f) {
+  constexpr bool MOVES = MOTION && KIND == PRIM_SPHERE;
   constexpr int W = KIND == PRIM_SPHERE ? SPH_W : TRI_W;
   const int tid = threadIdx.x;
   const int k_sup = st.k_ch / SUPER;
@@ -402,13 +433,21 @@ __device__ int walk(float* tile, WalkShared& sh, bool live, const Ray& r,
         const int cnt = min(WALK_SUB, st.chunk - sub);
         __syncthreads();
         stage<BLOCK>(tile, src, sub, cnt, W);
+        if constexpr (MOVES)
+          stage<BLOCK>(tile + WALK_SUB * SPH_W,
+                       st.vel + (size_t)c * st.chunk * SPH_W, sub, cnt,
+                       SPH_W);
         for (int k = tid; k < cnt; k += BLOCK) sh.itile[k] = osrc[sub + k];
         __syncthreads();
         if (!live) continue;
         for (int j = 0; j < cnt; ++j) {
           float b1 = 0.f, b2 = 0.f, t;
           if (KIND == PRIM_SPHERE) {
-            t = sphere_t(r, a, inv_a, reinterpret_cast<const float4*>(tile)[j]);
+            float4 s = reinterpret_cast<const float4*>(tile)[j];
+            if constexpr (MOVES)
+              s = moved(s, reinterpret_cast<const float4*>(
+                               tile + WALK_SUB * SPH_W)[j], time);
+            t = sphere_t(r, a, inv_a, s);
           } else {
             t = tri_t(r, oxd, tile + j * TRI_W, b1, b2);
           }
@@ -429,23 +468,26 @@ __device__ int walk(float* tile, WalkShared& sh, bool live, const Ray& r,
 
 // The closest hit with the ordered stages walked and the others swept
 // flat. stats (optional): per block, the chunk bodies of the sphere walk
-// and of the triangle walk.
-template <int BLOCK>
+// and of the triangle walk. vel, time: as for sweep() (MOTION; a sphere
+// stage that walks reads osph.vel instead of vel).
+template <int BLOCK, bool MOTION = false>
 __device__ __forceinline__ Winner sweep_ordered(
     float* tile, WalkShared& sh, bool live, const Ray& ray,
     const float* __restrict__ sph, int n_sph, const Stage& osph,
     const float* __restrict__ rect, int n_rect,
     const float* __restrict__ tri, int n_tri, const Stage& otri,
-    int* __restrict__ stats) {
+    int* __restrict__ stats, const float* __restrict__ vel = nullptr,
+    float time = 0.f) {
   const Ray r = clamped(ray);
   Winner w{r.tmax, -1, 0, 0.f, 0.f};
   int nb_sph = 0, nb_tri = 0;
   if (__syncthreads_or(live)) {
     const CullRay cu = cull_ray(r);
     if (osph.prim != nullptr)
-      nb_sph = walk<BLOCK, PRIM_SPHERE>(tile, sh, live, r, cu, osph, w);
+      nb_sph = walk<BLOCK, PRIM_SPHERE, MOTION>(tile, sh, live, r, cu, osph,
+                                                 w, time);
     else
-      sweep_spheres<BLOCK>(tile, live, r, sph, n_sph, w);
+      sweep_spheres<BLOCK, MOTION>(tile, live, r, sph, n_sph, w, vel, time);
     sweep_rects<BLOCK>(tile, live, r, rect, n_rect, w);
     if (otri.prim != nullptr)
       nb_tri = walk<BLOCK, PRIM_TRIANGLE>(tile, sh, live, r, cu, otri, w);

@@ -2,7 +2,8 @@
 ``render`` (host batches) and ``trace_radiance`` (one wavefront to
 completion), the PyTorch counterparts of
 ``raytracer_tpu/models/path_tracer.py`` on its kernel routes, with NEE
-(``nee``) and mixture importance sampling (``mis``).
+(``nee``) and mixture importance sampling (``mis``), and motion blur on
+scenes whose spheres move (one shutter time per sample).
 
 Every random draw comes from one ``torch.Generator`` seeded from an int.
 The JAX package draws from threefry keys, so the two packages agree in
@@ -19,7 +20,9 @@ from raytracer_tpu_torch.models.wavefront_soa import (
     render_regen_soa, trace_radiance_soa,
 )
 from raytracer_tpu_torch.ops.dispatch import NO_LEAF, resolve
-from raytracer_tpu_torch.ops.fused_bounce import pack_tables, unported
+from raytracer_tpu_torch.ops.fused_bounce import (
+    moving, pack_tables, unported,
+)
 from raytracer_tpu_torch.scene.types import Scene
 from raytracer_tpu_torch.utils.config import RenderConfig
 
@@ -32,13 +35,14 @@ class TraceResult(NamedTuple):
 def _resolve(scene: Scene, intersector: str, nee: bool, mis: bool) -> str:
     """The route of a render: the kernel route ("pallas") for "auto" and
     "pallas", "leaf" for the leaf kernel (``ValueError`` when the scene has
-    no leaf tables); other intersectors and the scenes the port cannot
+    no leaf tables; a moving scene takes the kernel route, as in JAX);
+    other intersectors and the scenes the port cannot
     render yet raise ``NotImplementedError`` naming the ROADMAP item that
     ports them. ``nee`` and ``mis`` together raise ``ValueError``, as in
     the JAX package."""
     if mis and nee:
         raise ValueError("--mis and --nee are mutually exclusive")
-    method = resolve(intersector)
+    method = resolve(intersector, moving(scene))
     if method == "leaf" and scene.leaf is None:
         raise ValueError(NO_LEAF)
     missing = unported(scene)
@@ -51,11 +55,13 @@ def trace_radiance(scene: Scene, o, d, generator: torch.Generator, *,
                    max_depth: int, t_min: float, spawn_eps,
                    intersector: str = "auto",
                    russian_roulette: bool = True, nee: bool = False,
-                   mis: bool = False, tables=None) -> TraceResult:
+                   mis: bool = False, tables=None,
+                   time=None) -> TraceResult:
     """Trace rays ``o``/``d`` (N, 3) to completion (at most ``max_depth``
     bounces) on their device; returns per-ray radiance (N, 3) and the rays
     traced. The kernel route only (the JAX package's SoA route,
-    ``trace_radiance_soa``)."""
+    ``trace_radiance_soa``). ``time`` (N,): each ray's shutter time
+    (motion blur; without it a moving scene stands at t = 0)."""
     method = _resolve(scene, intersector, nee, mis)
     scene = scene.to(o.device)
     if tables is None:
@@ -64,7 +70,7 @@ def trace_radiance(scene: Scene, o, d, generator: torch.Generator, *,
         scene, tables, o.T.contiguous(), d.T.contiguous(), generator,
         max_depth=max_depth, t_min=t_min, spawn_eps=spawn_eps,
         intersector=method, russian_roulette=russian_roulette, nee=nee,
-        mis=mis)
+        mis=mis, time=time)
     return TraceResult(rad.T, rays)
 
 

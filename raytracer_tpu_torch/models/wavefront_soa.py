@@ -8,8 +8,15 @@ The PyTorch counterpart of ``raytracer_tpu/models/wavefront_soa.py``:
 ``render_regen_soa`` with NEE and MIS (and, where neither is on, its
 one-kernel step, ``ops/regen.py``), and for SPPM ``gather_regen_soa``,
 ``measurement_soa``, ``emit_photons_soa`` and
-``trace_photon_deposits_regen_soa``. Media, image and noise textures and
-motion blur are not ported yet (ROADMAP A7, A8, A9).
+``trace_photon_deposits_regen_soa``. Media and image and noise textures are
+not ported yet (ROADMAP A7, A8).
+
+Motion blur (JAX ``wavefront_soa.py``'s ``motion`` carry): on a scene whose
+spheres move, each sample owns one shutter time in [time0, time1], drawn
+with the sample (the first draw's fifth row, then U row 8 at every
+respawn), carried per lane (``_Lanes.time``) through the drain cascade, and
+handed to the bounce, the NEE shadow rays and the MIS light sampling. A
+static scene carries no time and draws exactly the rows it drew before.
 
 Lane state is kept as (3, N) rows (origin, direction, throughput, sample
 radiance, accumulated radiance) and (N,) vectors (alive, depth, done), so
@@ -52,7 +59,7 @@ FRAC_1_PI = 0.3183098861837907
 # package. Rows 0-1 are the unit-sphere pair shared by the diffuse bounce
 # and the metal fuzz, row 2 the dielectric reflect choice, row 3 Russian
 # roulette, rows 4-7 the camera respawn (jitter x, jitter y, lens r, lens
-# phi).
+# phi); a moving scene draws row 8, the respawn's shutter time.
 U_SPH1, U_SPH2, U_DIEL, U_RR = 0, 1, 2, 3
 U_TRACE_ROWS = 4                    # the photon pass stops here
 U_JX, U_JY, U_LR, U_LPHI = 4, 5, 6, 7
@@ -132,13 +139,14 @@ class FeatSoA(NamedTuple):
     image_id: torch.Tensor  # (N,) int32
 
 
-def attrs_soa(tables: BounceTables, o, d, hit) -> tuple:
+def attrs_soa(tables: BounceTables, o, d, hit, time=None) -> tuple:
     """Hit attributes and material features of the closest-hit winner
     ``hit`` (``closest_hit.Closest``: t, type, index, b1, b2), read from the
     packed tables (JAX ``attrs_soa`` reads them from the kernel's 28 winner
-    slots). ``o``/``d`` (3, N). A miss gives zero normal and features, as
-    the TPU kernel's all-zero winner record does. Returns (HitSoA,
-    FeatSoA)."""
+    slots). ``o``/``d`` (3, N); ``time`` (N,): the rays' shutter times, at
+    which a moving sphere winner's centre is taken (JAX ``_run``'s centre
+    fold). A miss gives zero normal and features, as the TPU kernel's
+    all-zero winner record does. Returns (HitSoA, FeatSoA)."""
     valid = torch.isfinite(hit.t)
     p = o + torch.where(valid, hit.t, 0.0) * d
     ix = hit.ix.long()
@@ -147,8 +155,11 @@ def attrs_soa(tables: BounceTables, o, d, hit) -> tuple:
     is_t = hit.ty == PRIM_TRIANGLE
 
     sph = _take(tables.sph, ix, is_s)
+    c = sph[:, :3].T
+    if tables.moves(time):
+        c = c + _take(tables.sph_vel, ix, is_s)[:, :3].T * time
     inv_r = 1.0 / torch.sqrt(torch.clamp(sph[:, 3], min=1e-20))
-    sn = (p - sph[:, :3].T) * inv_r
+    sn = (p - c) * inv_r
     # rect: axis, k, a0, a1, b0, b1; (a, b) are the two in-plane axes
     rect = _take(tables.rect, ix, is_r)
     axis = rect[:, 0]
@@ -269,7 +280,7 @@ def use_fused(scene: Scene, intersector: str) -> bool:
 
 def bounce_step(tables: BounceTables, uni, o, d, alive, *, t_min: float,
                 spawn_eps, fused: bool = True, scene: Scene = None,
-                intersector: str = "pallas") -> Bounce:
+                intersector: str = "pallas", time=None) -> Bounce:
     """Advance one bounce: intersect + attributes + texture + scatter.
     ``uni`` holds at least the three scatter rows; ``spawn_eps`` is a 0-d
     tensor (or float). The fused path is one kernel launch
@@ -278,17 +289,19 @@ def bounce_step(tables: BounceTables, uni, o, d, alive, *, t_min: float,
     route (``dispatch.intersect_scene``: the closest-hit kernel, or the
     leaf kernel for "leaf") followed by ``attrs_soa`` and ``scatter_soa``
     in plain PyTorch. Both consume the same uniform rows and give dead
-    lanes the miss outputs, so they agree lane for lane."""
+    lanes the miss outputs, so they agree lane for lane. ``time`` (N,):
+    the lanes' shutter times (motion blur)."""
     n = o.shape[1]
     if fused:
         eps = torch.as_tensor(spawn_eps, dtype=torch.float32,
                               device=o.device)
         uni_t = torch.cat([uni[U_SPH1:U_DIEL + 1], eps.expand(1, n)], 0)
-        return Bounce(*bounce_tables(tables, o, d, t_min, alive, uni_t))
+        return Bounce(*bounce_tables(tables, o, d, t_min, alive, uni_t,
+                                     time=time))
     hit = dispatch.intersect_scene(scene, o, d, t_min, float("inf"),
                                    method=intersector, alive=alive,
-                                   tables=tables)
-    h, f = attrs_soa(tables, o, d, hit)
+                                   tables=tables, time=time)
+    h, f = attrs_soa(tables, o, d, hit, time)
     sc = scatter_soa(scene, uni, d, h, f)
     side = torch.sign((sc.nd * h.n).sum(0)) * spawn_eps
     return Bounce(sc.inter, h.p + h.n * side, sc.nd, sc.att, sc.emit, h.p,
@@ -296,13 +309,14 @@ def bounce_step(tables: BounceTables, uni, o, d, alive, *, t_min: float,
 
 
 def _mis_bounce(lights: Lights, rows, b: Bounce, diffuse_now,
-                spawn_eps) -> Bounce:
+                spawn_eps, time=None) -> Bounce:
     """``--mis``: resample the diffuse lanes' directions through the 50/50
     cosine/light mixture (``mis.mixture_reweight`` on ``mis.MIS_ROWS``
-    uniform rows), reweight their attenuation by pdf_cos/pdf_mix and offset
-    the spawn origin against the new direction."""
+    uniform rows, moving lights at the lanes' ``time``), reweight their
+    attenuation by pdf_cos/pdf_mix and offset the spawn origin against the
+    new direction."""
     d_new, w = mis_ops.mixture_reweight(lights, rows, b.p, b.n, b.nd,
-                                        diffuse_now)
+                                        diffuse_now, time)
     side = torch.sign((d_new * b.n).sum(0)) * spawn_eps
     return b._replace(att=torch.where(diffuse_now, b.att * w, b.att),
                       no=torch.where(diffuse_now, b.p + b.n * side, b.no),
@@ -315,23 +329,24 @@ def _extra_rows(nee: bool, mis: bool) -> int:
 
 def _shade(scene, tables, U, base: int, b: Bounce, alive, tput, samp,
            prev_diff, *, nee: bool, mis: bool, spawn_eps,
-           intersector: str = "pallas"):
+           intersector: str = "pallas", time=None):
     """The part of a step that NEE and MIS touch, in the JAX loop's order:
     emission (skipped after a diffuse vertex under NEE), then the MIS
     resample, then the NEE shadow ray. ``U[base:]`` holds the NEE or MIS
-    rows; the shadow rays take ``intersector``'s route. Returns (bounce,
-    sample radiance, diffuse lanes, shadow-ray lanes or None)."""
+    rows; the shadow rays take ``intersector``'s route and the lanes'
+    shutter ``time``. Returns (bounce, sample radiance, diffuse lanes,
+    shadow-ray lanes or None)."""
     emit_ok = alive & ~prev_diff
     samp = samp + torch.where(emit_ok, tput * b.emit, 0.0)
     diffuse_now = alive & (b.inter == INTER_DIFFUSE)
     shadow = None
     if mis:
         b = _mis_bounce(scene.lights, U[base:base + mis_ops.MIS_ROWS], b,
-                        diffuse_now, spawn_eps)
+                        diffuse_now, spawn_eps, time)
     if nee:
         dl, shadow = nee_ops.direct_light(
             scene, tables, U[base:base + nee_ops.NEE_ROWS], b.p, b.n, b.att,
-            diffuse_now, alive=alive, intersector=intersector)
+            diffuse_now, alive=alive, intersector=intersector, time=time)
         samp = samp + torch.where(diffuse_now, tput * dl, 0.0)
     return b, samp, diffuse_now, shadow
 
@@ -340,12 +355,13 @@ def trace_radiance_soa(scene: Scene, tables: BounceTables, o, d,
                        gen: torch.Generator, *, max_depth: int,
                        t_min: float, spawn_eps, intersector: str = "pallas",
                        russian_roulette: bool = True, nee: bool = False,
-                       mis: bool = False):
+                       mis: bool = False, time=None):
     """Trace a wavefront of rays ``o``/``d`` (3, N) to completion, at most
     ``max_depth`` bounces, with no regeneration (the loop of the JAX NEE and
-    MIS oracles). One host sync per step for the loop condition. Returns
-    ((3, N) radiance, rays traced as an int: alive lanes summed over
-    steps)."""
+    MIS oracles). ``time`` (N,): each ray's shutter time, kept through its
+    bounces (motion blur). One host sync per step for the loop condition.
+    Returns ((3, N) radiance, rays traced as an int: alive lanes summed
+    over steps)."""
     n = o.shape[1]
     dev = o.device
     fused = use_fused(scene, intersector)
@@ -364,10 +380,11 @@ def trace_radiance_soa(scene: Scene, tables: BounceTables, o, d,
                        generator=gen, device=dev)
         b = bounce_step(tables, U, o, d, alive, t_min=t_min,
                         spawn_eps=spawn_eps, fused=fused, scene=scene,
-                        intersector=intersector)
+                        intersector=intersector, time=time)
         b, rad, diffuse_now, _ = _shade(
             scene, tables, U, U_TRACE_ROWS, b, alive, tput, rad, prev_diff,
-            nee=nee, mis=mis, spawn_eps=spawn_eps, intersector=intersector)
+            nee=nee, mis=mis, spawn_eps=spawn_eps, intersector=intersector,
+            time=time)
         cont = alive & (b.inter != INTER_ABSORB)
         tput = torch.where(cont, tput * b.att, tput)
         if russian_roulette and step >= RR_START_BOUNCE:
@@ -402,6 +419,8 @@ class _Lanes(NamedTuple):
     prev_diff: torch.Tensor
     # (3, n) the pixel's SPPM density estimate (final gather only)
     est: Optional[torch.Tensor] = None
+    # (n,) f32 the shutter time of the sample in flight (motion blur only)
+    time: Optional[torch.Tensor] = None
 
 
 def _step(s: _Lanes, tables, scene, gen, *, width, height, quota, max_depth,
@@ -412,16 +431,17 @@ def _step(s: _Lanes, tables, scene, gen, *, width, height, quota, max_depth,
     the first diffuse hit adds the pixel's density estimate and ends the
     sample. Returns (lanes, shadow-ray lanes of the step or None)."""
     nl = s.o.shape[1]
-    U = torch.rand((U_REGEN_ROWS + _extra_rows(nee, mis), nl), generator=gen,
+    base = U_REGEN_ROWS + (s.time is not None)     # the time row, if moving
+    U = torch.rand((base + _extra_rows(nee, mis), nl), generator=gen,
                    device=s.o.device)
     b = bounce_step(tables, U, s.o, s.d, s.alive, t_min=t_min,
                     spawn_eps=spawn_eps, fused=fused, scene=scene,
-                    intersector=intersector)
+                    intersector=intersector, time=s.time)
     alive = s.alive
     b, samp, diffuse_now, shadow = _shade(
-        scene, tables, U, U_REGEN_ROWS, b, alive, s.tput, s.samp,
+        scene, tables, U, base, b, alive, s.tput, s.samp,
         s.prev_diff, nee=nee, mis=mis, spawn_eps=spawn_eps,
-        intersector=intersector)
+        intersector=intersector, time=s.time)
     stop = None
     if s.est is not None:
         samp = samp + torch.where(diffuse_now, s.tput * s.est, 0.0)
@@ -459,7 +479,8 @@ def render_regen_soa(scene, tables: BounceTables, gen: torch.Generator, *,
     or ``est`` (where JAX's ``RAYTRACER_TPU_REGEN_FUSED`` route runs) each
     step is one ``regen_ops.regen_step_tables`` launch on the loop's
     uniform draw, with the loop's own step's result; elsewhere it is
-    ``_step``.
+    ``_step``. Moving tables (``tables.sph_vel``) give every sample a
+    shutter time (module docstring).
 
     Returns ((npix, 3) radiance sum over all samples in pixel order, rays
     traced (alive lanes summed over steps, an int), loop steps)."""
@@ -473,16 +494,18 @@ def render_regen_soa(scene, tables: BounceTables, gen: torch.Generator, *,
     pix = slots[slot_id]
     px = (pix % width).to(torch.float32)
     py = (pix // width).to(torch.float32)
-    o0, d0 = camera_rays_soa(
-        cam, px, py, width, height,
-        torch.rand((4, n), generator=gen, device=dev))
+    motion = tables.sph_vel is not None
+    first = torch.rand((4 + motion, n), generator=gen, device=dev)
+    o0, d0 = camera_rays_soa(cam, px, py, width, height, first[:4])
+    times = (cam.time0 + first[4] * (cam.time1 - cam.time0) if motion
+             else None)
     ones = torch.ones((3, n), device=dev)
     zeros = torch.zeros((3, n), device=dev)
     izero = torch.zeros((n,), dtype=torch.int32, device=dev)
     lane_est = None if est is None else est[slots][slot_id].T.contiguous()
     alive0 = torch.ones((n,), dtype=torch.bool, device=dev)
     s = _Lanes(o0, d0, ones, zeros, zeros.clone(), alive0, izero,
-               izero.clone(), px, py, slot_id, ~alive0, lane_est)
+               izero.clone(), px, py, slot_id, ~alive0, lane_est, times)
     kw = dict(width=width, height=height, quota=samples_per_lane,
               max_depth=max_depth, t_min=t_min, spawn_eps=spawn_eps,
               russian_roulette=russian_roulette,
@@ -509,8 +532,8 @@ def render_regen_soa(scene, tables: BounceTables, gen: torch.Generator, *,
                 break
             rays += n_alive
             if one_kernel:
-                U = torch.rand((U_REGEN_ROWS, s.o.shape[1]), generator=gen,
-                               device=dev)
+                U = torch.rand((U_REGEN_ROWS + motion, s.o.shape[1]),
+                               generator=gen, device=dev)
                 s = regen_ops.regen_step_tables(tables, cam_pack, U, eps, s,
                                                 **rkw)
             else:

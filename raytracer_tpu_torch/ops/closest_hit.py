@@ -14,6 +14,11 @@ Tables with an ordered stage (``ops/ordered.py``) take the ordered kernel
 ``closest_ordered_plain``: the near-to-far superchunk walk, with the tie
 rule (t, then type, then scene index) that gives the flat kernel's winner.
 
+Motion blur: with a per-ray shutter ``time`` on moving tables, both
+kernels run their motion form (``rt_closest_motion``,
+``rt_closest_ordered_motion``: the TPU kernels with ``has_time=True``), as
+``fused_bounce`` describes; the NEE shadow rays carry their lane's time.
+
 The tables are ``fused_bounce.pack_tables``'s. The TPU kernel's 28 winner
 slots are not carried over (they exist because TPU gathers are slow): the
 caller rebuilds the winner's attributes from the tables with (type, index,
@@ -29,15 +34,18 @@ import torch
 
 from raytracer_tpu_torch.kernels.build import bind, check_launch
 from raytracer_tpu_torch.ops.fused_bounce import (
-    STAGE_ARGTYPES, BounceTables, _check, _closest_plain, stage_args,
-    stats_arg,
+    STAGE_ARGTYPES, BounceTables, _check, _closest_plain, motion_args,
+    stage_args, stats_arg,
 )
 
 # Kernel launches made by ``closest_tables`` on CUDA tensors, of the flat
-# kernel and of the ordered one. Plain integers: a run reads them before
-# and after to show it went through the kernels.
+# kernel and of the ordered one, static and with motion blur. Plain
+# integers: a run reads them before and after to show it went through the
+# kernels.
 LAUNCHES = 0
 ORDERED_LAUNCHES = 0
+MOTION_LAUNCHES = 0
+ORDERED_MOTION_LAUNCHES = 0
 
 
 class Closest(NamedTuple):
@@ -69,22 +77,23 @@ def _closest(t, ty, ix, b1, b2) -> Closest:
                    torch.where(hit, ix, -1).to(torch.int32), b1, b2)
 
 
-def closest_hit_plain(tab: BounceTables, o, d, t_min, t_max,
-                      alive) -> Closest:
+def closest_hit_plain(tab: BounceTables, o, d, t_min, t_max, alive,
+                      time=None) -> Closest:
     """The closest hit in plain PyTorch (any device), over the flat
     tables: ``fused_bounce._closest_plain`` with the miss mapped to t =
     +inf, ix = -1. Same interface and outputs as ``closest_tables``."""
-    return _closest(*_closest_plain(tab, o, d, t_min, alive, t_max=t_max))
+    return _closest(*_closest_plain(tab, o, d, t_min, alive, t_max=t_max,
+                                    time=time))
 
 
 def closest_ordered_plain(tab: BounceTables, o, d, t_min, t_max, alive,
-                          stats=None) -> Closest:
+                          stats=None, time=None) -> Closest:
     """The ordered closest hit in plain PyTorch (any device): each stage
     with an ordered table runs ``ordered.walk_plain`` (blocks of the
     kernel's block size, its culls and stop rule), the others the flat
-    scan. ``stats``: as for ``closest_tables``."""
+    scan. ``stats``, ``time``: as for ``closest_tables``."""
     return _closest(*_closest_plain(tab, o, d, t_min, alive, t_max=t_max,
-                                    ordered=True, stats=stats))
+                                    ordered=True, stats=stats, time=time))
 
 
 # -------------------------------------------------------------- kernel
@@ -97,8 +106,9 @@ _OUTS = [_P, _P, _P, _P, _P]                         # t ty ix b1 b2
 
 
 def _closest_cuda(tab: BounceTables, o, d, t_min, t_max, alive,
-                  stats=None) -> Closest:
-    global LAUNCHES, ORDERED_LAUNCHES
+                  stats=None, time=None) -> Closest:
+    global LAUNCHES, ORDERED_LAUNCHES, MOTION_LAUNCHES
+    global ORDERED_MOTION_LAUNCHES
     dev = o.device
     n = o.shape[1]
     f32 = torch.float32
@@ -122,9 +132,28 @@ def _closest_cuda(tab: BounceTables, o, d, t_min, t_max, alive,
             tab.rect.data_ptr(), tab.rect.shape[0],
             tab.tri.data_ptr(), tab.tri.shape[0]]
     outs = [x.data_ptr() for x in (t, ty, ix, b1, b2)]
+    motion = tab.moves(time)
+    who = "closest hit"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if tab.ordered:
+        if tab.ordered and motion:
+            lib = bind("closest_ordered", "rt_closest_ordered_motion",
+                       _ARGTYPES + STAGE_ARGTYPES * 2 + _OUTS + [_P] * 5)
+            rc = lib.rt_closest_ordered_motion(
+                *args, *stage_args(tab.osph, dev), *stage_args(tab.otri, dev),
+                *outs, stats_arg(stats, n, dev),
+                *motion_args(tab, time, n, dev, who, True), stream)
+            check_launch(lib, rc, "ordered closest-hit kernel (motion)")
+            ORDERED_MOTION_LAUNCHES += 1
+        elif motion:
+            lib = bind("closest", "rt_closest_motion",
+                       _ARGTYPES + _OUTS + [_P] * 3)
+            rc = lib.rt_closest_motion(
+                *args, *outs, *motion_args(tab, time, n, dev, who, False),
+                stream)
+            check_launch(lib, rc, "closest-hit kernel (motion)")
+            MOTION_LAUNCHES += 1
+        elif tab.ordered:
             lib = bind("closest_ordered", "rt_closest_ordered",
                        _ARGTYPES + STAGE_ARGTYPES * 2 + _OUTS + [_P, _P])
             rc = lib.rt_closest_ordered(
@@ -141,7 +170,7 @@ def _closest_cuda(tab: BounceTables, o, d, t_min, t_max, alive,
 
 
 def closest_tables(tab: BounceTables, o, d, t_min, t_max, alive,
-                   stats=None) -> Closest:
+                   stats=None, time=None) -> Closest:
     """The closest hit of each ray over packed tables. ``o``/``d`` (3, N)
     f32; ``t_min`` a float or (N,) tensor; ``t_max`` a float or (N,) f32
     tensor (+inf allowed); ``alive`` (N,) bool. A hit needs t_min <= t and
@@ -152,14 +181,15 @@ def closest_tables(tab: BounceTables, o, d, t_min, t_max, alive,
     whole ray tile is dead; callers mask them either way.) Tables with an
     ordered stage take the ordered kernel; ``stats`` (G, 2) int32 zeros,
     G = ceil(N / 128), then receives its chunk bodies per block (spheres,
-    triangles).
+    triangles). ``time`` (N,) f32: the rays' shutter times; on moving
+    tables they take the kernels' motion form.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if o.device.type == "cpu":
         if tab.ordered:
             return closest_ordered_plain(tab, o, d, t_min, t_max, alive,
-                                         stats)
-        return closest_hit_plain(tab, o, d, t_min, t_max, alive)
+                                         stats, time)
+        return closest_hit_plain(tab, o, d, t_min, t_max, alive, time)
     if o.device.type != "cuda":
         raise NotImplementedError(f"closest hit: no kernel for {o.device}")
-    return _closest_cuda(tab, o, d, t_min, t_max, alive, stats)
+    return _closest_cuda(tab, o, d, t_min, t_max, alive, stats, time)

@@ -29,6 +29,16 @@ walk, and ``bounce_tables`` then launches the ordered kernel
 (``csrc/bounce_ordered.cu``, the port of ``_bounce_kernel_ordered``), whose
 plain twin is ``bounce_ordered_plain``. Its tie rule (t, then type, then
 scene index) gives the flat sweep's winner on every lane.
+
+Motion blur (the TPU kernels' ``has_time=True``): a scene whose spheres
+move packs ``sph_vel`` (S, 4): vx, vy, vz, 0 beside ``sph`` (its ordered
+stage the sorted velocities and shutter-dilated boxes). Given a per-ray
+shutter ``time`` (N,), every sphere is tested at ``c + v * t`` (the product
+and then the sum, each rounded on its own, in the kernels too) and the
+winner's attributes come from that moved centre; the wrappers then launch
+the kernels' motion entry points. Without a time, or on static tables, the
+static code runs: a moving scene is then intersected at its t = 0 centres,
+the answer of JAX's brute-force route without a time.
 """
 
 from __future__ import annotations
@@ -57,10 +67,13 @@ PLAIN_PAIRS = 1 << 24
 PLAIN_PAIRS_CPU = 1 << 19
 
 # Kernel launches made by ``bounce_tables`` on CUDA tensors, of the flat
-# kernel and of the ordered one. Plain integers: a run reads them before
-# and after to show it went through the kernels.
+# kernel and of the ordered one, static and with motion blur. Plain
+# integers: a run reads them before and after to show it went through the
+# kernels.
 LAUNCHES = 0
 ORDERED_LAUNCHES = 0
+MOTION_LAUNCHES = 0
+ORDERED_MOTION_LAUNCHES = 0
 
 
 class BounceTables(NamedTuple):
@@ -68,7 +81,9 @@ class BounceTables(NamedTuple):
     docstring). Built once per scene on the scene's device. ``osph`` and
     ``otri``: the sorted copies of a sphere or triangle table that takes
     the near-to-far walk, else None; ``leaf``: the leaf kernel's tables
-    (``ops/leaf.py::LeafPack``) when the scene carries leaf tables."""
+    (``ops/leaf.py::LeafPack``) when the scene carries leaf tables;
+    ``sph_vel``: (S, 4) f32 sphere velocities (vx, vy, vz, 0) when the
+    spheres move, else None."""
     sph: torch.Tensor
     sph_mat: torch.Tensor
     rect: torch.Tensor
@@ -80,11 +95,17 @@ class BounceTables(NamedTuple):
     osph: Optional[OrderedStage] = None
     otri: Optional[OrderedStage] = None
     leaf: Optional[tuple] = None
+    sph_vel: Optional[torch.Tensor] = None
 
     @property
     def ordered(self) -> bool:
         """Does a stage of these tables take the walk?"""
         return self.osph is not None or self.otri is not None
+
+    def moves(self, time) -> bool:
+        """Does a call with shutter ``time`` (or None) take the motion
+        form? Only moving tables with a time do."""
+        return time is not None and self.sph_vel is not None
 
 
 # the scene-order tables every kernel reads
@@ -104,9 +125,15 @@ def unported(scene: Scene) -> list:
                    "(ROADMAP A8)")
     if scene.media is not None and scene.media.kind.shape[0]:
         out.append("media are not ported yet (ROADMAP A7)")
-    if scene.spheres.motion_marker.shape[0]:
-        out.append("motion blur is not ported yet (ROADMAP A9)")
     return out
+
+
+def moving(scene: Scene) -> bool:
+    """Do the scene's spheres move (one velocity per sphere and the
+    motion marker set, the JAX ``_pack_spheres(with_motion=True)`` rule)?"""
+    s = scene.spheres
+    return bool(s.motion_marker.shape[0] and s.radius.shape[0]
+                and s.velocity.shape[0] == s.radius.shape[0])
 
 
 def pack_tables(scene: Scene, order: bool = True) -> BounceTables:
@@ -114,7 +141,9 @@ def pack_tables(scene: Scene, order: bool = True) -> BounceTables:
     device. A sphere or triangle table that qualifies for the near-to-far
     walk (``ordered.wants_order``) also gets its sorted copy, unless
     ``order`` is False, which forces the flat route; a scene with leaf
-    tables gets the leaf kernel's."""
+    tables gets the leaf kernel's; a scene whose spheres move gets
+    ``sph_vel`` (its ordered stage the sorted velocities and boxes
+    dilated over the camera's shutter)."""
     f32 = torch.float32
     s, r, tr = scene.spheres, scene.rects, scene.triangles
     sph = torch.cat([s.center, (s.radius * s.radius)[:, None]], 1).to(f32)
@@ -141,17 +170,23 @@ def pack_tables(scene: Scene, order: bool = True) -> BounceTables:
 
     i32 = torch.int32
     sph, tri = c(sph), c(tri)
-    osph = otri = leaf = None
+    osph = otri = leaf = sph_vel = None
+    if moving(scene):
+        sph_vel = c(torch.cat([s.velocity, torch.zeros_like(s.radius)[:, None]],
+                              1).to(f32))
     if order:
         cam = scene.camera.origin
-        osph = ordered_ops.sphere_stage(sph, s.center, s.radius, cam)
+        osph = ordered_ops.sphere_stage(
+            sph, s.center, s.radius, cam, sph_vel,
+            (scene.camera.time0, scene.camera.time1))
         otri = ordered_ops.tri_stage(tri, tr.v0, tr.e1, tr.e2, cam)
     if scene.leaf is not None:
         from raytracer_tpu_torch.ops.leaf import pack_leaf
         leaf = pack_leaf(scene.leaf, sph)
     return BounceTables(sph, c(s.mat_id.to(i32)), c(rect),
                         c(r.mat_id.to(i32)), tri, c(tri_nrm),
-                        c(tr.mat_id.to(i32)), c(mat), osph, otri, leaf)
+                        c(tr.mat_id.to(i32)), c(mat), osph, otri, leaf,
+                        sph_vel)
 
 
 # --------------------------------------------------------------- plain
@@ -163,11 +198,15 @@ def _row(x, n, dev):
     return torch.full((n,), float(x), device=dev)
 
 
-def _sphere_tt(rc, cx, cy, cz, rsq):
+def _sphere_tt(rc, cx, cy, cz, rsq, vel=None, time=None):
     """t of ray/sphere pairs, BIG where the pair misses. ``rc``: the ray
     columns (ox, oy, oz, dx, dy, dz, a, 1/a, t_min, t_max) of
     ``_closest_plain``; the sphere columns broadcast against them. The
-    flat sweep and the ordered walk share it, so both round alike."""
+    flat sweep and the ordered walk share it, so both round alike. With
+    ``vel`` (vx, vy, vz columns) and ``time`` (a ray column), each centre
+    moves to c + v * t first."""
+    if vel is not None:
+        cx, cy, cz = (c + v * time for c, v in zip((cx, cy, cz), vel))
     ox, oy, oz, dx, dy, dz, a, inv_a, t_min, t_max = rc
     ocx = ox - cx
     ocy = oy - cy
@@ -206,9 +245,10 @@ def _tri_tt(rc, p):
     return torch.where(ok, t, BIG), b1, b2
 
 
-def _walk_sph(rows, rc):
-    return _sphere_tt(rc, *(rows[:, None, :, k] for k in range(4))), None, \
-        None
+def _walk_sph(rows, rc, vrows=None, tcol=None):
+    vel = None if vrows is None else [vrows[:, None, :, k] for k in range(3)]
+    return (_sphere_tt(rc, *(rows[:, None, :, k] for k in range(4)), vel,
+                       tcol), None, None)
 
 
 def _walk_tri(rows, rc):
@@ -216,7 +256,7 @@ def _walk_tri(rows, rc):
 
 
 def _closest_plain(tab: BounceTables, o, d, t_min, alive, t_max=BIG,
-                   ordered: bool = False, stats=None):
+                   ordered: bool = False, stats=None, time=None):
     """Brute-force chunked closest hit. ``t_min`` and ``t_max`` are floats
     or (N,) tensors; a candidate counts when t_min <= t <= min(t_max, BIG)
     and the fold starts at best_t = min(t_max, BIG) and takes only t <
@@ -224,9 +264,10 @@ def _closest_plain(tab: BounceTables, o, d, t_min, alive, t_max=BIG,
     With ``ordered``, a stage that carries an ordered table (``tab.osph``,
     ``tab.otri``) runs ``ordered.walk_plain`` instead of the flat scan,
     adding its chunk bodies per block to ``stats`` (G, 2) (spheres,
-    triangles) if given. Returns (best_t, best_ty, best_ix, b1, b2), each
-    (N,); dead lanes and misses have ty = -1 and best_t = min(t_max,
-    BIG)."""
+    triangles) if given. ``time`` (N,): the rays' shutter times, which
+    move the spheres of moving tables (``BounceTables.moves``). Returns
+    (best_t, best_ty, best_ix, b1, b2), each (N,); dead lanes and misses
+    have ty = -1 and best_t = min(t_max, BIG)."""
     n = o.shape[1]
     dev = o.device
     ox, oy, oz = (x[:, None] for x in o)
@@ -260,18 +301,27 @@ def _closest_plain(tab: BounceTables, o, d, t_min, alive, t_max=BIG,
             best_b2.copy_(torch.where(better, b2.gather(1, j[:, None])[:, 0],
                                       best_b2))
 
+    motion = tab.moves(time)
+    if motion:
+        time = time.to(torch.float32)
+
     def walk(stage, tests, kind, col):
         ordered_ops.walk_plain(stage, o, d, tmin_v, tmax_v, alive.bool(),
                                best, tests, kind,
-                               None if stats is None else stats[:, col])
+                               None if stats is None else stats[:, col],
+                               time if motion else None)
 
     if ordered and tab.osph is not None:
         walk(tab.osph, _walk_sph, PRIM_SPHERE, 0)
     else:
         for j0 in range(0, tab.sph.shape[0], chunk):
             blk = tab.sph[j0:j0 + chunk]
-            fold(_sphere_tt(rc, *(blk[None, :, k] for k in range(4))),
-                 PRIM_SPHERE, j0)
+            vel = tcol = None
+            if motion:
+                vel = [tab.sph_vel[j0:j0 + chunk, k][None] for k in range(3)]
+                tcol = time[:, None]
+            fold(_sphere_tt(rc, *(blk[None, :, k] for k in range(4)), vel,
+                            tcol), PRIM_SPHERE, j0)
 
     t_min, t_max = rc[8], rc[9]
     o3, d3 = o.T, d.T                              # (N, 3)
@@ -316,10 +366,12 @@ def _take(table, ix, hit):
 
 
 def _bounce_values(tab: BounceTables, o, d, uni, best_t, best_ty, best_ix,
-                   b1, b2):
+                   b1, b2, time=None):
     """Hit attributes + texture + scatter on the winner (the epilogue of
     the TPU kernel, ``_bounce_values``). A miss behaves as the TPU
-    kernel's all-zero winner record: zero normal and material features."""
+    kernel's all-zero winner record: zero normal and material features.
+    ``time``: as for ``_closest_plain`` (a sphere's normal from its moved
+    centre)."""
     ox, oy, oz = o
     dx, dy, dz = d
     valid = best_ty >= 0
@@ -330,10 +382,14 @@ def _bounce_values(tab: BounceTables, o, d, uni, best_t, best_ty, best_ix,
     is_r = best_ty == PRIM_RECT
     is_t = best_ty == PRIM_TRIANGLE
     sph = _take(tab.sph, best_ix, is_s)
+    cx, cy, cz = sph[:, 0], sph[:, 1], sph[:, 2]
+    if tab.moves(time):
+        vel = _take(tab.sph_vel, best_ix, is_s)
+        cx, cy, cz = (c + vel[:, k] * time for k, c in enumerate((cx, cy, cz)))
     inv_r = 1.0 / torch.sqrt(torch.clamp(sph[:, 3], min=1e-20))
-    snx = (px - sph[:, 0]) * inv_r
-    sny = (py - sph[:, 1]) * inv_r
-    snz = (pz - sph[:, 2]) * inv_r
+    snx = (px - cx) * inv_r
+    sny = (py - cy) * inv_r
+    snz = (pz - cz) * inv_r
     axis = _take(tab.rect, best_ix, is_r)[:, 0]
     nrm = _take(tab.tri_nrm, best_ix, is_t)
     tb0 = 1.0 - b1 - b2
@@ -432,22 +488,22 @@ def _bounce_values(tab: BounceTables, o, d, uni, best_t, best_ty, best_ix,
 
 
 def bounce_fused_plain(tab: BounceTables, o_t, d_t, t_min: float, alive,
-                       uni_t):
+                       uni_t, time=None):
     """The fused bounce in plain PyTorch (any device), over the flat
     tables. Same interface and outputs as ``bounce_tables``."""
-    hit = _closest_plain(tab, o_t, d_t, float(t_min), alive)
-    return _bounce_values(tab, o_t, d_t, uni_t, *hit)
+    hit = _closest_plain(tab, o_t, d_t, float(t_min), alive, time=time)
+    return _bounce_values(tab, o_t, d_t, uni_t, *hit, time=time)
 
 
 def bounce_ordered_plain(tab: BounceTables, o_t, d_t, t_min: float, alive,
-                         uni_t, stats=None):
+                         uni_t, stats=None, time=None):
     """The ordered bounce in plain PyTorch (any device): the walk of
     ``ordered.walk_plain`` for each stage with an ordered table, in blocks
     of the kernel's block size, with its culls and stop rule, then the
-    same epilogue. ``stats``: as for ``_closest_plain``."""
+    same epilogue. ``stats``, ``time``: as for ``_closest_plain``."""
     hit = _closest_plain(tab, o_t, d_t, float(t_min), alive, ordered=True,
-                         stats=stats)
-    return _bounce_values(tab, o_t, d_t, uni_t, *hit)
+                         stats=stats, time=time)
+    return _bounce_values(tab, o_t, d_t, uni_t, *hit, time=time)
 
 
 # -------------------------------------------------------------- kernel
@@ -473,10 +529,26 @@ def stage_args(stage: Optional[OrderedStage], dev) -> list:
     if stage is None:
         return [None] * 5 + [0, 0]
     for name, x in zip(stage._fields, stage):
-        if x.device != dev or not x.is_contiguous():
+        if x is not None and (x.device != dev or not x.is_contiguous()):
             raise ValueError(f"ordered stage: {name} must be contiguous on "
                              f"{dev}")
-    return [x.data_ptr() for x in stage] + [stage.cull.shape[0], stage.chunk]
+    return ([x.data_ptr() for x in stage[:5]]
+            + [stage.cull.shape[0], stage.chunk])
+
+
+def motion_args(tab: BounceTables, time, n: int, dev, who: str,
+                ordered: bool) -> list:
+    """The C arguments the motion entry points add: the sphere
+    velocities, for the ordered kernels the sphere stage's sorted
+    velocities (null when the spheres are swept flat), and the (N,) f32
+    shutter time."""
+    _check("time", time, dev, torch.float32, (n,), who)
+    _check("sph_vel", tab.sph_vel, dev, torch.float32,
+           (tab.sph.shape[0], 4), who)
+    out = [tab.sph_vel.data_ptr()]
+    if ordered:
+        out.append(None if tab.osph is None else tab.osph.vel.data_ptr())
+    return out + [time.data_ptr()]
 
 
 def stats_arg(stats, n: int, dev):
@@ -513,8 +585,9 @@ def table_args(tab: BounceTables, dev, who: str = "bounce") -> list:
 
 
 def _bounce_cuda(tab: BounceTables, o_t, d_t, t_min: float, alive, uni_t,
-                 stats=None):
-    global LAUNCHES, ORDERED_LAUNCHES
+                 stats=None, time=None):
+    global LAUNCHES, ORDERED_LAUNCHES, MOTION_LAUNCHES
+    global ORDERED_MOTION_LAUNCHES
     dev = o_t.device
     n = o_t.shape[1]
     f32 = torch.float32
@@ -527,9 +600,19 @@ def _bounce_cuda(tab: BounceTables, o_t, d_t, t_min: float, alive, uni_t,
     args = [o_t.data_ptr(), d_t.data_ptr(), alive.data_ptr(),
             uni_t.data_ptr(), float(t_min), n, *table_args(tab, dev)]
     outs = [r.data_ptr() for r in rows] + [inter.data_ptr()]
+    motion = tab.moves(time)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if tab.ordered:
+        if tab.ordered and motion:
+            lib = bind("bounce_ordered", "rt_bounce_ordered_motion",
+                       _ARGTYPES + STAGE_ARGTYPES * 2 + _OUTS + [_P] * 5)
+            rc = lib.rt_bounce_ordered_motion(
+                *args, *stage_args(tab.osph, dev), *stage_args(tab.otri, dev),
+                *outs, stats_arg(stats, n, dev),
+                *motion_args(tab, time, n, dev, "bounce", True), stream)
+            check_launch(lib, rc, "ordered bounce kernel (motion)")
+            ORDERED_MOTION_LAUNCHES += 1
+        elif tab.ordered:
             lib = bind("bounce_ordered", "rt_bounce_ordered",
                        _ARGTYPES + STAGE_ARGTYPES * 2 + _OUTS + [_P, _P])
             rc = lib.rt_bounce_ordered(
@@ -537,6 +620,14 @@ def _bounce_cuda(tab: BounceTables, o_t, d_t, t_min: float, alive, uni_t,
                 *outs, stats_arg(stats, n, dev), stream)
             check_launch(lib, rc, "ordered bounce kernel")
             ORDERED_LAUNCHES += 1
+        elif motion:
+            lib = bind("bounce", "rt_bounce_motion",
+                       _ARGTYPES + _OUTS + [_P] * 3)
+            rc = lib.rt_bounce_motion(
+                *args, *outs, *motion_args(tab, time, n, dev, "bounce", False),
+                stream)
+            check_launch(lib, rc, "bounce kernel (motion)")
+            MOTION_LAUNCHES += 1
         else:
             lib = bind("bounce", "rt_bounce", _ARGTYPES + _OUTS + [_P])
             rc = lib.rt_bounce(*args, *outs, stream)
@@ -547,7 +638,7 @@ def _bounce_cuda(tab: BounceTables, o_t, d_t, t_min: float, alive, uni_t,
 
 
 def bounce_tables(tab: BounceTables, o_t, d_t, t_min: float, alive, uni_t,
-                  stats=None):
+                  stats=None, time=None):
     """One fused bounce over packed tables. ``o_t``/``d_t`` (3, N) f32,
     ``alive`` (N,) bool, ``uni_t`` (4, N) f32: scatter uniforms in rows
     0-2 and the spawn epsilon in row 3. Returns (inter (N,) int32, new_o,
@@ -555,25 +646,28 @@ def bounce_tables(tab: BounceTables, o_t, d_t, t_min: float, alive, uni_t,
     outputs (inter ABSORB, zero emission, p = o). Tables with an ordered
     stage take the ordered kernel; ``stats`` (G, 2) int32 zeros, G =
     ceil(N / 128), then receives its chunk bodies per block (spheres,
-    triangles).
+    triangles). ``time`` (N,) f32: the rays' shutter times; on moving
+    tables they take the kernels' motion form.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if o_t.device.type == "cpu":
         if tab.ordered:
             return bounce_ordered_plain(tab, o_t, d_t, t_min, alive, uni_t,
-                                        stats)
-        return bounce_fused_plain(tab, o_t, d_t, t_min, alive, uni_t)
+                                        stats, time)
+        return bounce_fused_plain(tab, o_t, d_t, t_min, alive, uni_t, time)
     if o_t.device.type != "cuda":
         raise NotImplementedError(f"bounce: no kernel for {o_t.device}")
-    return _bounce_cuda(tab, o_t, d_t, t_min, alive, uni_t, stats)
+    return _bounce_cuda(tab, o_t, d_t, t_min, alive, uni_t, stats, time)
 
 
-def bounce_fused(scene: Scene, o_t, d_t, t_min: float, alive, uni_t):
+def bounce_fused(scene: Scene, o_t, d_t, t_min: float, alive, uni_t,
+                 time=None):
     """One fused bounce on a scene: the JAX ``bounce_fused`` interface,
-    rays on the second axis (``o_t``/``d_t`` (3, N), ``uni_t`` (4, N)).
-    Packs the tables on every call; loops pack once and call
-    ``bounce_tables``."""
+    rays on the second axis (``o_t``/``d_t`` (3, N), ``uni_t`` (4, N)),
+    ``time`` (N,) for motion blur. Packs the tables on every call; loops
+    pack once and call ``bounce_tables``."""
     missing = unported(scene)
     if missing:
         raise NotImplementedError("; ".join(missing))
-    return bounce_tables(pack_tables(scene), o_t, d_t, t_min, alive, uni_t)
+    return bounce_tables(pack_tables(scene), o_t, d_t, t_min, alive, uni_t,
+                         time=time)

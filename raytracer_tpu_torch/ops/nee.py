@@ -17,7 +17,10 @@ vertex, so light is counted once. The reference's quirks are kept:
 - the shadow ray keeps the absolute ``t_min = 1e-3`` and ends at
   ``t_max = 0.999 * dist_sh`` (strictly below it, the closest-hit rule);
 - rect lights emit two-sided, so their cosine is |cos|;
-- no light table (zero lights) gives zero direct light.
+- no light table (zero lights) gives zero direct light;
+- with motion blur the shadow ray carries its lane's shutter time, and a
+  moving light is sampled at its centre p0 + vel * t (JAX
+  ``nee.py:148-153, 211-216``).
 
 The estimator is split in two so that a test can feed it the JAX package's
 own draws: ``nee_draws`` turns uniform rows into (light index, uniforms),
@@ -49,14 +52,16 @@ def nee_draws(lights, rows):
 
 
 def direct_light_from(scene: Scene, tables, idx, uni, p, normal, albedo,
-                      valid, alive=None, intersector: str = "pallas"):
+                      valid, alive=None, intersector: str = "pallas",
+                      time=None):
     """The deterministic part of NEE. ``idx`` (N,) light per lane, ``uni``
     (4, N) as ``nee_draws`` makes them; ``p``, ``normal``, ``albedo`` (3, N)
     rows of the shading point; ``valid`` (N,) bool: the lanes that shade
     (diffuse vertices); ``alive`` (N,) bool or None. ``tables``:
     ``fused_bounce.pack_tables`` of ``scene`` for the shadow rays, which
     take the render's ``intersector`` route (``dispatch.intersect_scene``,
-    as JAX ``nee.py:213-214``).
+    as JAX ``nee.py:213-214``) at the lanes' shutter ``time`` (N,) if
+    given.
 
     Returns (direct radiance (3, N), the lanes that cast a shadow ray (N,)
     bool)."""
@@ -68,6 +73,8 @@ def direct_light_from(scene: Scene, tables, idx, uni, p, normal, albedo,
     inv_prob = torch.exp(-lights.log_prob)[idx]
     is_sph = lights.kind[idx] == LIGHT_SPHERE
     p0 = light_cols(lights.p0, idx)
+    if time is not None:
+        p0 = p0 + light_cols(lights.vel, idx) * time
     p1 = light_cols(lights.p1, idx)
     r0 = lights.r0[idx]
     flux = light_cols(lights.flux, idx)
@@ -106,17 +113,17 @@ def direct_light_from(scene: Scene, tables, idx, uni, p, normal, albedo,
     hit = dispatch.intersect_scene(
         scene, p_sh.contiguous(), dir_sh.contiguous(), SHADOW_T_MIN,
         (dist_sh * SHADOW_T_MAX_REL).contiguous(), method=intersector,
-        alive=cast.contiguous(), tables=tables)
+        alive=cast.contiguous(), tables=tables, time=time)
     visible = ~torch.isfinite(hit.t)
     contrib = flux * inv_prob * (albedo / PI) * geom
     return torch.where(visible & candidate, contrib, 0.0), cast
 
 
 def direct_light(scene: Scene, tables, rows, p, normal, albedo, valid,
-                 alive=None, intersector: str = "pallas"):
+                 alive=None, intersector: str = "pallas", time=None):
     """NEE from ``NEE_ROWS`` uniform rows (``nee_draws`` then
     ``direct_light_from``). Returns (direct radiance (3, N), shadow-ray
     lanes (N,) bool)."""
     idx, uni = nee_draws(scene.lights, rows)
     return direct_light_from(scene, tables, idx, uni, p, normal, albedo,
-                             valid, alive, intersector)
+                             valid, alive, intersector, time)

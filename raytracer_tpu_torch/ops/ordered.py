@@ -44,6 +44,14 @@ so a ray lying in a box face keeps the box. A box whose lo.x > hi.x (a pad
 chunk's inverted box) never passes. Each primitive's box is widened by
 ``BOX_PAD`` of its coordinates' magnitude, so rounding between the box test
 and the exact pair test cannot cull a true winner.
+
+Motion blur (JAX ``_pack_spheres(with_motion=True)``): a moving sphere
+stage carries its sorted velocities (``vel``), and each sphere's box covers
+its centre over the whole shutter, ``c +/- r + min/max(v t0, v t1)``,
+before ``BOX_PAD`` widens it, so the chunk, superchunk and stage boxes hold
+every position a ray's time can give. Morton and near-to-far order stay on
+the t = 0 centres, as in JAX. The walk then tests each sphere at
+``c + v t`` with the ray's own time.
 """
 
 from __future__ import annotations
@@ -75,6 +83,9 @@ class OrderedStage(NamedTuple):
     cull: torch.Tensor    # (k_ch, 6) f32 chunk boxes: lo xyz, hi xyz
     scull: torch.Tensor   # (k_ch // SUPER, 6) f32 superchunk boxes
     box: torch.Tensor     # (6,) f32 the stage's box
+    # (k_ch * chunk, 4) f32 velocities (vx, vy, vz, 0) of a moving sphere
+    # stage, pads 0; None for a static stage
+    vel: Optional[torch.Tensor] = None
 
     @property
     def chunk(self) -> int:
@@ -150,10 +161,11 @@ def order_chunks_near_to_far(order, lo3, hi3, chunk: int, cam):
     return full[perm]
 
 
-def _pack(records, lo, hi, slots, pad_record, chunk: int) -> OrderedStage:
-    """Gather the scene-order ``records`` (n, W) and boxes (n, 3) into the
-    slot order ``slots`` (-1 = pad) and build the chunk, superchunk and
-    stage boxes."""
+def _pack(records, lo, hi, slots, pad_record, chunk: int,
+          vel=None) -> OrderedStage:
+    """Gather the scene-order ``records`` (n, W) and boxes (n, 3) (and
+    velocities ``vel`` (n, 4), if given) into the slot order ``slots`` (-1
+    = pad) and build the chunk, superchunk and stage boxes."""
     keep = slots >= 0
     ix = torch.clamp(slots, min=0)
     prim = torch.where(keep[:, None], records[ix], pad_record[None])
@@ -172,14 +184,20 @@ def _pack(records, lo, hi, slots, pad_record, chunk: int) -> OrderedStage:
     def c(x):
         return x.to(torch.float32).contiguous()
 
+    svel = None
+    if vel is not None:
+        svel = c(torch.where(keep[:, None], vel[ix], 0.0))
     return OrderedStage(c(prim), slots.to(torch.int32).contiguous(), c(cull),
-                        c(scull), c(box))
+                        c(scull), c(box), svel)
 
 
-def sphere_stage(sph, center, radius, cam) -> Optional[OrderedStage]:
+def sphere_stage(sph, center, radius, cam, vel=None,
+                 shutter=None) -> Optional[OrderedStage]:
     """The ordered copy of the packed sphere table ``sph`` (S, 4) = (c,
     r^2), or None when the table does not qualify. Pads are (0, 0, 0,
-    -3e38): disc < 0 for every ray."""
+    -3e38): disc < 0 for every ray. ``vel`` (S, 4) and ``shutter`` (time0,
+    time1): a moving table, whose boxes are dilated over the shutter and
+    whose stage carries the sorted velocities."""
     n = sph.shape[0]
     chunk = eff_chunk(n, SPH_CHUNK)
     if not wants_order(n, chunk):
@@ -187,10 +205,16 @@ def sphere_stage(sph, center, radius, cam) -> Optional[OrderedStage]:
     c = center.to(torch.float32)
     r = radius.to(torch.float32).abs()[:, None]
     lo, hi = c - r, c + r
+    if vel is not None:
+        v = vel[:, :3]
+        t0, t1 = (torch.as_tensor(t, dtype=torch.float32, device=c.device)
+                  for t in shutter)
+        lo = lo + torch.minimum(v * t0, v * t1)
+        hi = hi + torch.maximum(v * t0, v * t1)
     order = morton_order(c)
     slots = order_chunks_near_to_far(order, c[order], c[order], chunk, cam)
     pad = torch.tensor([0.0, 0.0, 0.0, -BIG], device=sph.device)
-    return _pack(sph, lo, hi, slots, pad, chunk)
+    return _pack(sph, lo, hi, slots, pad, chunk, vel)
 
 
 def tri_stage(tri, v0, e1, e2, cam) -> Optional[OrderedStage]:
@@ -252,7 +276,7 @@ def slab(r: CullRays, box, cap):
 
 
 def walk_plain(stage: OrderedStage, o, d, tmin, tmax, alive, best, tests,
-               kind: int, stats=None):
+               kind: int, stats=None, time=None):
     """The walk of one ordered stage over rays ``o``/``d`` (3, N) with
     ``tmin``/``tmax`` (N,) (tmax clamped to BIG) and ``alive`` (N,) bool,
     vectorised over the blocks of ``BLOCK`` rays: one loop over walk
@@ -261,8 +285,11 @@ def walk_plain(stage: OrderedStage, o, d, tmin, tmax, alive, best, tests,
     (tt, b1, b2) (nb, BLOCK, chunk) for the prims ``rows`` (nb, chunk, W)
     against the ray columns ``rc`` (ox, oy, oz, dx, dy, dz, a, 1/a, t_min,
     t_max), each (nb, BLOCK, 1), of the blocks that run the chunk (b1, b2
-    may be None), with tt = BIG where the pair misses. ``stats``, if given, (G,) int64: chunk bodies
-    run per block, incremented."""
+    may be None), with tt = BIG where the pair misses. ``stats``, if
+    given, (G,) int64: chunk bodies run per block, incremented. ``time``
+    (N,), for a stage with ``vel``: the rays' shutter times; ``tests`` then
+    also gets the chunk's velocity rows (nb, chunk, 4) and the time column
+    (nb, BLOCK, 1)."""
     n = o.shape[1]
     dev = o.device
     g = -(-n // BLOCK)
@@ -300,9 +327,15 @@ def walk_plain(stage: OrderedStage, o, d, tmin, tmax, alive, best, tests,
     dx, dy, dz = db
     a = dx * dx + dy * dy + dz * dz
     cols = (ob[0], ob[1], ob[2], dx, dy, dz, a, 1.0 / a, tminb, tmaxb)
+    moving = time is not None and stage.vel is not None
+    if moving:
+        vel = stage.vel.reshape(-1, chunk, stage.vel.shape[1])
+        timeb = blocks(time)
 
     def fold(sel, c):
-        tt, b1, b2 = tests(prim[c], tuple(x[sel][..., None] for x in cols))
+        extra = (vel[c], timeb[sel][..., None]) if moving else ()
+        tt, b1, b2 = tests(prim[c], tuple(x[sel][..., None] for x in cols),
+                           *extra)
         tt = torch.where(aliveb[sel][..., None], tt, BIG)
         ids = orig[c][:, None, :]                             # (nb, 1, C)
         mt = tt.amin(-1)

@@ -20,8 +20,15 @@ Russian roulette, 4-7 the respawn's (jitter x, jitter y, lens radius, lens
 angle). The spawn offset is one float (JAX broadcasts it into a row of
 ``uni2`` for its VMEM layout only). It is the loop's step without NEE, MIS
 or the SPPM gather's density estimate, as in JAX, and the step the loop
-takes wherever those are off. Motion blur's time row waits for ROADMAP
-A9.
+takes wherever those are off.
+
+Motion blur (JAX ``has_time=True``): the lanes carry a shutter time
+(``lanes.time`` (n,)), ``U`` gets a ninth row (``U_TIME``, JAX ``uni2``
+row 9), the bounce tests the moving spheres at each lane's time, and a
+lane that respawns takes the next sample's time ``time0 + U[8] (time1 -
+time0)`` from the packed camera's shutter (19-20). The kernels' motion
+entry points (``rt_regen_motion``, ``rt_regen_ordered_motion``) update the
+time in place with the rest of the lane.
 """
 
 from __future__ import annotations
@@ -33,21 +40,25 @@ import torch
 from raytracer_tpu_torch.kernels.build import bind, check_launch
 from raytracer_tpu_torch.ops.fused_bounce import (
     STAGE_ARGTYPES, TABLE_ARGTYPES, BounceTables, _check, bounce_fused_plain,
-    bounce_ordered_plain, stage_args, stats_arg, table_args,
+    bounce_ordered_plain, motion_args, stage_args, stats_arg, table_args,
 )
 from raytracer_tpu_torch.ops.sampling import camera_rays_soa
 from raytracer_tpu_torch.scene.types import INTER_ABSORB, Camera
 
-U_ROWS = 8                       # the loop's draw per step
+U_ROWS = 8                       # the loop's draw per step (+1: motion)
 U_RR = 3                         # Russian roulette
 U_CAM = slice(4, 8)              # the respawn: jitter x, y, lens r, phi
+U_TIME = 8                       # the respawn's shutter time (motion)
 CAM_WIDTH = 32                   # pack_camera's length
 
 # Kernel launches made by ``regen_step_tables`` on CUDA tensors, of the
-# flat kernel and of the ordered one. Plain integers: a run reads them
-# before and after to show it went through the kernels.
+# flat kernel and of the ordered one, static and with motion blur. Plain
+# integers: a run reads them before and after to show it went through the
+# kernels.
 LAUNCHES = 0
 ORDERED_LAUNCHES = 0
+MOTION_LAUNCHES = 0
+ORDERED_MOTION_LAUNCHES = 0
 
 
 def pack_camera(cam: Camera) -> torch.Tensor:
@@ -82,11 +93,12 @@ def regen_bookkeeping(lanes, cam: Camera, U, inter, no, nd, att, samp, *,
     ray ``no``/``nd`` and attenuation ``att``: the throughput, Russian
     roulette from depth ``rr_start`` on, the depth cap, retire and quota
     counting, and the camera respawn (``cam``, U's rows 4-7) of a lane
-    that retires while ``done < quota``. ``samp`` is the sample radiance
-    with this bounce's contributions already added; ``stop`` (optional)
-    ends its lanes' samples at this hit. Returns (``lanes`` with o, d,
-    tput, samp, acc, alive, depth and done replaced, the respawned
-    lanes)."""
+    that retires while ``done < quota``, with its next shutter time from U
+    row 8 where the lanes carry one (``lanes.time``). ``samp`` is the
+    sample radiance with this bounce's contributions already added;
+    ``stop`` (optional) ends its lanes' samples at this hit. Returns
+    (``lanes`` with o, d, tput, samp, acc, alive, depth, done and time
+    replaced, the respawned lanes)."""
     alive = lanes.alive
     cont = alive & (inter != INTER_ABSORB)
     if stop is not None:
@@ -106,13 +118,17 @@ def regen_bookkeeping(lanes, cam: Camera, U, inter, no, nd, att, samp, *,
     regen = retire & (done < quota)
     co, cd = camera_rays_soa(cam, lanes.px, lanes.py, width, height,
                              U[U_CAM])
+    time = lanes.time
+    if time is not None:
+        t_new = cam.time0 + U[U_TIME] * (cam.time1 - cam.time0)
+        time = torch.where(regen, t_new, time)
     return lanes._replace(
         o=torch.where(regen, co, torch.where(cont, no, lanes.o)),
         d=torch.where(regen, cd, torch.where(cont, nd, lanes.d)),
         tput=torch.where(regen, 1.0, tput),
         samp=torch.where(regen, 0.0, samp), acc=acc,
         alive=(alive & cont) | regen, depth=torch.where(regen, 0, depth),
-        done=done), regen
+        done=done, time=time), regen
 
 
 def regen_step_plain(tab: BounceTables, cam, U, eps: float, lanes, *,
@@ -124,22 +140,34 @@ def regen_step_plain(tab: BounceTables, cam, U, eps: float, lanes, *,
     does), the emission, then ``regen_bookkeeping``, so that on the CPU
     it equals the loop's own step (without NEE, MIS or a density
     estimate) bit for bit. Returns ``lanes`` with o, d, tput, samp, acc,
-    alive, depth and done replaced."""
+    alive, depth, done and time replaced."""
     n = lanes.o.shape[1]
+    _motion(tab, lanes)
     uni_t = torch.cat([U[0:3], torch.full((1, n), float(eps),
                                           device=U.device)], 0)
     if tab.ordered:
         b = bounce_ordered_plain(tab, lanes.o, lanes.d, t_min, lanes.alive,
-                                 uni_t, stats)
+                                 uni_t, stats, lanes.time)
     else:
         b = bounce_fused_plain(tab, lanes.o, lanes.d, t_min, lanes.alive,
-                               uni_t)
+                               uni_t, lanes.time)
     inter, no, nd, att, emit = b[:5]
     samp = lanes.samp + torch.where(lanes.alive, lanes.tput * emit, 0.0)
     return regen_bookkeeping(
         lanes, unpack_camera(cam), U, inter, no, nd, att, samp, width=width,
         height=height, quota=quota, max_depth=max_depth, rr_on=rr_on,
         rr_start=rr_start)[0]
+
+
+def _motion(tab: BounceTables, lanes) -> bool:
+    """Does the step carry a shutter time? Lanes with a time need moving
+    tables (a time on static tables would go stale in the kernel)."""
+    if lanes.time is None:
+        return False
+    if tab.sph_vel is None:
+        raise ValueError("regen step: the lanes carry a shutter time but the "
+                         "tables have no sphere velocities")
+    return True
 
 
 # -------------------------------------------------------------- kernel
@@ -155,22 +183,26 @@ _WRITTEN = ("o", "d", "tput", "samp", "acc", "alive", "depth", "done")
 def _regen_cuda(tab: BounceTables, cam, U, eps: float, lanes, *, width,
                 height, quota, max_depth, rr_on, rr_start, t_min,
                 stats=None):
-    global LAUNCHES, ORDERED_LAUNCHES
+    global LAUNCHES, ORDERED_LAUNCHES, MOTION_LAUNCHES
+    global ORDERED_MOTION_LAUNCHES
     dev = lanes.o.device
     n = lanes.o.shape[1]
     f32, i32 = torch.float32, torch.int32
+    motion = _motion(tab, lanes)
     want = dict(o=(f32, (3, n)), d=(f32, (3, n)), tput=(f32, (3, n)),
                 samp=(f32, (3, n)), acc=(f32, (3, n)),
                 alive=(torch.bool, (n,)), depth=(i32, (n,)),
                 done=(i32, (n,)), px=(f32, (n,)), py=(f32, (n,)))
+    if motion:
+        want["time"] = (f32, (n,))
     for name, (dtype, shape) in want.items():
         _check(name, getattr(lanes, name), dev, dtype, shape, "regen step")
-    _check("U", U, dev, f32, (U_ROWS, n), "regen step")
+    _check("U", U, dev, f32, (U_ROWS + motion, n), "regen step")
     _check("cam", cam, dev, f32, (CAM_WIDTH,), "regen step")
     # the kernel updates the lanes in place, each thread its own lane:
     # safe only while no written tensor shares memory with another operand
     written = [getattr(lanes, k).untyped_storage().data_ptr()
-               for k in _WRITTEN]
+               for k in _WRITTEN + (("time",) if motion else ())]
     read = [x.untyped_storage().data_ptr()
             for x in (lanes.px, lanes.py, U, cam)]
     if len(set(written)) < len(written) or set(written) & set(read):
@@ -183,7 +215,23 @@ def _regen_cuda(tab: BounceTables, cam, U, eps: float, lanes, *, width,
              *table_args(tab, dev, "regen step")]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if tab.ordered:
+        if motion:
+            margs = motion_args(tab, lanes.time, n, dev, "regen step",
+                                tab.ordered)
+        if tab.ordered and motion:
+            lib = bind("regen_ordered", "rt_regen_ordered_motion",
+                       _ARGTYPES + STAGE_ARGTYPES * 2 + [_P] * 5)
+            rc = lib.rt_regen_ordered_motion(
+                *args, *stage_args(tab.osph, dev), *stage_args(tab.otri, dev),
+                stats_arg(stats, n, dev), *margs, stream)
+            check_launch(lib, rc, "ordered regen kernel (motion)")
+            ORDERED_MOTION_LAUNCHES += 1
+        elif motion:
+            lib = bind("regen", "rt_regen_motion", _ARGTYPES + [_P] * 3)
+            rc = lib.rt_regen_motion(*args, *margs, stream)
+            check_launch(lib, rc, "regen kernel (motion)")
+            MOTION_LAUNCHES += 1
+        elif tab.ordered:
             lib = bind("regen_ordered", "rt_regen_ordered",
                        _ARGTYPES + STAGE_ARGTYPES * 2 + [_P, _P])
             rc = lib.rt_regen_ordered(
@@ -203,12 +251,14 @@ def regen_step_tables(tab: BounceTables, cam, U, eps: float, lanes, *,
                       width: int, height: int, quota: int, max_depth: int,
                       rr_on: bool, rr_start: int, t_min: float, stats=None):
     """One step of the regeneration loop over packed tables: ``cam`` from
-    ``pack_camera``, ``U`` the loop's (8, n) draw, ``eps`` the spawn
-    offset, ``lanes`` the loop's lane state (module docstring); a lane that
-    retires while ``done < quota`` respawns through pixel (px, py) of a
-    ``width`` x ``height`` image. Tables with an ordered stage take the
-    ordered kernel; ``stats`` (G, 2) int32 zeros, G = ceil(n / 128), then
-    receives its chunk bodies per block (spheres, triangles).
+    ``pack_camera``, ``U`` the loop's (8, n) draw (9 rows when the lanes
+    carry a shutter time, on moving tables: the kernels' motion form),
+    ``eps`` the spawn offset, ``lanes`` the loop's lane state (module
+    docstring); a lane that retires while ``done < quota`` respawns
+    through pixel (px, py) of a ``width`` x ``height`` image. Tables with
+    an ordered stage take the ordered kernel; ``stats`` (G, 2) int32
+    zeros, G = ceil(n / 128), then receives its chunk bodies per block
+    (spheres, triangles).
 
     CPU tensors take the plain version, which returns new tensors; CUDA
     tensors launch the kernel, which updates the lane tensors in place and

@@ -118,8 +118,7 @@ def test_render_fn_refuses_unported_options(kw, error, item):
 
 
 @pytest.mark.parametrize("make,item", [
-    (lambda: tbuiltin.cornell_smoke(), "A7"),
-    (lambda: tbuiltin.motion_field(8), "A9")])
+    (lambda: tbuiltin.cornell_smoke(), "A7")])
 def test_render_fn_refuses_ineligible_scenes(make, item):
     with pytest.raises(NotImplementedError, match=item):
         path_tracer.render_fn(make(), torch.Generator(), width=4, height=4,
@@ -165,3 +164,34 @@ def test_cli_refuses_unported(args):
     assert res.returncode != 0
     assert ("mutually exclusive" if "--mis" in args else "ROADMAP") \
         in res.stderr
+
+
+@pytest.mark.parametrize("args,item", [
+    (["--scene", "smoke"], "ROADMAP A7"),
+    (["--profile-dir", "output/prof"], "ROADMAP A13"),
+    (["--debug-nans"], "ROADMAP A13")])
+def test_cli_names_the_item_that_ports(args, item):
+    """The JAX CLI's smoke scene and its profiling and NaN-debugging flags
+    are accepted by name and exit 2 naming the ROADMAP item that ports
+    them."""
+    res = _cli(*args, "--width", "8", "--height", "8", "--spp", "1",
+               "--device", "cpu", "--out", os.devnull)
+    assert res.returncode == 2, res.stderr
+    assert item in res.stderr
+
+
+@pytest.mark.parametrize("args", [
+    ["--scene", "motion:64"],
+    ["--scene", "motion:64", "--nee"],
+    ["--scene", "spheres", "--jax-cache", "output/.jax_cache"]])
+def test_cli_renders_motion_and_takes_jax_flags(args, tmp_path):
+    """``--scene motion[:N]`` renders motion_field(N) on the CPU (with NEE
+    too), and ``--jax-cache`` is accepted with one line saying it does
+    nothing."""
+    out = tmp_path / "out.png"
+    res = _cli(*args, "--width", "16", "--height", "12", "--spp", "2",
+               "--max-depth", "4", "--device", "cpu", "--out", str(out))
+    assert res.returncode == 0, res.stderr
+    assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    assert ("no XLA compilation cache" in res.stderr) == \
+        ("--jax-cache" in args)
