@@ -1383,23 +1383,32 @@ def compare_winners(name, scene, tab, o, d, out, ref, alive,
     return err
 
 
-def live_per_block(alive) -> torch.Tensor:
+def live_per_warp(alive) -> torch.Tensor:
+    """Alive lanes per warp of 32 lanes (``ordered.GROUP``), the groups
+    whose chunk bodies the ordered kernels count."""
     from raytracer_tpu_torch.ops import ordered
     n = alive.shape[0]
-    g = -(-n // ordered.BLOCK)
-    a = torch.zeros(g * ordered.BLOCK, dtype=torch.float64,
+    g = -(-n // ordered.GROUP)
+    a = torch.zeros(g * ordered.GROUP, dtype=torch.float64,
                     device=alive.device)
     a[:n] = alive.double()
-    return a.reshape(g, ordered.BLOCK).sum(1)
+    return a.reshape(g, ordered.GROUP).sum(1)
+
+
+def warp_bodies(stats, alive) -> float:
+    """Mean chunk bodies per live warp of the kernel's ``stats`` (both
+    walks)."""
+    return float(stats.double().sum(1)[live_per_warp(alive) > 0].mean())
 
 
 def walk_bound(tab, stats, alive, ray_bytes: int, extra=(),
                sph_flops: int = SPH_FLOPS) -> tuple:
-    """``bound`` of one ordered call from the chunk bodies it ran (``stats``
-    (G, 2)): every live lane of a block tests every primitive of each chunk
-    the block runs; flat stages, every primitive. Bytes: ray I/O once per
-    lane and each table the kernel reads once. Returns (bound, pairs)."""
-    live = live_per_block(alive)
+    """``bound`` of one ordered call from the chunk bodies it ran (the
+    kernel's ``stats`` (G, 2), per warp of 32 lanes): every live lane of a
+    warp tests every primitive of each chunk the warp runs; flat stages,
+    every primitive. Bytes: ray I/O once per lane and each table the
+    kernel reads once. Returns (bound, pairs)."""
+    live = live_per_warp(alive)
     n_live = float(live.sum())
     st = stats.double()
     pairs = {"sph": n_live * tab.sph.shape[0], "rect": n_live *
@@ -1444,7 +1453,7 @@ def check_ordered() -> dict:
             f"triangles; ordered stage of {st.cull.shape[0]} chunks of "
             f"{st.chunk} in {st.scull.shape[0]} superchunks")
         o, d, alive, uni = image_rays(scene.to("cpu"), seed, dev)
-        g = -(-n // ordered.BLOCK)
+        g = -(-n // ordered.GROUP)
         every = (torch.arange(n, device=dev) // ordered.BLOCK) % 10 == 0
         for bounce in (1, 2):
             tag = f"{name} {n} lanes, bounce {bounce}"
@@ -1459,9 +1468,9 @@ def check_ordered() -> dict:
             compare(f"{tag}: ordered vs flat bounce kernel", scene, flat, o,
                     d, out, fout, fwin.ty, fwin.ix.long(), alive)
             # the plain walk on every 10th block (whole blocks, so its
-            # blocks are the kernel's)
+            # warps are the kernel's)
             sub = [x[..., every].contiguous() for x in (o, d, alive, uni)]
-            pstats = torch.zeros((int(every.sum()) // ordered.BLOCK, 2),
+            pstats = torch.zeros((int(every.sum()) // ordered.GROUP, 2),
                                  dtype=torch.int64, device=dev)
             pwin = ch.closest_ordered_plain(tab, sub[0], sub[1], T_MIN, inf,
                                             sub[2], stats=pstats)
@@ -1477,11 +1486,12 @@ def check_ordered() -> dict:
                 f"{tag}: ordered bounce kernel vs plain, every 10th block",
                 scene, flat, sub[0], sub[1], [x[..., every] for x in out],
                 pout, pwin.ty, pwin.ix.long(), sub[2], PLAIN_EDGE))
-            kb = stats[every.reshape(g, ordered.BLOCK)[:, 0]].double()
-            live = live_per_block(alive)
-            log(f"  {tag}: chunk bodies per live block {float(stats.double().sum(1)[live > 0].mean()):.3f} of "
-                f"{st.cull.shape[0]} (kernel); on the 10th blocks kernel "
-                f"{float(kb.sum()):.0f}, plain {float(pstats.sum()):.0f}")
+            kb = stats[every.reshape(g, ordered.GROUP)[:, 0]].double()
+            log(f"  {tag}: chunk bodies per live warp "
+                f"{warp_bodies(stats, alive):.3f} of {st.cull.shape[0]}; on "
+                f"the 10th blocks kernel {float(kb.sum()):.0f}, plain "
+                f"{float(pstats.sum()):.0f}, warps that differ "
+                f"{int((kb != pstats.double()).any(1).sum())}")
             if bounce == 1:
                 ms = cuda_ms(lambda: ch.closest_tables(tab, o, d, T_MIN, inf,
                                                        alive))
@@ -1945,13 +1955,14 @@ def regen_row(key: str, scene, max_edge: float, ordered: bool) -> dict:
     lane_bytes = REGEN_LANE_BYTES + (12 if motion else 0)
     sph_flops = SPH_FLOPS + (MOTION_FLOPS if motion else 0)
     if tab.ordered:
-        stats = torch.zeros((-(-n // ordered_ops.BLOCK), 2),
+        stats = torch.zeros((-(-n // ordered_ops.GROUP), 2),
                             dtype=torch.int32, device=dev)
         regen.regen_step_tables(tab, cam, U, eps, clone_lanes(lanes),
                                 stats=stats, **kw)
         b, pairs = walk_bound(tab, stats, lanes.alive, lane_bytes,
                               (tab.sph,) + extra, sph_flops)
-        log(f"  {key}: pair tests run {pairs}")
+        log(f"  {key}: pair tests run {pairs}; chunk bodies per live warp "
+            f"{warp_bodies(stats, lanes.alive):.3f}")
     else:
         b = sweep_bound(tab, lanes.alive, lane_bytes, extra, sph_flops)
     log(f"  {key} at {n} lanes ({int(lanes.alive.sum())} alive): kernel "
@@ -2209,7 +2220,7 @@ def check_motion_ordered() -> dict:
         f"chunks of {st.chunk} in {st.scull.shape[0]} superchunks")
     n = WIDTH * HEIGHT
     inf = float("inf")
-    g = -(-n // ordered.BLOCK)
+    g = -(-n // ordered.GROUP)
     every = (torch.arange(n, device=dev) // ordered.BLOCK) % 10 == 0
     o, d, alive, uni = image_rays(scene.to("cpu"), 40, dev)
     tm = shutter_times(scene, 40, n, dev)
@@ -2246,10 +2257,8 @@ def check_motion_ordered() -> dict:
             "block", scene, flat, sub[0], sub[1],
             [x[..., every] for x in out], pout, pwin.ty, pwin.ix.long(),
             sub[2], PLAIN_EDGE, time=sub[4]))
-        live = live_per_block(alive)
-        log(f"  {tag}: chunk bodies per live block "
-            f"{float(stats.double().sum(1)[live > 0].mean()):.3f} of "
-            f"{st.cull.shape[0]}")
+        log(f"  {tag}: chunk bodies per live warp "
+            f"{warp_bodies(stats, alive):.3f} of {st.cull.shape[0]}")
         if bounce == 1:
             ms = cuda_ms(lambda: ch.closest_tables(tab, o, d, T_MIN, inf,
                                                    alive, time=tm))

@@ -18,10 +18,11 @@
 // What bounds it: FP32 work on the CUDA cores, as for the fused bounce
 // (bounce.cu): ~1005 sphere tests of ~17 flops per ray at the main path's
 // shape against 53 bytes of ray I/O. The sweep is sweep.cuh's, the same
-// code as the fused bounce's: tables stream through a 16 KB shared-memory
-// tile read as a broadcast, the winner stays in registers, and a block of
-// dead lanes skips the sweep. No occlusion early exit: the kernel computes
-// the same closest hit as the TPU kernel.
+// code as the fused bounce's, with its design: two rays per thread, the
+// pair loop in groups of staged spheres read once for both rays, tables
+// through a 16 KB shared-memory tile read as a broadcast, the winner in
+// registers, one block per 256-lane tile. No occlusion early exit: the
+// kernel computes the same closest hit as the TPU kernel.
 //
 // Motion blur: rt_closest_motion launches the kernel with MOTION = true
 // (the TPU kernel with has_time=True): spheres tested at c + v t, v from
@@ -37,6 +38,8 @@
 namespace {
 
 constexpr int BLOCK = 128;
+constexpr int RAYS = 2;                 // rays per thread
+constexpr int TILE = BLOCK * RAYS;      // lanes per tile
 
 template <bool MOTION>
 __global__ void __launch_bounds__(BLOCK) closest_kernel(
@@ -51,25 +54,45 @@ __global__ void __launch_bounds__(BLOCK) closest_kernel(
     float* __restrict__ out_b2, const float* __restrict__ sph_vel,
     const float* __restrict__ time) {
   __shared__ __align__(16) float tile[TILE_FLOATS];
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
-  const bool in = i < n;
-  const bool live = in && alive[i] != 0;
-  Ray ray{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, BIG};
-  float tm = 0.f;
-  if (in) {
-    ray = Ray{o[i], o[n + i], o[2 * n + i], d[i], d[n + i], d[2 * n + i],
-              tmin[i], tmax[i]};
-    if constexpr (MOTION) tm = time[i];
+  int i[RAYS];
+  bool live[RAYS];
+  Ray ray[RAYS];
+  float tm[RAYS];
+#pragma unroll
+  for (int k = 0; k < RAYS; ++k) {
+    i[k] = blockIdx.x * TILE + k * BLOCK + threadIdx.x;
+    const bool in = i[k] < n;
+    live[k] = in && alive[i[k]] != 0;
+    ray[k] = Ray{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, BIG};
+    tm[k] = 0.f;
+    if (in) {
+      const int j = i[k];
+      ray[k] = Ray{o[j], o[n + j], o[2 * n + j], d[j], d[n + j],
+                   d[2 * n + j], tmin[j], tmax[j]};
+      if constexpr (MOTION) tm[k] = time[j];
+    }
   }
-  const Winner w = sweep<BLOCK, MOTION>(tile, live, ray, sph, n_sph, rect,
-                                        n_rect, tri, n_tri, sph_vel, tm);
-  if (!in) return;
-  const bool hit = w.ty >= 0;
-  out_t[i] = hit ? w.t : INFINITY;
-  out_ty[i] = w.ty;
-  out_ix[i] = hit ? w.ix : -1;
-  out_b1[i] = w.b1;
-  out_b2[i] = w.b2;
+  Winner w[RAYS];
+  sweep_rays<BLOCK, RAYS, MOTION>(tile, live, ray, sph, n_sph, rect,
+                                  n_rect, tri, n_tri, w, sph_vel, tm);
+#pragma unroll
+  for (int k = 0; k < RAYS; ++k) {
+    const int j = i[k];
+    if (j >= n) continue;
+    const bool hit = w[k].ty >= 0;
+    out_t[j] = hit ? w[k].t : INFINITY;
+    out_ty[j] = w[k].ty;
+    out_ix[j] = hit ? w[k].ix : -1;
+    out_b1[j] = w[k].b1;
+    out_b2[j] = w[k].b2;
+  }
+}
+
+// Launch closest_kernel<MOTION>, one block per tile.
+template <bool MOTION, class... Args>
+int launch(int n, cudaStream_t stream, Args... args) {
+  closest_kernel<MOTION><<<(n + TILE - 1) / TILE, BLOCK, 0, stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -85,15 +108,14 @@ extern "C" int rt_closest(
     float* out_t, int* out_ty, int* out_ix, float* out_b1, float* out_b2,
     cudaStream_t stream) {
   if (n <= 0) return 0;
-  const int grid = (n + BLOCK - 1) / BLOCK;
-  closest_kernel<false><<<grid, BLOCK, 0, stream>>>(
-      o, d, tmin, tmax, alive, n, sph, n_sph, rect, n_rect, tri, n_tri,
-      out_t, out_ty, out_ix, out_b1, out_b2, nullptr, nullptr);
-  return (int)cudaGetLastError();
+  return launch<false>(n, stream, o, d, tmin, tmax, alive, n, sph, n_sph,
+                       rect, n_rect, tri, n_tri, out_t, out_ty, out_ix,
+                       out_b1, out_b2, (const float*)nullptr,
+                       (const float*)nullptr);
 }
 
-// rt_closest with motion blur: its arguments, then the sphere velocities
-// sph_vel (n_sph, 4) and the per-ray shutter time (n,).
+// rt_closest with motion blur: its arguments up to out_b2, then the sphere
+// velocities sph_vel (n_sph, 4) and the per-ray shutter time (n,).
 extern "C" int rt_closest_motion(
     const float* o, const float* d, const float* tmin, const float* tmax,
     const uint8_t* alive, int n,
@@ -102,11 +124,9 @@ extern "C" int rt_closest_motion(
     float* out_t, int* out_ty, int* out_ix, float* out_b1, float* out_b2,
     const float* sph_vel, const float* time, cudaStream_t stream) {
   if (n <= 0) return 0;
-  const int grid = (n + BLOCK - 1) / BLOCK;
-  closest_kernel<true><<<grid, BLOCK, 0, stream>>>(
-      o, d, tmin, tmax, alive, n, sph, n_sph, rect, n_rect, tri, n_tri,
-      out_t, out_ty, out_ix, out_b1, out_b2, sph_vel, time);
-  return (int)cudaGetLastError();
+  return launch<true>(n, stream, o, d, tmin, tmax, alive, n, sph, n_sph,
+                      rect, n_rect, tri, n_tri, out_t, out_ty, out_ix, out_b1,
+                      out_b2, sph_vel, time);
 }
 
 extern "C" const char* rt_error_string(int code) {

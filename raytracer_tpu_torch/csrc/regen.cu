@@ -12,7 +12,10 @@
 // adds ~60 flops and ~180 bytes of lane state per lane (read and written
 // once), which the eager loop spreads over ~30 kernels that each read and
 // write whole rows; here it stays in registers. The design is bounce.cu's:
-// SoA rows, tables through a 16 KB shared tile, the winner in registers.
+// SoA rows, two lanes per thread (the sweep reads each staged sphere once
+// for both and takes the pairs in groups), tables through a 16 KB shared
+// tile, the winner in registers, one block per 256-lane tile; the epilogue
+// runs once per lane, one after the other.
 //
 // Motion blur: rt_regen_motion launches the kernel with MOTION = true (the
 // TPU kernel with has_time=True): each lane's shutter time (read before the
@@ -29,6 +32,8 @@
 namespace {
 
 constexpr int BLOCK = 128;
+constexpr int RAYS = 2;                 // lanes per thread
+constexpr int TILE = BLOCK * RAYS;      // lanes per tile
 
 template <bool MOTION>
 __global__ void __launch_bounds__(BLOCK) regen_kernel(
@@ -41,23 +46,42 @@ __global__ void __launch_bounds__(BLOCK) regen_kernel(
     const float* __restrict__ mat, const float* __restrict__ sph_vel,
     float* __restrict__ time) {
   __shared__ __align__(16) float tile[TILE_FLOATS];
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
-  const bool in = i < n;
-  const bool live = in && L.alive[i] != 0;
-  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
-  float tm = 0.f;
-  if (in) {
-    ox = L.o[i]; oy = L.o[n + i]; oz = L.o[2 * n + i];
-    dx = L.d[i]; dy = L.d[n + i]; dz = L.d[2 * n + i];
-    if constexpr (MOTION) tm = time[i];
+  int i[RAYS];
+  bool live[RAYS];
+  Ray ray[RAYS];
+  float tm[RAYS];
+#pragma unroll
+  for (int k = 0; k < RAYS; ++k) {
+    i[k] = blockIdx.x * TILE + k * BLOCK + threadIdx.x;
+    const bool in = i[k] < n;
+    live[k] = in && L.alive[i[k]] != 0;
+    ray[k] = Ray{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, tmin, BIG};
+    tm[k] = 0.f;
+    if (in) {
+      const int j = i[k];
+      ray[k] = Ray{L.o[j], L.o[n + j], L.o[2 * n + j], L.d[j], L.d[n + j],
+                   L.d[2 * n + j], tmin, BIG};
+      if constexpr (MOTION) tm[k] = time[j];
+    }
   }
-  const Winner w = sweep<BLOCK, MOTION>(
-      tile, live, Ray{ox, oy, oz, dx, dy, dz, tmin, BIG}, sph, n_sph, rect,
-      n_rect, tri, n_tri, sph_vel, tm);
-  if (!in) return;
-  regen_epilogue<MOTION>(i, n, ox, oy, oz, dx, dy, dz, live, w, sph, sph_mat,
-                         rect, rect_mat, tri_nrm, tri_mat, mat, L, P, sph_vel,
-                         tm, time);
+  Winner w[RAYS];
+  sweep_rays<BLOCK, RAYS, MOTION>(tile, live, ray, sph, n_sph, rect,
+                                  n_rect, tri, n_tri, w, sph_vel, tm);
+#pragma unroll
+  for (int k = 0; k < RAYS; ++k) {
+    if (i[k] < n)
+      regen_epilogue<MOTION>(i[k], n, ray[k].ox, ray[k].oy, ray[k].oz,
+                             ray[k].dx, ray[k].dy, ray[k].dz, live[k],
+                             w[k], sph, sph_mat, rect, rect_mat, tri_nrm,
+                             tri_mat, mat, L, P, sph_vel, tm[k], time);
+  }
+}
+
+// Launch regen_kernel<MOTION>, one block per tile.
+template <bool MOTION, class... Args>
+int launch(int n, cudaStream_t stream, Args... args) {
+  regen_kernel<MOTION><<<(n + TILE - 1) / TILE, BLOCK, 0, stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -79,16 +103,14 @@ extern "C" int rt_regen(
   if (n <= 0) return 0;
   const Lanes L{o, d, tput, samp, acc, alive, depth, done, px, py, U, cam};
   const RegenParams P{eps, width, height, quota, max_depth, rr_on, rr_start};
-  const int grid = (n + BLOCK - 1) / BLOCK;
-  regen_kernel<false><<<grid, BLOCK, 0, stream>>>(
-      L, P, tmin, n, sph, sph_mat, n_sph, rect, rect_mat, n_rect, tri,
-      tri_nrm, tri_mat, n_tri, mat, nullptr, nullptr);
-  return (int)cudaGetLastError();
+  return launch<false>(n, stream, L, P, tmin, n, sph, sph_mat, n_sph, rect,
+                       rect_mat, n_rect, tri, tri_nrm, tri_mat, n_tri, mat,
+                       (const float*)nullptr, (float*)nullptr);
 }
 
-// rt_regen with motion blur: its arguments (U now (9, n)), then the sphere
-// velocities sph_vel (n_sph, 4) and the lanes' shutter time (n,), updated
-// in place.
+// rt_regen with motion blur: its arguments up to mat (U now (9, n)), then
+// the sphere velocities sph_vel (n_sph, 4) and the lanes' shutter time
+// (n,), updated in place.
 extern "C" int rt_regen_motion(
     float* o, float* d, float* tput, float* samp, float* acc, uint8_t* alive,
     int* depth, int* done, const float* px, const float* py, const float* U,
@@ -102,11 +124,9 @@ extern "C" int rt_regen_motion(
   if (n <= 0) return 0;
   const Lanes L{o, d, tput, samp, acc, alive, depth, done, px, py, U, cam};
   const RegenParams P{eps, width, height, quota, max_depth, rr_on, rr_start};
-  const int grid = (n + BLOCK - 1) / BLOCK;
-  regen_kernel<true><<<grid, BLOCK, 0, stream>>>(
-      L, P, tmin, n, sph, sph_mat, n_sph, rect, rect_mat, n_rect, tri,
-      tri_nrm, tri_mat, n_tri, mat, sph_vel, time);
-  return (int)cudaGetLastError();
+  return launch<true>(n, stream, L, P, tmin, n, sph, sph_mat, n_sph, rect,
+                      rect_mat, n_rect, tri, tri_nrm, tri_mat, n_tri, mat,
+                      sph_vel, time);
 }
 
 extern "C" const char* rt_error_string(int code) {

@@ -89,8 +89,8 @@ def closest_hit_plain(tab: BounceTables, o, d, t_min, t_max, alive,
 def closest_ordered_plain(tab: BounceTables, o, d, t_min, t_max, alive,
                           stats=None, time=None) -> Closest:
     """The ordered closest hit in plain PyTorch (any device): each stage
-    with an ordered table runs ``ordered.walk_plain`` (blocks of the
-    kernel's block size, its culls and stop rule), the others the flat
+    with an ordered table runs ``ordered.walk_plain`` (groups of the
+    kernel's warp, its culls and stop rule), the others the flat
     scan. ``stats``, ``time``: as for ``closest_tables``."""
     return _closest(*_closest_plain(tab, o, d, t_min, alive, t_max=t_max,
                                     ordered=True, stats=stats, time=time))
@@ -180,7 +180,7 @@ def closest_tables(tab: BounceTables, o, d, t_min, t_max, alive,
     Dead lanes miss. (In the TPU kernel they return real hits unless their
     whole ray tile is dead; callers mask them either way.) Tables with an
     ordered stage take the ordered kernel; ``stats`` (G, 2) int32 zeros,
-    G = ceil(N / 128), then receives its chunk bodies per block (spheres,
+    G = ceil(N / 32), then receives its chunk bodies per warp (spheres,
     triangles). ``time`` (N,) f32: the rays' shutter times; on moving
     tables they take the kernels' motion form.
 

@@ -256,15 +256,17 @@ def _walk_tri(rows, rc):
 
 
 def _closest_plain(tab: BounceTables, o, d, t_min, alive, t_max=BIG,
-                   ordered: bool = False, stats=None, time=None):
+                   ordered: bool = False, stats=None, time=None,
+                   group: int = ordered_ops.GROUP):
     """Brute-force chunked closest hit. ``t_min`` and ``t_max`` are floats
     or (N,) tensors; a candidate counts when t_min <= t <= min(t_max, BIG)
     and the fold starts at best_t = min(t_max, BIG) and takes only t <
     best_t (the TPU kernel's rule), so a hit lies strictly below t_max.
     With ``ordered``, a stage that carries an ordered table (``tab.osph``,
     ``tab.otri``) runs ``ordered.walk_plain`` instead of the flat scan,
-    adding its chunk bodies per block to ``stats`` (G, 2) (spheres,
-    triangles) if given. ``time`` (N,): the rays' shutter times, which
+    adding its chunk bodies per group of ``group`` rays (a warp of the
+    kernels) to ``stats`` (ceil(N / group), 2) (spheres, triangles) if
+    given. ``time`` (N,): the rays' shutter times, which
     move the spheres of moving tables (``BounceTables.moves``). Returns
     (best_t, best_ty, best_ix, b1, b2), each (N,); dead lanes and misses
     have ty = -1 and best_t = min(t_max, BIG)."""
@@ -309,7 +311,7 @@ def _closest_plain(tab: BounceTables, o, d, t_min, alive, t_max=BIG,
         ordered_ops.walk_plain(stage, o, d, tmin_v, tmax_v, alive.bool(),
                                best, tests, kind,
                                None if stats is None else stats[:, col],
-                               time if motion else None)
+                               time if motion else None, group)
 
     if ordered and tab.osph is not None:
         walk(tab.osph, _walk_sph, PRIM_SPHERE, 0)
@@ -498,8 +500,8 @@ def bounce_fused_plain(tab: BounceTables, o_t, d_t, t_min: float, alive,
 def bounce_ordered_plain(tab: BounceTables, o_t, d_t, t_min: float, alive,
                          uni_t, stats=None, time=None):
     """The ordered bounce in plain PyTorch (any device): the walk of
-    ``ordered.walk_plain`` for each stage with an ordered table, in blocks
-    of the kernel's block size, with its culls and stop rule, then the
+    ``ordered.walk_plain`` for each stage with an ordered table, in groups
+    of the kernel's warp, with its culls and stop rule, then the
     same epilogue. ``stats``, ``time``: as for ``_closest_plain``."""
     hit = _closest_plain(tab, o_t, d_t, float(t_min), alive, ordered=True,
                          stats=stats, time=time)
@@ -552,11 +554,11 @@ def motion_args(tab: BounceTables, time, n: int, dev, who: str,
 
 
 def stats_arg(stats, n: int, dev):
-    """The optional (G, 2) int32 per-block chunk-body counter of the
-    ordered kernels (null when None)."""
+    """The optional (G, 2) int32 per-warp chunk-body counter of the
+    ordered kernels, G = ceil(n / 32) (null when None)."""
     if stats is None:
         return None
-    g = -(-n // ordered_ops.BLOCK)
+    g = -(-n // ordered_ops.GROUP)
     _check("stats", stats, dev, torch.int32, (g, 2), "ordered walk")
     return stats.data_ptr()
 
@@ -645,7 +647,7 @@ def bounce_tables(tab: BounceTables, o_t, d_t, t_min: float, alive, uni_t,
     new_d, att, emit, p, n), each (3, N) f32. Dead lanes get the miss
     outputs (inter ABSORB, zero emission, p = o). Tables with an ordered
     stage take the ordered kernel; ``stats`` (G, 2) int32 zeros, G =
-    ceil(N / 128), then receives its chunk bodies per block (spheres,
+    ceil(N / 32), then receives its chunk bodies per warp (spheres,
     triangles). ``time`` (N,) f32: the rays' shutter times; on moving
     tables they take the kernels' motion form.
 

@@ -16,10 +16,12 @@ budget and its 8-bit superchunk ids have no counterpart; the port's own cap
 is ``MAX_SUPERS`` superchunks per stage (the kernel sorts their keys in
 shared memory), and a larger table raises.
 
-The walk, per block of ``BLOCK`` rays (the kernel's thread block):
+The walk, per group of ``GROUP`` rays (a warp of the kernels; every
+decision below is the group's own, so a group runs only the chunks its own
+rays can reach):
 - the superchunks are visited in ascending order of the squared gap between
-  the block's alive-origin box and the superchunk's box (a stable sort: equal
-  gaps keep table order);
+  the group's alive-origin box and the superchunk's box (a stable sort:
+  equal gaps keep table order);
 - the walk stops once that gap exceeds every alive lane's remaining reach,
   ``min(best_t, t_cap) * |d|``, squared with the JAX slack
   ``reach^2 * 1.001 + 1e-9``; ``t_cap`` is the lane's exit t from the
@@ -28,6 +30,15 @@ The walk, per block of ``BLOCK`` rays (the kernel's thread block):
   alive lane's slab test against its box passes for t in
   [t_min, min(best_t, t_cap, t_max)] (inclusive);
 - a chunk's primitives are tested and folded into the lane's winner.
+The group size changes which chunks run, and a lane's winner only where
+the float32 sphere test hits a sphere that float64 misses (|o - c|^2 - r^2
+cancelling far from it) at a point outside the sphere's chunk box: no cull
+is conservative for such a false hit, so the lane keeps it only if another
+lane of its group runs the chunk (``test_walk_group_keeps_no_false_hit``).
+Every true hit lies in its padded box, and every cull is conservative for
+it. ``BLOCK`` (128), the thread block whose decisions the kernels shared
+until they became per warp, gives the chunk bodies of that design on the
+same rays.
 
 Tie rule: visit order changes from block to block, so the fold compares
 (t, then type, then scene index): a hit replaces the winner when its t is
@@ -65,7 +76,8 @@ TRI_CHUNK = 512         # triangle chunk width (JAX CHUNK)
 SUPER = 8               # chunks per superchunk (JAX SUPER)
 ORDER_MIN_CHUNKS = 16   # padded chunk count from which a stage walks
 MAX_SUPERS = 1024       # the kernel's shared-memory sort holds this many keys
-BLOCK = 128             # rays per block of the kernels' walk
+GROUP = 32              # rays per walk group: a warp of the kernels
+BLOCK = 128             # rays per group of the block-wide walk before it
 BIG = 3.0e38
 INV_GUARD = 1e-30       # |d| at or below this: inverse 1e30, parallel axis
 BOX_PAD = 1e-5          # relative widening of each primitive's box
@@ -276,29 +288,31 @@ def slab(r: CullRays, box, cap):
 
 
 def walk_plain(stage: OrderedStage, o, d, tmin, tmax, alive, best, tests,
-               kind: int, stats=None, time=None):
+               kind: int, stats=None, time=None, group: int = GROUP):
     """The walk of one ordered stage over rays ``o``/``d`` (3, N) with
     ``tmin``/``tmax`` (N,) (tmax clamped to BIG) and ``alive`` (N,) bool,
-    vectorised over the blocks of ``BLOCK`` rays: one loop over walk
-    positions and members. ``best`` = [t, ty, ix, b1, b2] (N,) tensors,
-    updated in place with the tie rule. ``tests(rows, rc)`` returns
-    (tt, b1, b2) (nb, BLOCK, chunk) for the prims ``rows`` (nb, chunk, W)
-    against the ray columns ``rc`` (ox, oy, oz, dx, dy, dz, a, 1/a, t_min,
-    t_max), each (nb, BLOCK, 1), of the blocks that run the chunk (b1, b2
-    may be None), with tt = BIG where the pair misses. ``stats``, if
-    given, (G,) int64: chunk bodies run per block, incremented. ``time``
-    (N,), for a stage with ``vel``: the rays' shutter times; ``tests`` then
-    also gets the chunk's velocity rows (nb, chunk, 4) and the time column
-    (nb, BLOCK, 1)."""
+    vectorised over the groups of ``group`` consecutive rays (``GROUP``,
+    a warp, as the kernels walk; ``BLOCK`` for the block-wide walk of
+    before): one loop over walk positions and members. ``best`` = [t, ty,
+    ix, b1, b2] (N,) tensors, updated in place with the tie rule.
+    ``tests(rows, rc)`` returns (tt, b1, b2) (nb, group, chunk) for the
+    prims ``rows`` (nb, chunk, W) against the ray columns ``rc`` (ox, oy,
+    oz, dx, dy, dz, a, 1/a, t_min, t_max), each (nb, group, 1), of the
+    groups that run the chunk (b1, b2 may be None), with tt = BIG where the
+    pair misses. ``stats``, if given, (G,) int64 with G = ceil(N / group):
+    chunk bodies run per group, incremented. ``time`` (N,), for a stage
+    with ``vel``: the rays' shutter times; ``tests`` then also gets the
+    chunk's velocity rows (nb, chunk, 4) and the time column (nb, group,
+    1)."""
     n = o.shape[1]
     dev = o.device
-    g = -(-n // BLOCK)
-    pad = g * BLOCK - n
+    g = -(-n // group)
+    pad = g * group - n
 
     def blocks(x, fill=0.0):
         if pad:
             x = torch.cat([x, x.new_full(x.shape[:-1] + (pad,), fill)], -1)
-        return x.reshape(x.shape[:-1] + (g, BLOCK))
+        return x.reshape(x.shape[:-1] + (g, group))
 
     ob, db = blocks(o), blocks(d, 1.0)
     tminb, tmaxb = blocks(tmin), blocks(tmax)
@@ -323,7 +337,7 @@ def walk_plain(stage: OrderedStage, o, d, tmin, tmax, alive, best, tests,
     done = ~aliveb.any(1)
     bt, bty, bix, bb1, bb2 = (blocks(x) for x in best)
     bix = bix.long()
-    step = max(1, PAIRS // (BLOCK * chunk))
+    step = max(1, PAIRS // (group * chunk))
     dx, dy, dz = db
     a = dx * dx + dy * dy + dz * dz
     cols = (ob[0], ob[1], ob[2], dx, dy, dz, a, 1.0 / a, tminb, tmaxb)

@@ -257,7 +257,7 @@ def regen_step_tables(tab: BounceTables, cam, U, eps: float, lanes, *,
     docstring); a lane that retires while ``done < quota`` respawns
     through pixel (px, py) of a ``width`` x ``height`` image. Tables with
     an ordered stage take the ordered kernel; ``stats`` (G, 2) int32
-    zeros, G = ceil(n / 128), then receives its chunk bodies per block
+    zeros, G = ceil(n / 32), then receives its chunk bodies per warp
     (spheres, triangles).
 
     CPU tensors take the plain version, which returns new tensors; CUDA

@@ -46,7 +46,7 @@ from raytracer_tpu.scene.builder import trs_matrix  # noqa: E402
 from raytracer_tpu.utils.obj import load_obj  # noqa: E402
 from raytracer_tpu_torch.models import path_tracer as tpt  # noqa: E402
 from raytracer_tpu_torch.models.wavefront_soa import (  # noqa: E402
-    camera_rays_soa,
+    block_order, camera_rays_soa,
 )
 from raytracer_tpu_torch.ops import closest_hit, fused_bounce  # noqa: E402
 from raytracer_tpu_torch.ops import ordered  # noqa: E402
@@ -114,11 +114,12 @@ def scenes(name):
     return _CACHE[name]
 
 
-def make_rays(ts, name, seed, n=N_RAYS):
+def make_rays(ts, name, seed, n=N_RAYS, extent=None):
     """Camera rays (random pixels of a 64x48 image) on even lanes, random
     rays around the walked geometry on odd lanes; 15% dead lanes; +inf
-    t_max on the first half, 5% to 100% of the geometry's extent on the
-    second; scatter uniforms and a spawn epsilon for the bounce."""
+    t_max on the first half, 5% to 100% of the geometry's extent (that of
+    ``SCENES`` unless given) on the second; scatter uniforms and a spawn
+    epsilon for the bounce."""
     rng = np.random.default_rng(seed)
     h = n // 2
     cam_uni = rng.random((4, h), dtype=np.float32)
@@ -127,7 +128,7 @@ def make_rays(ts, name, seed, n=N_RAYS):
     co, cd = camera_rays_soa(ts.camera, torch.from_numpy(px),
                              torch.from_numpy(py), 64, 48,
                              torch.from_numpy(cam_uni))
-    extent = SCENES[name][1]
+    extent = SCENES[name][1] if extent is None else extent
     o_rand = rng.uniform(-0.5, 0.5, (3, n - h)) * extent
     o_rand[1] = np.abs(o_rand[1])
     d_rand = rng.normal(size=(3, n - h))
@@ -239,7 +240,7 @@ def test_ordered_plain_matches_flat(name):
     o, d, alive, t_max, _ = make_rays(ts, name, 1)
     to, td, tmax, ta = tt(o, d, t_max, alive)
     flat = closest_hit.closest_hit_plain(tab, to, td, T_MIN, tmax, ta)
-    stats = torch.zeros((N_RAYS // ordered.BLOCK, 2), dtype=torch.int64)
+    stats = torch.zeros((N_RAYS // ordered.GROUP, 2), dtype=torch.int64)
     walk = closest_hit.closest_tables(tab, to, td, T_MIN, tmax, ta,
                                       stats=stats)
     assert_same_winners(walk, flat, alive)
@@ -249,6 +250,98 @@ def test_ordered_plain_matches_flat(name):
     for col, stage in enumerate((tab.osph, tab.otri)):
         if stage is not None:
             assert 0 < stats[:, col].max() < stage.cull.shape[0]
+
+
+# the walk's cases: the scenes above, and a moving field whose sphere stage
+# walks (3000 movers, boxes dilated over the shutter), with its extent
+WALK_CASES = sorted(SCENES) + ["motion3000"]
+
+
+@pytest.mark.parametrize("name", WALK_CASES)
+def test_walk_groups_agree(name):
+    """``walk_plain`` per warp (``GROUP``, as the kernels walk) and per
+    block of 128 rays (``BLOCK``, the block-wide walk of before) give the
+    flat sweep's winner on every lane, bit for bit: t, type, scene index
+    and the barycentrics. Here the group changes only which chunks run (a
+    float32 false hit can change a winner: the next test): the per-warp
+    chunk bodies come in (ceil(n / 32), 2), each stage's are nonzero and
+    below its chunk count."""
+    tm = None
+    if name == "motion3000":
+        ts = tbuiltin.motion_field(3000, 4.0 / 3.0)
+        tab = fused_bounce.pack_tables(ts)
+        assert tab.osph is not None and tab.osph.vel is not None
+        o, d, alive, t_max, _ = make_rays(ts, name, 2, extent=55.0)
+        tm = torch.from_numpy(np.random.default_rng(3).uniform(
+            0.0, 1.0, N_RAYS).astype(np.float32))
+    else:
+        _, ts, tab = scenes(name)
+        o, d, alive, t_max, _ = make_rays(ts, name, 2)
+    to, td, tmax, ta = tt(o, d, t_max, alive)
+    flat = fused_bounce._closest_plain(tab, to, td, T_MIN, ta, tmax, time=tm)
+    assert (flat[1][ta] >= 0).float().mean() > 0.05
+    for group in (ordered.GROUP, ordered.BLOCK):
+        stats = torch.zeros((-(-N_RAYS // group), 2), dtype=torch.int64)
+        walk = fused_bounce._closest_plain(tab, to, td, T_MIN, ta, tmax,
+                                           ordered=True, stats=stats,
+                                           time=tm, group=group)
+        for x, y, what in zip(walk, flat, ("t", "ty", "ix", "b1", "b2")):
+            assert torch.equal(x, y), f"group {group}: {what} differs"
+        for col, stage in enumerate((tab.osph, tab.otri)):
+            if stage is not None:
+                assert 0 < stats[:, col].max() < stage.cull.shape[0]
+            else:
+                assert not stats[:, col].any()
+
+
+def test_walk_group_keeps_no_false_hit():
+    """The one way a group changes a lane's winner: a float32 false hit.
+    On one 128-lane block of sphere_field(65536)'s 800x600 camera rays
+    (the lane order and jitter of ``chip_smoke.py``'s ``image_rays``, seed
+    20), the float32 test hits sphere 8160 on lane 21 although float64
+    misses it (disc < 0: |o - c|^2 - r^2 cancels 250 units away), at a t
+    whose point lies outside the sphere's chunk box. The walk in groups of
+    128 runs that chunk for other lanes and keeps the false hit, as the
+    flat sweep does; the walk in warps of 32 culls it for this warp and
+    finds the sphere behind it. Every other lane agrees bit for bit."""
+    ts = tbuiltin.sphere_field(65536, 4.0 / 3.0)
+    tab = fused_bounce.pack_tables(ts)
+    width, height, lane0 = 800, 600, 240384
+    rng = np.random.default_rng(20)
+    perm, _ = block_order(width, height)
+    uni = rng.random((4, width * height), dtype=np.float32)
+    alive = torch.from_numpy(rng.random(width * height) > 0.03)
+    lanes = slice(lane0, lane0 + ordered.BLOCK)
+    px = torch.from_numpy((perm[lanes] % width).astype(np.float32))
+    py = torch.from_numpy((perm[lanes] // width).astype(np.float32))
+    o, d = camera_rays_soa(ts.camera, px, py, width, height,
+                           torch.from_numpy(uni[:, lanes]))
+    alive = alive[lanes].contiguous()
+    win = {g: fused_bounce._closest_plain(tab, o, d, T_MIN, alive,
+                                          ordered=True, group=g)
+           for g in (ordered.GROUP, ordered.BLOCK)}
+    flat = fused_bounce._closest_plain(tab, o, d, T_MIN, alive)
+    differ = torch.zeros(ordered.BLOCK, dtype=torch.bool)
+    for x, y in zip(win[ordered.GROUP], win[ordered.BLOCK]):
+        differ |= x != y
+    assert torch.nonzero(differ)[:, 0].tolist() == [21]
+    assert int(win[ordered.BLOCK][2][21]) == int(flat[2][21]) == 8160
+    assert int(win[ordered.GROUP][2][21]) == 4582
+    for x, y in zip(win[ordered.BLOCK], flat):
+        assert torch.equal(x, y)
+    # sphere 8160 in float64: a miss, and the float32 point is outside
+    # its chunk's box; sphere 4582: a hit
+    c = ts.spheres.center.double()
+    r = ts.spheres.radius.double()
+    ol, dl = o[:, 21].double(), d[:, 21].double()
+    for ix, hit in ((8160, False), (4582, True)):
+        oc = ol - c[ix]
+        disc = (oc @ dl) ** 2 - (dl @ dl) * (oc @ oc - r[ix] ** 2)
+        assert bool(disc >= 0) == hit
+    st = tab.osph
+    box = st.cull[int(torch.nonzero(st.orig == 8160)[0, 0]) // st.chunk]
+    p = ol + float(win[ordered.BLOCK][0][21]) * dl
+    assert not ((p >= box[:3].double()) & (p <= box[3:].double())).all()
 
 
 def sphere_terms(ts, o, d, ty, ix):

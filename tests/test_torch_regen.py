@@ -43,7 +43,7 @@ from raytracer_tpu.scene import builtin as jbuiltin  # noqa: E402
 from raytracer_tpu.scene.types import INTER_ABSORB, PRIM_SPHERE  # noqa
 from raytracer_tpu_torch.models import path_tracer as tpt  # noqa: E402
 from raytracer_tpu_torch.models import wavefront_soa as twf  # noqa: E402
-from raytracer_tpu_torch.ops import fused_bounce, leaf, regen  # noqa: E402
+from raytracer_tpu_torch.ops import fused_bounce, leaf, ordered, regen  # noqa
 from raytracer_tpu_torch.scene import builtin as tbuiltin  # noqa: E402
 from raytracer_tpu_torch.scene.convert import scene_from_numpy  # noqa: E402
 from test_golden import check_against  # noqa: E402
@@ -209,7 +209,7 @@ def test_ordered_regen_step_equals_flat(field):
     ``test_torch_ordered.py`` holds the walks, and really walks."""
     ts, tab, flat = field
     st, eps = make_lanes(jbuiltin.sphere_field(8192), 7, n=1024)
-    stats = torch.zeros((1024 // 128, 2), dtype=torch.int32)
+    stats = torch.zeros((1024 // ordered.GROUP, 2), dtype=torch.int32)
     kw = dict(width=W, height=H, quota=QUOTA, max_depth=MAX_DEPTH,
               rr_on=True, rr_start=RR_START, t_min=T_MIN)
     cam, U = regen.pack_camera(ts.camera), torch.from_numpy(st["U"])
