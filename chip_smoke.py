@@ -14,8 +14,11 @@ Phases, each of which raises on failure (exit code non-zero):
    bounce fed from the first one's outputs), with the kernel's and the
    plain version's times;
 4. the photon-query kernel against its plain version: the four cases of
-   ``tests/test_pallas_photon.py`` and both maps of one Cornell iteration
-   at 800x800 points / 500,000 photons, counts bit-equal, with both times;
+   ``tests/test_pallas_photon.py``, both maps of one Cornell iteration
+   at 800x800 points / 500,000 photons whole and at every 10th run of 256
+   sorted points, and a heavy tile (one tile of points spread over the
+   scene, whose chunks the kernel cuts into several items), counts
+   bit-equal, with both times, the live chunks, items and photon groups;
 5. a 32x32 render of ``three_spheres`` and a 32x32 Cornell SPPM render on
    the card, held to the Monte-Carlo bands of ``tests/golden/
    three_spheres_32.npz`` and ``cornell_sppm_32.npz``;
@@ -44,8 +47,11 @@ Phases, each of which raises on failure (exit code non-zero):
    and flat kernels and of the plain walks on the same 480,000 lanes, the
    chunk bodies run and the bound from the pair tests they ran;
 11. the leaf kernel on scene_500 at 480,000 camera rays and a second
-   bounce, against the flat closest hit and ``leaf_closest_plain``, its
-   time, the leaves visited per ray and the bound;
+   bounce, and on field64k's camera rays with its 2,048 leaves, against
+   the flat (or ordered) closest hit and a plain walk
+   (``leaf_closest_plain``, or ``leaf_walk_plain`` on field64k), each
+   with its time, the leaves folded per ray and, on scene_500's camera
+   rays, the bound;
 12. the large scenes' renders through ``path_tracer.render``: field64k
    800x600 32 spp depth 16 RR on, the same scene at 8 spp through the
    ordered and the flat route (image means and ray counts within 0.5%),
@@ -120,7 +126,8 @@ KERNELS = ("bounce", "photon_query", "closest", "closest_ordered",
 # photon at a time, the plain version by chunked matmuls); the kernel's
 # rsqrtf is within 2 ulp. Counts must be bit-equal.
 Q_RTOL, Q_ATOL = 1e-4, 1e-6
-PLAIN_STRIDE = 10       # the query timings take every 10th point tile
+PLAIN_STRIDE = 10       # the query's tenth: every 10th run of
+TENTH_TILE = 256        # 256 cell-sorted points (the rows of PERF.md)
 SPPM_W = SPPM_H = 800
 SPPM_PHOTONS, SPPM_ITERS, SPPM_SPP, SPPM_DEPTH = 500_000, 4, 16, 50
 MEAN_TOL = 0.03         # NEE/MIS image mean against plain PT's
@@ -745,26 +752,38 @@ def cornell_query_inputs(dev):
             for name, args in zip(("global", "caustic"), captured)]
 
 
-def live_pairs(planes, points, r2, cap2) -> tuple:
-    """(live (tile, chunk) pairs, tiles, chunks below n_live): the kernel's
-    cull, per TILE points against every chunk below n_live, in plain
-    PyTorch. The ragged last tile is padded with copies of the last point,
-    which leaves its box and reach as they are."""
+def live_pairs(planes, points, r2, cap2, tile: int) -> tuple:
+    """(live (tile, chunk) pairs, tiles, chunks below n_live): the chunk
+    cull per ``tile`` consecutive points against every chunk below n_live,
+    in plain PyTorch (``photon_query.plan_items`` at that tile)."""
     from raytracer_tpu_torch.ops import photon_query as pq
-    pad = -points.shape[0] % pq.TILE
-    tp = torch.cat([points, points[-1:].expand(pad, 3)]).reshape(
-        -1, pq.TILE, 3)
-    reach = torch.maximum(r2, cap2)
-    reach2 = torch.cat([reach, reach[-1:].expand(pad)]).reshape(
-        -1, pq.TILE).amax(1)
-    lo, hi = tp.amin(1), tp.amax(1)
-    k_live = -(-int(planes.n_live[0]) // pq.CHUNK)
-    clo, chi = planes.cull[0:3, :k_live], planes.cull[3:6, :k_live]
-    g = torch.clamp(torch.maximum(clo[None] - hi[:, :, None],
-                                  lo[:, :, None] - chi[None]), min=0.0)
-    g2 = g * g
-    near = ((g2[:, 0] + g2[:, 1]) + g2[:, 2]) <= reach2[:, None]
-    return int(near.sum()), tp.shape[0], k_live
+    plan = pq.plan_items(planes, points, r2, cap2, tile)
+    return int(plan.count.sum()), plan.lo.shape[0], plan.live.shape[1]
+
+
+def query_inputs(dev):
+    """(name, planes, points, r2, cap2) of phase 4's timed inputs: both
+    Cornell maps whole (as the main path launches the kernel), each at
+    every PLAIN_STRIDE-th run of TENTH_TILE sorted points, and the heavy
+    tile: the global map's tenth with its first TILE points replaced by
+    points spread over the whole sorted list, so that tile's box spans
+    the scene and passes every chunk, and its chunks are cut into items."""
+    from raytracer_tpu_torch.ops import photon_query as pq
+    out = []
+    for name, planes, pts, r2, cap2 in cornell_query_inputs(dev):
+        n = pts.shape[0]
+        out.append((name, planes, pts, r2, cap2))
+        keep = (torch.arange(n, device=dev) // TENTH_TILE) % PLAIN_STRIDE == 0
+        tenth = (planes, pts[keep].contiguous(), r2[keep].contiguous(),
+                 cap2[keep].contiguous())
+        out.append((f"{name}, tenth", *tenth))
+        if "global" in name:
+            spread = torch.linspace(0, n - 1, pq.TILE, device=dev).long()
+            heavy = [x.clone() for x in tenth[1:]]
+            for x, y in zip(heavy, (pts, r2, cap2)):
+                x[:pq.TILE] = y[spread]
+            out.append((f"{name}, heavy tile", planes, *heavy))
+    return out
 
 
 def compare_query(name, out, ref) -> float:
@@ -804,55 +823,55 @@ def check_query() -> dict:
             f"{int(ref.count_r.sum())} cap {int(ref.count_cap.sum())}, "
             "bit-equal")
     stats = {}
-    for name, planes, pts, r2, cap2 in cornell_query_inputs(dev):
+    for name, planes, pts, r2, cap2 in query_inputs(dev):
         n = pts.shape[0]
-        live, tiles, k_live = live_pairs(planes, pts, r2, cap2)
+        chunks, groups = pq.kernel_pairs(planes, pts, r2, cap2)
+        old, tiles, k_live = live_pairs(planes, pts, r2, cap2, TENTH_TILE)
+        plan = pq.plan_items(planes, pts, r2, cap2)
         log(f"  {name}: {n} points, {planes.posf.shape[1]} photon slots, "
             f"n_live {int(planes.n_live[0])}; live (tile, chunk) pairs "
-            f"{live} of {tiles} tiles x {k_live} chunks "
-            f"({live / tiles:.2f} chunks per tile)")
+            f"{old} of {tiles} tiles of {TENTH_TILE} x {k_live} chunks; "
+            f"the kernel's: {chunks} (tiles of {pq.TILE}), items "
+            f"{int(plan.item0[-1])} of at most {plan.ic} chunks (tile 0: "
+            f"{int(plan.count[0])} live chunks, "
+            f"{int(plan.item0[1])} items), live (tile, group) pairs "
+            f"{groups} ({groups * pq.GROUP / max(chunks * pq.CHUNK, 1):.4f}"
+            " of the live chunks' photons)")
         out = pq.query_planes(planes, pts, r2, cap2)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
         ref = pq.query_photons_plain(planes, pts, r2, cap2)
-        torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
+        b.record()
+        b.synchronize()
+        plain_ms = a.elapsed_time(b)
         err = max(err, compare_query(name, out, ref))
-        full_ms = cuda_ms(lambda: pq.query_planes(planes, pts, r2, cap2))
-        # timings on every PLAIN_STRIDE-th tile of TILE cell-sorted points:
-        # the kernel's tiles stay as they are on the whole image
-        keep = (torch.arange(n, device=dev) // pq.TILE) % PLAIN_STRIDE == 0
-        args = (planes, pts[keep].contiguous(), r2[keep].contiguous(),
-                cap2[keep].contiguous())
-        ms = cuda_ms(lambda: pq.query_planes(*args))
-        plain_ms = cuda_ms(lambda: pq.query_photons_plain(*args))
-        log(f"  {name}: counts bit-equal at {n} points (plain once: "
-            f"{plain_s:.4f} s); kernel {full_ms:.4f} ms at {n} points; on "
-            f"every {PLAIN_STRIDE}th tile ({int(keep.sum())} points) kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of 10 CUDA-event "
-            f"timings); counts r {int(out.count_r.sum())} cap "
+        ms = cuda_ms(lambda: pq.query_planes(planes, pts, r2, cap2))
+        log(f"  {name}: counts bit-equal; kernel {ms:.4f} ms (median of 10 "
+            f"CUDA-event timings), plain {plain_ms:.4f} ms (one call); "
+            f"counts r {int(out.count_r.sum())} cap "
             f"{int(out.count_cap.sum())}")
-        if "global" in name:
+        if name == "cornell global map":
             stats = {"ms": ms, "plain_ms": plain_ms,
-                     **query_bound(planes, *args[1:]), "library_ms": None}
+                     **query_bound(planes, pts, r2, cap2, groups, out),
+                     "library_ms": None}
     return {"max_abs_err": err, **stats}
 
 
-def query_bound(planes, pts, r2, cap2) -> dict:
-    """``bound`` of one query: every (point, photon) pair of a live (tile,
-    chunk) pair is tested; photons within either radius are weighted and
-    summed. Points, radii and the 8 sums per point once; photon planes,
-    payload and cull boxes once."""
+def query_bound(planes, pts, r2, cap2, groups, res) -> dict:
+    """``bound`` of one query at the kernel's culls: every (point, photon)
+    pair of a live (tile, group) pair is tested; photons within either
+    radius are weighted and summed. Points, radii and the 8 sums per
+    point once; photon planes, payload and the boxes once."""
     from raytracer_tpu_torch.ops import photon_query as pq
-    live, _, _ = live_pairs(planes, pts, r2, cap2)
-    res = pq.query_planes(planes, pts, r2, cap2)
     cr, cc = res.count_r.double(), res.count_cap.double()
-    flops = (live * pq.TILE * pq.CHUNK * Q_PAIR_FLOPS
+    flops = (groups * pq.TILE * pq.GROUP * Q_PAIR_FLOPS
              + Q_NEAR_FLOPS * float(torch.maximum(cr, cc).sum())
              + Q_SUM_FLOPS * float((cr + cc).sum()))
     nbytes = pts.shape[0] * (12 + 4 + 4 + 32) + sum(
         x.numel() * x.element_size()
-        for x in (planes.posf, planes.payload, planes.cull))
+        for x in (planes.posf, planes.payload, planes.cull, planes.gcull))
     return bound(flops, nbytes)
 
 
@@ -1555,65 +1574,91 @@ def leaf_scene_500(dev):
     return leaf.with_leaf_tables(load("scene_500", WIDTH / HEIGHT)).to(dev)
 
 
-def check_leaf() -> dict:
-    """Phase 11. Returns the leaf kernel's row numbers."""
-    from raytracer_tpu_torch.ops import closest_hit as ch
-    from raytracer_tpu_torch.ops import fused_bounce as fb
+def leaf_field(dev):
+    """field64k (sphere_field(65536)) with leaf tables: 2,048 leaves."""
     from raytracer_tpu_torch.ops import leaf
-    dev = torch.device(DEV)
-    log("leaf kernel against the flat closest hit and its plain version:")
+    return leaf.with_leaf_tables(large_scene("field64k")).to(dev)
+
+
+def leaf_inputs(dev) -> list:
+    """(label, scene, tables, o, d, alive) of phase 11 and the leaf A/B:
+    scene_500's 480,000 camera rays and their second bounce, and
+    field64k's camera rays with its leaf tables."""
+    from raytracer_tpu_torch.ops import fused_bounce as fb
+    out = []
     scene = leaf_scene_500(dev)
     tab = fb.pack_tables(scene)
-    lp = tab.leaf
-    log(f"  scene_500: {lp.box.shape[0]} leaves of "
-        f"{lp.sph.shape[0] // lp.box.shape[0]}, {lp.big.shape[0]} big "
-        "sphere(s)")
-    n = WIDTH * HEIGHT
-    inf = float("inf")
     o, d, alive, uni = image_rays(scene.to("cpu"), 7, dev)
+    out.append(("scene_500 bounce 1", scene, tab, o, d, alive))
+    b = fb.bounce_tables(tab, o, d, T_MIN, alive, uni)
+    o2, d2, alive2, _ = next_bounce(b, alive, uni, 8)
+    out.append(("scene_500 bounce 2", scene, tab, o2, d2, alive2))
+    field = leaf_field(dev)
+    o, d, alive, _ = image_rays(field.to("cpu"), 20, dev)
+    out.append(("field64k bounce 1", field, fb.pack_tables(field), o, d,
+                alive))
+    return out
+
+
+def check_leaf() -> dict:
+    """Phase 11. Returns the leaf kernel's row numbers (scene_500's
+    camera rays)."""
+    from raytracer_tpu_torch.ops import closest_hit as ch
+    from raytracer_tpu_torch.ops import leaf
+    dev = torch.device(DEV)
+    log("leaf kernel against the flat closest hit and its plain versions:")
+    inf = float("inf")
     row = {"max_abs_err": 0.0}
-    for bounce in (1, 2):
-        tag = f"scene_500 {n} lanes, bounce {bounce}"
+    for tag, scene, tab, o, d, alive in leaf_inputs(dev):
+        lp = tab.leaf
+        n = o.shape[1]
+        k = lp.sph.shape[0] // lp.box.shape[0]
+        log(f"  {tag}: {n} lanes, {int(alive.sum())} alive; "
+            f"{lp.box.shape[0]} leaves of {k}, {lp.node.shape[0]} nodes, "
+            f"{lp.big.shape[0]} big sphere(s)")
         visits = torch.zeros(n, dtype=torch.int32, device=dev)
         out = leaf.leaf_closest(tab, o, d, T_MIN, inf, alive, visits=visits)
         ref = ch.closest_tables(tab, o, d, T_MIN, inf, alive)
         torch.cuda.synchronize()
         compare_winners(f"{tag}: leaf vs flat kernel", scene, tab, o, d, out,
                         ref, alive)
+        # the table-order walk where it is quick, else the kernel's walk
+        table_order = lp.box.shape[0] <= 64
+        plain = (leaf.leaf_closest_plain if table_order
+                 else leaf.leaf_walk_plain)
         pvis = torch.zeros(n, dtype=torch.int32, device=dev)
-        plain = leaf.leaf_closest_plain(tab, o, d, T_MIN, inf, alive,
-                                        visits=pvis)
+        t0 = time.perf_counter()
+        pout = plain(tab, o, d, T_MIN, inf, alive, visits=pvis)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
         row["max_abs_err"] = max(row["max_abs_err"], compare_winners(
-            f"{tag}: leaf kernel vs plain", scene, tab, o, d, out, plain,
-            alive, PLAIN_EDGE))
-        n_alive = int(alive.sum())
-        log(f"  {tag}: leaves visited per alive ray {float(visits.sum()) / max(n_alive, 1):.4f} "
-            f"(kernel), {float(pvis.sum()) / max(n_alive, 1):.4f} (plain) of "
-            f"{lp.box.shape[0]}")
-        if bounce == 1:
-            ms = cuda_ms(lambda: leaf.leaf_closest(tab, o, d, T_MIN, inf,
-                                                   alive))
-            fms = cuda_ms(lambda: ch.closest_tables(tab, o, d, T_MIN, inf,
-                                                    alive))
-            pms = cuda_ms(lambda: leaf.leaf_closest_plain(tab, o, d, T_MIN,
-                                                          inf, alive), reps=3)
-            log(f"  {tag}: leaf kernel {ms:.4f} ms, flat closest-hit kernel "
-                f"{fms:.4f} ms, plain {pms:.4f} ms (median of CUDA-event "
-                "timings)")
-            live = float(alive.sum())
-            k = lp.sph.shape[0] // lp.box.shape[0]
-            flops = (live * (lp.big.shape[0] * SPH_FLOPS + tab.rect.shape[0]
-                             * RECT_FLOPS + tab.tri.shape[0] * TRI_FLOPS
-                             + lp.box.shape[0] * BOX_FLOPS)
-                     + float(visits.sum()) * k * SPH_FLOPS)
-            nbytes = n * (24 + 8 + 1 + 20) + sum(
-                x.numel() * x.element_size()
-                for x in (*lp, tab.rect, tab.tri))
-            row.update(ms=ms, flat_ms=fms, plain_ms=pms,
-                       **bound(flops, nbytes), library_ms=None)
-            b = fb.bounce_tables(tab, o, d, T_MIN, alive, uni)
-            alive = alive & (b[0] != 2)
-            o, d = b[1].contiguous(), b[2].contiguous()
+            f"{tag}: leaf kernel vs {plain.__name__}", scene, tab, o, d, out,
+            pout, alive, PLAIN_EDGE))
+        n_alive = max(int(alive.sum()), 1)
+        ms = cuda_ms(lambda: leaf.leaf_closest(tab, o, d, T_MIN, inf, alive))
+        fms = cuda_ms(lambda: ch.closest_tables(tab, o, d, T_MIN, inf, alive))
+        log(f"  {tag}: leaves folded per alive ray "
+            f"{float(visits.sum()) / n_alive:.4f} (kernel), "
+            f"{float(pvis.sum()) / n_alive:.4f} ({plain.__name__}); leaf "
+            f"kernel {ms:.4f} ms, closest-hit kernel {fms:.4f} ms (medians "
+            f"of 10 CUDA-event timings), {plain.__name__} {plain_s:.4f} s "
+            "(one call)")
+        if tag != "scene_500 bounce 1":
+            continue
+        pms = cuda_ms(lambda: leaf.leaf_closest_plain(tab, o, d, T_MIN, inf,
+                                                      alive), reps=3)
+        # the leaves' sphere tests the rays need and the dense stages; the
+        # box tests are left out (fewer than the bytes' time here)
+        flops = (float(alive.sum()) * (
+            lp.big.shape[0] * SPH_FLOPS + tab.rect.shape[0] * RECT_FLOPS
+            + tab.tri.shape[0] * TRI_FLOPS)
+            + float(visits.sum()) * k * SPH_FLOPS)
+        nbytes = n * (24 + 8 + 1 + 20) + sum(
+            x.numel() * x.element_size()
+            for x in (lp.sph, lp.orig, lp.big, lp.big_orig, lp.nbox,
+                      lp.node, tab.rect, tab.tri))
+        row.update(ms=ms, flat_ms=fms, plain_ms=pms,
+                   **bound(flops, nbytes), library_ms=None)
     return row
 
 

@@ -266,10 +266,10 @@ def cull_rays(o, d, tmin, tmax) -> CullRays:
     return CullRays(tuple(o), inv, par, tmin, tmax)
 
 
-def slab(r: CullRays, box, cap):
-    """Inclusive slab test of rays ``r`` against ``box`` (..., 6) for t in
-    [t_min, min(cap, t_max)]; returns (pass, enter, leave) where leave
-    ignores cap and t_max (the stage box's exit t)."""
+def span(r: CullRays, box):
+    """(ok, enter, leave) of rays ``r`` against ``box`` (..., 6): ok is
+    False where the box is inverted or a parallel axis misses; enter starts
+    at t_min, leave ignores t_max (csrc/sweep.cuh::box_span)."""
     ok = box[..., 0] <= box[..., 3]
     tn = r.tmin
     tf = torch.full_like(r.tmin, float("inf"))
@@ -283,6 +283,14 @@ def slab(r: CullRays, box, cap):
                                            torch.minimum(t0, t1)))
         tf = torch.minimum(tf, torch.where(p, float("inf"),
                                            torch.maximum(t0, t1)))
+    return ok, tn, tf
+
+
+def slab(r: CullRays, box, cap):
+    """Inclusive slab test of rays ``r`` against ``box`` (..., 6) for t in
+    [t_min, min(cap, t_max)]; returns (pass, enter, leave) where leave
+    ignores cap and t_max (the stage box's exit t)."""
+    ok, tn, tf = span(r, box)
     hit = ok & (tn <= torch.minimum(tf, torch.minimum(cap, r.tmax)))
     return hit, ok & (tn <= tf), tf
 

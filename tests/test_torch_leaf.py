@@ -344,3 +344,74 @@ def test_cli_leaf_and_bunnies(tmp_path):
     assert cli.load_scene_arg("bunnies", 1.0).triangles.v0.shape[0] == 124200
     with pytest.raises(SystemExit):
         cli.load_scene_arg("bunnies:0", 1.0)
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_leaf_tree_covers_the_leaves(name):
+    """``leaf_tree``: every leaf at one node, each inner node's box the
+    exact union of its children's, breadth-first order, within the
+    kernel's stack."""
+    _, _, tab = scenes(name)
+    lp = tab.leaf
+    node, nbox = lp.node.long(), lp.nbox
+    inner = node[:, 2] < 0
+    assert sorted(node[~inner, 2].tolist()) == list(range(lp.box.shape[0]))
+    assert torch.equal(nbox[~inner], lp.box[node[~inner, 2]])
+    kids = node[inner, :2]
+    assert (kids > torch.nonzero(inner)).all()     # children come later
+    assert sorted(kids.reshape(-1).tolist()) == list(range(1, node.shape[0]))
+    lo = torch.minimum(nbox[kids[:, 0], :3], nbox[kids[:, 1], :3])
+    hi = torch.maximum(nbox[kids[:, 0], 3:], nbox[kids[:, 1], 3:])
+    assert torch.equal(nbox[inner], torch.cat([lo, hi], 1))
+    depth, level = 0, [0]
+    while level:
+        depth += 1
+        level = [c for k in level for c in node[k, :2].tolist() if c >= 0]
+    assert depth <= leaf.STACK
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_leaf_walk_plain_matches_table_order(name):
+    """The plain twin of the kernel's walk (warps of 32 rays down the
+    hierarchy) gives ``leaf_closest_plain``'s outputs bit for bit, with a
+    finite t_max on half the lanes, and folds few leaves."""
+    _, ts, tab = scenes(name)
+    o, d, alive, t_max = make_rays(ts, 11)
+    args = (*tt(o, d), T_MIN, torch.from_numpy(t_max),
+            torch.from_numpy(alive))
+    visits = torch.zeros(o.shape[1], dtype=torch.int32)
+    walk = leaf.leaf_walk_plain(tab, *args, visits=visits)
+    ref = leaf.leaf_closest_plain(tab, *args)
+    for a, b, field in zip(walk, ref, ref._fields):
+        assert torch.equal(a, b), field
+    assert (visits.numpy()[~alive] == 0).all()
+    assert 0 < visits.float().mean() < tab.leaf.box.shape[0] / 2
+
+
+def test_leaf_walk_plain_exact_ties():
+    """Copies of spheres in leaves of one sphere each: at every tie of t
+    the lower scene index wins, whichever leaf the walk visits first, as
+    in ``leaf_closest_plain`` and the flat sweep."""
+    b = SceneBuilder()
+    m = b.lambertian(b.constant_texture((1, 1, 1)))
+    rng = np.random.default_rng(12)
+    centres = rng.uniform(-4, 4, (24, 3))
+    centres[:, 2] -= 10
+    for c in np.concatenate([centres, centres[::-1]]):
+        b.add_sphere(tuple(c), 0.8, m)
+    scene = b.compile()
+    scene = scene._replace(leaf=leaf.build_leaf_tables(scene, leaf_size=1))
+    tab = fused_bounce.pack_tables(scene)
+    o, d = rays(512, [-1, -1, 2], [1, 1, 3], 13)
+    d[2] = -np.abs(d[2]) * 4
+    alive = torch.ones(512, dtype=torch.bool)
+    args = (*tt(o, d), T_MIN, float("inf"), alive)
+    walk = leaf.leaf_walk_plain(tab, *args)
+    ref = leaf.leaf_closest_plain(tab, *args)
+    flat = closest_hit.closest_hit_plain(tab, *args)
+    hit = walk.ty.numpy() == 0
+    assert hit.sum() > 50
+    assert (walk.ix.numpy()[hit] < 24).all()       # the lower of each copy
+    for a, b_, field in zip(walk, ref, ref._fields):
+        assert torch.equal(a, b_), field
+    assert_same_winners(walk, flat, np.ones(512, bool))

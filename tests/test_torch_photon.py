@@ -134,7 +134,16 @@ def test_pack_photons_matches_jax():
     np.testing.assert_array_equal(tp.cull.numpy(), np.asarray(jp[2]))
     # valid photons sit anywhere here: n_live is one past the last one
     assert int(tp.n_live[0]) == np.nonzero(valid)[0][-1] + 1
-    assert (tpq.TILE, tpq.CHUNK, tpq.BIG) == (jpp.TILE, jpp.CHUNK, jpp.BIG)
+    # the chunk boxes are JAX's; the kernel's tile of points is its own
+    assert (tpq.CHUNK, tpq.BIG) == (jpp.CHUNK, jpp.BIG)
+    # the group boxes are JAX's chunk boxes at chunk = GROUP; the port's
+    # padding to whole chunks adds inverted boxes
+    jg = np.asarray(jpp._pack_photons(
+        *(jnp.asarray(x) for x in (pos, power, norm, valid)), tpq.GROUP)[2])
+    k = jg.shape[1]
+    np.testing.assert_array_equal(tp.gcull[:, :k].numpy(), jg)
+    assert (tp.gcull[:3, k:] == np.float32(tpq.BIG)).all()
+    assert (tp.gcull[3:, k:] == -np.float32(tpq.BIG)).all()
 
 
 def test_query_has_no_fallback_off_cpu():
@@ -184,3 +193,90 @@ def test_choose_grid_resolution_matches_jax():
         lo, hi = np.zeros(3), np.asarray(bmax)
         assert tpg.choose_grid_resolution(lo, hi, n, k) == \
             jpg.choose_grid_resolution(lo, hi, n, k)
+
+
+def heavy_case(seed=5, n_ph=12000, n_pts=600):
+    """Cell-sorted photons and points in [-1, 1]^3, with the points of one
+    kernel tile (the second) spread over the whole box: that tile's box
+    passes every chunk, so its chunks are cut into several items. Returns
+    (pos, power, norm, valid, points, radius, cap) as numpy float32 with
+    the photons in the grid's order, valid first."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    pos = rng.uniform(-1, 1, (n_ph, 3)).astype(f)
+    power = rng.uniform(0, 2, (n_ph, 3)).astype(f)
+    norm = rng.normal(size=(n_ph, 3)).astype(f)
+    valid = rng.random(n_ph) < 0.9
+    g = tpg.build_grid(*(t(x) for x in (pos, power, norm, valid, BMIN,
+                                        BMAX)), (8, 8, 8))
+    pos, power, norm = (x.float().numpy() for x in (g.pos, g.power, g.norm))
+    valid = np.arange(n_ph) < int(g.n_valid)
+    points = rng.uniform(-1, 1, (n_pts, 3)).astype(f)
+    cells = tpg.cell_ids(t(points), t(BMIN), t(np.full(3, 8 / 2.4, f)),
+                         (8, 8, 8)).numpy()
+    points = points[np.argsort(cells, kind="stable")]
+    tile = slice(tpq.TILE, 2 * tpq.TILE)
+    points[tile] = rng.uniform(-1, 1, (tpq.TILE, 3)).astype(f)
+    radius = rng.uniform(0.05, 0.15, n_pts).astype(f)
+    return pos, power, norm, valid, points, radius, f(0.2)
+
+
+def heavy_planes():
+    pos, power, norm, valid, points, radius, cap = heavy_case()
+    planes = tpq._pack_photons(*(t(x) for x in (pos, power, norm, valid)))
+    r2 = t(radius * radius)
+    return planes, t(points), r2, torch.full_like(r2, float(cap * cap))
+
+
+@pytest.mark.parametrize("budget", [tpq.BUDGET, 3])
+def test_plan_items_covers_every_live_pair_once(monkeypatch, budget):
+    """The plain twin of the kernel's item list: each tile's items hold its
+    live chunks, each once and in order, at most ic per item; the heavy
+    tile is cut into several items; the item and slot counts stay within
+    the kernel's bounds (tiles + BUDGET items, 2 BUDGET slots), also when
+    a small budget forces larger items."""
+    split = budget == tpq.BUDGET
+    monkeypatch.setattr(tpq, "BUDGET", budget)
+    planes, points, r2, cap2 = heavy_planes()
+    plan = tpq.plan_items(planes, points, r2, cap2)
+    tiles = plan.lo.shape[0]
+    assert plan.live.shape[1] == -(-int(planes.n_live[0]) // tpq.CHUNK)
+    # the heavy tile's box holds the whole cube: every live chunk passes
+    assert bool(plan.live[1].all())
+    slots = 0
+    for tile in range(tiles):
+        items = tpq.item_chunks(plan, tile)
+        assert len(items) == max(1, -(-int(plan.count[tile]) // plan.ic))
+        assert all(len(c) <= plan.ic for c in items)
+        assert torch.equal(torch.cat(items),
+                           torch.nonzero(plan.live[tile])[:, 0])
+        slots += len(items) if len(items) > 1 else 0
+    # a small budget makes the items large enough to hold it whole
+    assert (len(tpq.item_chunks(plan, 1)) > 1) == split
+    assert int(plan.item0[-1]) <= tiles + budget
+    assert slots <= 2 * budget
+    assert plan.ic == max(tpq.ITEM, -(-int(plan.count.sum()) // budget))
+
+
+def test_query_items_matches_float64_oracle():
+    """The kernel's decomposition (items, the group cull) in plain PyTorch
+    on the heavy-tile input: counts exact against the float64 oracle and
+    bit-equal to ``query_photons_plain``, flux to float32 summation; the
+    group cull really drops groups."""
+    pos, power, norm, valid, points, radius, cap = heavy_case()
+    planes, tp, r2, cap2 = heavy_planes()
+    bf = (lambda x: t(x).to(torch.bfloat16).double().numpy())
+    fr, cr, fc, cc = oracle(pos.astype(np.float64), bf(power), bf(norm),
+                            valid, points.astype(np.float64),
+                            radius.astype(np.float64), float(cap))
+    q = tpq.query_items_plain(planes, tp, r2, cap2)
+    ref = tpq.query_photons_plain(planes, tp, r2, cap2)
+    np.testing.assert_array_equal(q.count_r.numpy(), cr)
+    np.testing.assert_array_equal(q.count_cap.numpy(), cc)
+    assert torch.equal(q.count_r, ref.count_r)
+    assert torch.equal(q.count_cap, ref.count_cap)
+    np.testing.assert_allclose(q.flux_r.numpy(), fr, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(q.flux_cap.numpy(), fc, rtol=1e-4, atol=1e-4)
+    chunk_pairs, group_pairs = tpq.kernel_pairs(planes, tp, r2, cap2)
+    per_chunk = tpq.CHUNK // tpq.GROUP
+    assert 0 < group_pairs < chunk_pairs * per_chunk

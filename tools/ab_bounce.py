@@ -1,14 +1,16 @@
-"""Hold every kernel that includes ``csrc/sweep.cuh`` in this checkout
-against the same kernel of another checkout, in one process: the outputs
-bit for bit, the times in turns, and both builds' registers, spills and
-resident blocks. The check that a change to the sweep or the walk left
-every lane's result as it was, and what it did to the time. Two more
-modes measure what limits those kernels and what each design element buys.
+"""Hold every kernel that includes ``csrc/sweep.cuh``, and the photon
+query, in this checkout against the same kernel of another checkout, in
+one process: the outputs bit for bit (the query's counts; its flux within
+``chip_smoke``'s Q_RTOL/Q_ATOL), the times in turns, and both builds'
+registers, spills and resident blocks. The check that a change to the
+sweep, the walk or the query left every lane's result as it was, and what
+it did to the time. Two more modes measure what limits those kernels and
+what each design element buys (all of ``VARIANTS``, or the ones named).
 
     python3 tools/ab_bounce.py OTHER_CHECKOUT [--kernels bounce,...]
                                [--reps 10] [--burst 5]
     python3 tools/ab_bounce.py --limits [OTHER_CHECKOUT]
-    python3 tools/ab_bounce.py --variants
+    python3 tools/ab_bounce.py --variants [NAME ...]
     python3 tools/ab_bounce.py --renders OTHER_CHECKOUT [--repeats 3]
 
 A/B (the default). ``OTHER_CHECKOUT`` is a directory with another tree
@@ -19,8 +21,13 @@ interfaces may differ) and builds its ``csrc`` into its own ``_build``.
 Inputs, made once by this checkout's code (``chip_smoke.py``'s helpers)
 and given to both:
 - scene_500: the 800x600 image rays (480,000 lanes) and a second bounce
-  (``bounce``, ``closest``), the shadow rays of a NEE step (``closest``),
-  and the leaf tables (``leaf``);
+  (``bounce``, ``closest``), the shadow rays of a NEE step (``closest``);
+- ``chip_smoke.leaf_inputs`` (``leaf``): scene_500's camera rays and second
+  bounce with its leaf tables, field64k's camera rays with its 2,048
+  leaves;
+- ``chip_smoke.query_inputs`` (``photon_query``): both maps of a Cornell
+  SPPM iteration at 800x800 / 500,000 photons, whole and at the tenth,
+  and the heavy tile;
 - field64k (sphere_field(65536)): camera rays and a second bounce through
   the walk (``bounce_ordered``, ``closest_ordered``) and the flat kernels,
   and a NEE step's shadow rays (``closest_ordered``);
@@ -33,14 +40,20 @@ and given to both:
   of the lanes.
 Every (input, kernel) is timed in turns, other, this, this, other, each
 turn the median of ``--reps`` (10) CUDA-event timings, each timing a
-burst of ``--burst`` (5) launches back to back (divided by the burst), so
-that the
-host's work for one launch overlaps the kernel before it and the time is
-the card's; the spread is the larger gap between one version's two turns.
+burst of ``--burst`` (5) launches back to back (divided by the burst; the
+leaf kernel and the query at bursts of 5 and of 50, ``BURSTS``), so that
+the host's work for one launch overlaps the kernel before it and the time
+is the card's; the spread is the larger gap between one version's two
+turns. Where the host takes longer to issue a call than the card to run
+it, a burst measures the host: so the kernels of ``BURSTS`` are also
+timed by ``torch.profiler`` (``device_ms``, the device time of the
+repository's kernels per call), in turns.
 ``--kernels`` keeps only the named kernels (all by default). ``stats`` is
 not compared (its shape follows the design). Where outputs differ, the
 first lanes are printed with both winners, the flat tables' winner and
-each winner's float64 t. Exits 1 if any output differs.
+each winner's float64 t. Exits 1 if any output differs, but for a walk's
+lane whose winner in one version is a float32 false hit (``explainer``,
+``leaf_explainer``).
 
 ``--limits``: for this checkout's kernels (and first for those of
 ``OTHER_CHECKOUT``, given):
@@ -60,7 +73,10 @@ each winner's float64 t. Exits 1 if any output differs.
 - the ordered walk's chunk bodies on the step of a field64k render that
   ``chip_smoke.py`` captures (``regen_capture``), from ``walk_plain`` per
   warp of 32 and per block of 128 lanes, with the dead lanes in live
-  groups.
+  groups;
+- this checkout's photon query on ``chip_smoke.query_inputs``: each of its
+  kernels' device time (``torch.profiler``) and the host's time to issue
+  one call.
 
 ``--renders``: the scene_500 renders whose time the host holds most (800x600,
 32 spp, RR off, with NEE and through ``--intersector leaf``), each
@@ -69,11 +85,12 @@ checkout's ``chip_smoke.timed_render`` in a process of its own, in turns
 1-spp warm-up; the medians per version and the spread of the turns.
 
 ``--variants``: for each design element, a copy of this checkout's
-package with that element taken out (one substitution in its CUDA
-sources, ``VARIANTS``), in ``output/variants/<name>/`` (``output/`` is not
+package with that element taken out (one substitution in its sources,
+``VARIANTS``), in ``output/variants/<name>/`` (``output/`` is not
 committed), held against this checkout by the A/B on the kernels the
-element touches. The outputs must stay bit-identical; the speed-up of
-"this" over the copy is what the element buys.
+element touches. The outputs must stay as the A/B holds them (bit for
+bit; the query's flux within tolerance); the speed-up of "this" over the
+copy is what the element buys.
 
 Every mode needs a CUDA device. Files go to ``--out`` (OUT, by default
 ``output/ab_bounce``): the A/B's rows as JSON, the SASS dumps.
@@ -106,9 +123,9 @@ import chip_smoke  # noqa: E402  (it imports the package lazily)
 
 PKG = "raytracer_tpu_torch"
 NAMES = ("bounce", "closest", "regen", "bounce_ordered", "closest_ordered",
-         "regen_ordered", "leaf")
+         "regen_ordered", "leaf", "photon_query")
 MODULES = ("kernels.build", "ops.fused_bounce", "ops.closest_hit",
-           "ops.regen", "ops.leaf")
+           "ops.regen", "ops.leaf", "ops.photon_query")
 
 
 def log(msg):
@@ -146,18 +163,20 @@ def differ(a, b) -> list:
 
 
 REPS, BURST = 10, 5      # timings per turn, launches per timing
+# the kernels timed at bursts of 5 and of 50 (--burst sets the others')
+BURSTS = {"leaf": (5, 50), "photon_query": (5, 50)}
 OUT = ROOT / "output" / "ab_bounce"   # --out: where files are written
 KERNELS = None          # --kernels: the kernel names to run, None for all
 
 
-def turn(fn, prep) -> float:
-    """Median of REPS CUDA-event timings of BURST calls ``fn(prep())``
+def turn(fn, prep, burst: int) -> float:
+    """Median of REPS CUDA-event timings of ``burst`` calls ``fn(prep())``
     back to back, per call, after one warm call; ``prep`` is not timed."""
     fn(prep())
     torch.cuda.synchronize()
     times = []
     for _ in range(REPS):
-        args = [prep() for _ in range(BURST)]
+        args = [prep() for _ in range(burst)]
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -165,8 +184,28 @@ def turn(fn, prep) -> float:
             fn(arg)
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b) / BURST)
+        times.append(a.elapsed_time(b) / burst)
     return float(np.median(times))
+
+
+def device_ms(fn, prep, calls: int = 20) -> float:
+    """Device time per call of ``fn(prep())``: the time of the repository's
+    own kernels (``(anonymous namespace)::``) under ``torch.profiler`` over
+    ``calls`` calls, divided by the calls. Unlike a burst's CUDA-event time
+    it does not grow when the host issues calls slower than the card runs
+    them."""
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    args = [prep() for _ in range(calls)]
+    fn(args[0])
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=act) as prof:
+        for arg in args:
+            fn(arg)
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "anonymous namespace" in e.key) / calls / 1e3
 
 
 def lane_rows(outs, lane) -> list:
@@ -190,50 +229,92 @@ def agree(out, ref) -> torch.Tensor:
     return ok
 
 
-def ab_case(label, kernel, run_this, run_other, prep=lambda: None,
-            rows=None, explain=None):
-    """Compare and time one input on one kernel; ``run_*(arg)`` launch it
-    and return its outputs. ``explain(lanes, out_this)``, for the walk's
-    kernels, prints the lanes that differ and returns which of them are
-    explained by a float32 false hit of the other version
-    (``explainer``)."""
-    if KERNELS is not None and kernel not in KERNELS:
-        return True
-    out_this = [x.clone() for x in run_this(prep())]
-    out_other = [x.clone() for x in run_other(prep())]
-    torch.cuda.synchronize()
+def bit_diff(out_this, out_other):
+    """(indices of the outputs that differ, per lane: does any differ?),
+    bit for bit."""
     bad = differ(out_this, out_other)
     where = torch.zeros(out_this[0].shape[-1], dtype=torch.bool,
                         device=out_this[0].device)
     for k in bad:
         ne = bits(out_this[k]) != bits(out_other[k])
         where |= ne.reshape(-1, ne.shape[-1]).any(0)
+    return bad, where
+
+
+def query_diff(out_this, out_other):
+    """``bit_diff`` for a photon query's [count_r, count_cap, flux_r,
+    flux_cap] (points on the last axis): counts bit for bit, flux within
+    ``chip_smoke``'s Q_RTOL |other| + Q_ATOL max |other|."""
+    bad = [k for k in (0, 1) if not torch.equal(out_this[k], out_other[k])]
+    where = (out_this[0] != out_other[0]) | (out_this[1] != out_other[1])
+    for k in (2, 3):
+        a, b = out_this[k].double(), out_other[k].double()
+        lim = (chip_smoke.Q_RTOL * b.abs()
+               + chip_smoke.Q_ATOL * b.abs().max().clamp(min=1e-30))
+        off = ((a - b).abs() > lim).any(0)
+        if bool(off.any()):
+            bad.append(k)
+        where |= off
+    return bad, where
+
+
+def ab_case(label, kernel, run_this, run_other, prep=lambda: None,
+            rows=None, explain=None, diff=bit_diff):
+    """Compare and time one input on one kernel; ``run_*(arg)`` launch it
+    and return its outputs. ``explain(lanes, out_this, out_other)``, for
+    the walks' kernels, prints the lanes that differ and returns which of them are
+    explained by a float32 false hit (``explainer``). ``diff``: which
+    outputs and lanes differ (``bit_diff``, or ``query_diff``)."""
+    if KERNELS is not None and kernel not in KERNELS:
+        return True
+    out_this = [x.clone() for x in run_this(prep())]
+    out_other = [x.clone() for x in run_other(prep())]
+    torch.cuda.synchronize()
+    bad, where = diff(out_this, out_other)
     lanes = int(where.sum())
     for lane in torch.nonzero(where)[:4, 0].tolist():
         log(f"  lane {lane}: this {lane_rows(out_this, lane)}, other "
             f"{lane_rows(out_other, lane)}")
     false = 0
     if lanes and explain is not None:
-        expl = explain(torch.nonzero(where)[:, 0], out_this)
+        expl = explain(torch.nonzero(where)[:, 0], out_this, out_other)
         if bool(expl.all()):
             false, bad = lanes, []
-    t = [turn(run_other, prep), turn(run_this, prep), turn(run_this, prep),
-         turn(run_other, prep)]
-    other, this = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
-    spread = max(abs(t[0] - t[3]), abs(t[1] - t[2]))
-    log(f"{label}: {kernel}: "
-        + ("bit-identical" if not bad
-           else f"outputs {bad} DIFFER on {lanes} lanes")
-        + (f" but for {false} lane(s) where the other's winner is a "
-           "float32 false hit outside its chunk's box" if false else "")
-        + f"; other {t[0]:.4f}, {t[3]:.4f} ms, this {t[1]:.4f}, "
-        f"{t[2]:.4f} ms; x{other / this:.3f} (spread {spread:.4f} ms)")
-    if rows is not None:
-        rows.append({"input": label, "kernel": kernel, "same": not bad,
-                     "lanes_differing": lanes, "false_hit_lanes": false,
-                     "other_ms": [t[0], t[3]],
-                     "this_ms": [t[1], t[2]], "speedup": other / this,
-                     "spread_ms": spread})
+    same = ("bit-identical" if diff is bit_diff else
+            "counts bit-equal, flux within Q_RTOL/Q_ATOL")
+    dev = {}
+    if kernel in BURSTS:
+        dev = {"other_device_ms": [device_ms(run_other, prep)],
+               "this_device_ms": [device_ms(run_this, prep)]}
+        dev["other_device_ms"].append(device_ms(run_other, prep))
+        dev["this_device_ms"].insert(0, device_ms(run_this, prep))
+        o, t = (float(np.mean(dev[k])) for k in ("other_device_ms",
+                                                  "this_device_ms"))
+        log(f"{label}: {kernel}: device time per call (profiler, turns "
+            f"other, this, this, other): other "
+            f"{dev['other_device_ms'][0]:.4f}, "
+            f"{dev['other_device_ms'][1]:.4f} ms, this "
+            f"{dev['this_device_ms'][0]:.4f}, {dev['this_device_ms'][1]:.4f}"
+            f" ms; x{o / t:.3f}")
+    for burst in BURSTS.get(kernel, (BURST,)):
+        t = [turn(run_other, prep, burst), turn(run_this, prep, burst),
+             turn(run_this, prep, burst), turn(run_other, prep, burst)]
+        other, this = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        spread = max(abs(t[0] - t[3]), abs(t[1] - t[2]))
+        log(f"{label}: {kernel}: "
+            + (same if not bad
+               else f"outputs {bad} DIFFER on {lanes} lanes")
+            + (f" but for {false} lane(s) where a winner is a float32 false "
+               "hit outside its box" if false else "")
+            + f"; bursts of {burst}: other {t[0]:.4f}, {t[3]:.4f} ms, this "
+            f"{t[1]:.4f}, {t[2]:.4f} ms; x{other / this:.3f} (spread "
+            f"{spread:.4f} ms)")
+        if rows is not None:
+            rows.append({"input": label, "kernel": kernel, "same": not bad,
+                         "lanes_differing": lanes, "false_hit_lanes": false,
+                         "burst": burst, **dev, "other_ms": [t[0], t[3]],
+                         "this_ms": [t[1], t[2]], "speedup": other / this,
+                         "spread_ms": spread})
     return not bad
 
 
@@ -274,7 +355,7 @@ def explainer(this, other, tab, flat, o, d, t_min, alive, tm, outputs_ok):
     (``closest_ordered_plain``, groups of 32: type and index), and
     ``outputs_ok(lanes, out_this, win_this, win_plain)`` (per lane) holds:
     this version's outputs are the plain version's for that winner."""
-    def explain(lanes, out_this):
+    def explain(lanes, out_this, _):
         w = {tag: m.closest_hit.closest_tables(
             tab, o, d, t_min, float("inf"), alive, time=tm)
              for tag, m in (("this", this), ("other", other))}
@@ -492,6 +573,36 @@ def report_walk(dev):
 
 
 
+def report_query(dev):
+    """Where one photon query's time goes, on ``chip_smoke.query_inputs``:
+    the device time of each of its kernels under ``torch.profiler`` over
+    a burst of 20 calls, and the host's time to issue one call (50 calls
+    without a sync, by the host clock)."""
+    from raytracer_tpu_torch.ops import photon_query as pq
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    for label, planes, pts, r2, cap2 in chip_smoke.query_inputs(dev):
+        def call():
+            return pq.query_planes(planes, pts, r2, cap2)
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            call()
+        host = (time.perf_counter() - t0) / 50
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=act) as prof:
+            for _ in range(20):
+                call()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        log(f"query, {label}: host {host * 1e3:.4f} ms to issue a call; "
+            "device per call: " + ", ".join(
+                f"{e.key[:40]} {e.self_device_time_total / 20e3:.4f} ms"
+                for e in sorted(rows, key=lambda e: -e.self_device_time_total)))
+
+
 # ---- the A/B
 
 def report_builds(trees):
@@ -513,7 +624,9 @@ def report_builds(trees):
 def flat_cases(trees, rows, dev):
     cs = chip_smoke
     from raytracer_tpu_torch.ops import fused_bounce as fb
-    from raytracer_tpu_torch.ops import leaf as leaf_ops
+    if KERNELS is not None and not any(
+            k.startswith(("bounce", "closest")) for k in KERNELS):
+        return True
     this, other = trees["this"], trees["other"]
     inf = float("inf")
     ok = True
@@ -570,10 +683,6 @@ def flat_cases(trees, rows, dev):
     o, d, alive, uni = cs.image_rays(s500, 7, dev)
     rays_cases("scene_500", tab, o, d, alive, uni, seed=7)
     shadow_case("scene_500 NEE shadow rays", s500)
-    ltab = fb.pack_tables(leaf_ops.with_leaf_tables(s500).to(dev))
-    ok &= both("scene_500 camera rays", "leaf",
-               lambda m, _: list(m.leaf.leaf_closest(ltab, o, d, cs.T_MIN,
-                                                     inf, alive)))
 
     for name, seed in (("field64k", 20), ("bunny_field", 21)):
         scene = cs.large_scene(name)
@@ -595,6 +704,75 @@ def flat_cases(trees, rows, dev):
         rays_cases(f"motion{n_mov}", tab, o, d, alive, uni, tm, seed,
                    fb.pack_tables(scene.to(dev), order=False)
                    if tab.ordered else None)
+    return ok
+
+
+def leaf_false_hits(tab, o, d, win, lanes) -> torch.Tensor:
+    """Per lane of ``lanes``: is the winner ``win`` (t, ty, ix rows) a leaf
+    sphere that float64 misses (disc < 0) or hits at a float32 t whose
+    point lies outside its leaf's box? A leaf walk keeps such a winner only
+    where its lane tests that leaf, which depends on the visit order."""
+    lp = tab.leaf
+    t, ty, ix = (x[lanes] for x in win[:3])
+    k = ix.clamp(min=0).long()
+    c, r2 = tab.sph[k, :3].double(), tab.sph[k, 3].double()
+    ol, dl = o[:, lanes].T.double(), d[:, lanes].T.double()
+    oc = ol - c
+    a, hb = (dl * dl).sum(1), (oc * dl).sum(1)
+    disc = hb * hb - a * ((oc * oc).sum(1) - r2)
+    real = lp.orig >= 0
+    slot = torch.full((tab.sph.shape[0],), -1, dtype=torch.long,
+                      device=o.device)
+    slot[lp.orig[real].long()] = torch.nonzero(real)[:, 0]
+    in_leaf = slot[k] >= 0
+    per = lp.sph.shape[0] // lp.box.shape[0]
+    box = lp.box[slot[k].clamp(min=0) // per].double()
+    p = ol + t.double()[:, None] * dl
+    inside = ((p >= box[:, :3]) & (p <= box[:, 3:])).all(1)
+    return (ty == 0) & in_leaf & ((disc < 0) | ~inside)
+
+
+def leaf_explainer(this, tab, o, d, alive):
+    """``explain`` for the leaf kernel: a lane is explained where one of
+    the two winners is a ``leaf_false_hits`` winner and this version's
+    winner is its plain walk's (``leaf_walk_plain``: type and index)."""
+    def explain(lanes, out_this, out_other):
+        inf = float("inf")
+        pw = this.leaf.leaf_walk_plain(tab, o, d, chip_smoke.T_MIN, inf,
+                                       alive)
+        fh = (leaf_false_hits(tab, o, d, out_this, lanes)
+              | leaf_false_hits(tab, o, d, out_other, lanes))
+        walked = ((out_this[1][lanes] == pw.ty[lanes])
+                  & (out_this[2][lanes] == pw.ix[lanes]))
+        log(f"  {int(fh.sum())} of {len(lanes)} lane(s) with a float32 false "
+            f"hit, {int(walked.sum())} with the plain walk's winner")
+        return fh & walked
+    return explain
+
+
+def leaf_query_cases(trees, rows, dev):
+    """The two kernels this checkout redesigned over the parent's: the leaf
+    kernel on ``chip_smoke.leaf_inputs`` and the photon query on
+    ``chip_smoke.query_inputs`` (both Cornell maps whole and at the tenth,
+    and the heavy tile)."""
+    cs = chip_smoke
+    this, other = trees["this"], trees["other"]
+    inf = float("inf")
+    ok = True
+    if KERNELS is None or "leaf" in KERNELS:
+        for label, _, tab, o, d, alive in cs.leaf_inputs(dev):
+            ok &= ab_case(
+                label, "leaf",
+                *(lambda _, m=m: list(m.leaf.leaf_closest(
+                    tab, o, d, cs.T_MIN, inf, alive)) for m in (this, other)),
+                rows=rows, explain=leaf_explainer(this, tab, o, d, alive))
+    if KERNELS is None or "photon_query" in KERNELS:
+        for label, planes, pts, r2, cap2 in cs.query_inputs(dev):
+            def run(m):
+                q = m.photon_query.query_planes(planes, pts, r2, cap2)
+                return [q.count_r, q.count_cap, q.flux_r.T, q.flux_cap.T]
+            ok &= ab_case(label, "photon_query", lambda _: run(this),
+                          lambda _: run(other), rows=rows, diff=query_diff)
     return ok
 
 
@@ -648,16 +826,42 @@ def regen_cases(trees, rows, dev):
 
 # ---- --variants: what each design element buys
 
-# name -> (substitutions (file under csrc, old, new), kernels to run)
+# name -> (substitutions (file under the package, old, new), kernels to run)
 VARIANTS = {
     # one ray per thread in the flat kernels (256-lane tiles become 128)
-    "one_ray": ([(f, "constexpr int RAYS = 2;", "constexpr int RAYS = 1;")
+    "one_ray": ([(f"csrc/{f}", "constexpr int RAYS = 2;",
+                  "constexpr int RAYS = 1;")
                  for f in ("bounce.cu", "closest.cu", "regen.cu")],
                 "bounce,closest,regen,bounce_motion,regen_motion"),
-    # one sphere per group: a branch per pair, in the sweep and the walk
-    "no_group": ([("sweep.cuh", "constexpr int UNROLL = 4;",
+    # one sphere per group: a branch per pair, in the sweep, the walk and
+    # the leaf kernel
+    "no_group": ([("csrc/sweep.cuh", "constexpr int UNROLL = 4;",
                    "constexpr int UNROLL = 1;")],
-                 "bounce,regen,bounce_ordered,regen_ordered"),
+                 "bounce,regen,bounce_ordered,regen_ordered,leaf"),
+    # the photon query: one item per tile (no split of a tile's chunks)
+    "query_no_split": ([("csrc/photon_query.cu", "constexpr int ITEM = 4;",
+                         "constexpr int ITEM = 1 << 24;"),
+                        ("ops/photon_query.py", "ITEM = 4 ",
+                         "ITEM = 1 << 24 ")], "photon_query"),
+    # ... one warp per item, not four sharing its groups
+    "query_one_warp": ([("csrc/photon_query.cu", "constexpr int SPLIT = 4;",
+                         "constexpr int SPLIT = 1;")], "photon_query"),
+    # ... every group of a live chunk folded (the tile's chunk cull alone)
+    "query_no_group_cull": ([("csrc/photon_query.cu",
+                              "constexpr bool GROUP_CULL = true;",
+                              "constexpr bool GROUP_CULL = false;")],
+                            "photon_query"),
+    # ... one point per lane (tiles of 32 points)
+    "query_one_point": ([("csrc/photon_query.cu", "constexpr int PTS = 2;",
+                          "constexpr int PTS = 1;"),
+                         ("ops/photon_query.py", "TILE = 64 ",
+                          "TILE = 32 ")], "photon_query"),
+    # the leaf walk: no node boxes staged in shared memory
+    "leaf_no_stage": ([("csrc/leaf.cu", "constexpr int NODE_STAGE = 256;",
+                        "constexpr int NODE_STAGE = 0;")], "leaf"),
+    # ... the left child first, not the one most lanes enter first
+    "leaf_left_first": ([("csrc/leaf.cu", "constexpr bool NEAR_FIRST = true;",
+                          "constexpr bool NEAR_FIRST = false;")], "leaf"),
 }
 
 
@@ -669,7 +873,7 @@ def make_variant(name: str) -> Path:
     shutil.copytree(ROOT / PKG, root / PKG,
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     for fname, old, new in VARIANTS[name][0]:
-        path = root / PKG / "csrc" / fname
+        path = root / PKG / fname
         text = path.read_text()
         if old not in text:
             raise SystemExit(f"{name}: {old!r} not in {fname}")
@@ -678,14 +882,20 @@ def make_variant(name: str) -> Path:
 
 
 
-def run_variants() -> int:
+def run_variants(names) -> int:
+    """A/B this checkout against each variant named (all by default), on
+    the kernels the variant touches that ``--kernels`` keeps."""
     rc = 0
-    for name in VARIANTS:
+    for name in names or VARIANTS:
+        kernels = [k for k in VARIANTS[name][1].split(",")
+                   if KERNELS is None or k in KERNELS]
+        if not kernels:
+            continue
         root = make_variant(name)
         log(f"== variant {name}: this checkout against it")
         rc |= subprocess.run(
             [sys.executable, __file__, str(root),
-             "--kernels", VARIANTS[name][1],
+             "--kernels", ",".join(kernels),
              "--out", str(OUT), "--json", str(OUT / f"ab_{name}.json")]
         ).returncode
     return rc
@@ -757,6 +967,7 @@ def run_limits(other) -> int:
         report_clock(m.fused_bounce, tag, tab, o, d, alive, uni)
     report_root_share(tab, o, d, alive)
     report_walk(dev)
+    report_query(dev)
     return 0
 
 
@@ -773,6 +984,7 @@ def run_ab(other, json_path: str) -> int:
     rows = []
     ok = flat_cases(trees, rows, dev)
     ok &= regen_cases(trees, rows, dev)
+    ok &= leaf_query_cases(trees, rows, dev)
     Path(json_path).parent.mkdir(parents=True, exist_ok=True)
     Path(json_path).write_text(json.dumps(rows, indent=1))
     log(f"{sum(r['same'] for r in rows)} of {len(rows)} (input, kernel) "
@@ -785,7 +997,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", nargs="?")
     ap.add_argument("--limits", action="store_true")
-    ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--variants", nargs="*", default=None,
+                    choices=list(VARIANTS))
     ap.add_argument("--renders", action="store_true")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--reps", type=int, default=REPS)
@@ -795,7 +1008,7 @@ def main() -> int:
     ap.add_argument("--json", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available() or not (args.other or args.limits
-                                             or args.variants):
+                                             or args.variants is not None):
         print(__doc__, file=sys.stderr)
         return 2
     KERNELS = None if args.kernels is None else args.kernels.split(",")
@@ -804,8 +1017,8 @@ def main() -> int:
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True).stdout.strip())
-    if args.variants:
-        return run_variants()
+    if args.variants is not None:
+        return run_variants(args.variants)
     if args.limits:
         return run_limits(args.other)
     if args.renders:
