@@ -86,7 +86,21 @@ Phases, each of which raises on failure (exit code non-zero):
    shadow-ray offset is larger than the spheres at this scene's scale),
    with a frozen shutter (the image must differ), and
    ``motion_field(65536)`` through the ordered and the flat route (means
-   and rays within 0.5%) and with NEE.
+   and rays within 0.5%) and with NEE;
+16. media and textures (the unfused stage): the closest-hit kernel on
+   ``cornell_smoke``'s 160,000 camera rays (rects only: no sphere or
+   triangle) against its plain version with phase 8's tolerances;
+   ``cornell_smoke`` at ``bench.py:150-155``'s settings (400x400, 32 spp,
+   ``spp_chunk=4``, depth 16, RR on) and ``cornell_box()`` at the same, in
+   two turns (the media tax, as ``bench.py:154`` takes it), the smoke's
+   mean below ``cornell_box(with_mesh=False)``'s; the kernel route against
+   the brute-force route on smoke at 400x400, 8 spp (the bands of
+   ``tests/test_extensions.py:296-300``); ``textured_spheres`` (an image
+   sphere with a seeded 512x1024 image, a marble sphere, a visible sphere
+   light) at 800x600, 32 spp, depth 16, then with NEE and with MIS at 8
+   spp (means within 3% of plain PT's) and through the leaf route (within
+   ``LEAF_TOL``); two SPPM iterations on it at 400x400 with 100,000
+   photons. Each render with its seconds, rays, Mrays/s and launches.
 
 It imports no JAX. The line before the last is a JSON object with the
 kernels' launches, errors, times and bounds; the last line is
@@ -174,6 +188,13 @@ FIELD_N, BUNNIES = 65536, 25
 LARGE_SPP = 8           # the route check, bunny_field and NEE renders
 ROUTE_TOL = 0.005       # image means and ray counts, ordered vs flat route
 LEAF_TOL = 0.005        # the leaf render's mean against phase 6's
+# Phase 16: bench.py:150-155's media settings (its depth 16, t_min 1e-3
+# and spawn_eps_rel 1e-5 are DEPTH, T_MIN and EPS_REL), the route check's
+# size, and the textured scene's SPPM
+SMOKE_KW = dict(width=400, height=400, spp=32, spp_chunk=4)
+SMOKE_ROUTE_SPP = 8
+BAND_MEAN, BAND_DIFF = 0.05, 0.08   # tests/test_extensions.py:296-300
+TEX_SPPM = dict(width=400, height=400, photons=100_000, iters=2, spp=4)
 # A winner flip is excused only where the ray's float64 distance from the
 # winner's silhouette is within EDGE_ULPS and within EDGE_R2 of r^2, so
 # that no band covers a whole sphere: at field64k distances (|o - c|^2 up
@@ -1695,9 +1716,11 @@ def zero_counts():
 
 
 def timed_render(tag, scene, dev, *, spp, rr=True, seed=1, tables=None,
-                 loop_step=False, stats=None, **kw):
-    """One render at 800x600, depth 16, spp_chunk 1, with every kernel
-    count set to 0 just before and read just after. Through
+                 loop_step=False, stats=None, width=WIDTH, height=HEIGHT,
+                 spp_chunk=1, **kw):
+    """One render at ``width`` x ``height`` (800x600), depth 16,
+    ``spp_chunk`` (1), with every kernel count set to 0 just before and
+    read just after. Through
     ``path_tracer.render``, or ``render_fn`` when ``tables`` forces a
     route; ``loop_step`` takes the loop's own step where the one-kernel
     step would run (the test hook ``wavefront_soa._ONE_KERNEL_STEP``);
@@ -1707,8 +1730,8 @@ def timed_render(tag, scene, dev, *, spp, rr=True, seed=1, tables=None,
     from raytracer_tpu_torch.models import wavefront_soa
     from raytracer_tpu_torch.utils.config import RenderConfig
     from raytracer_tpu_torch.utils.image import save_render
-    cfg = RenderConfig(width=WIDTH, height=HEIGHT, samples_per_pixel=spp,
-                       spp_chunk=1, max_depth=DEPTH, t_min=T_MIN,
+    cfg = RenderConfig(width=width, height=height, samples_per_pixel=spp,
+                       spp_chunk=spp_chunk, max_depth=DEPTH, t_min=T_MIN,
                        spawn_eps_rel=EPS_REL, russian_roulette=rr, **kw)
     stats = {} if stats is None else stats
     torch.cuda.synchronize()
@@ -1722,7 +1745,7 @@ def timed_render(tag, scene, dev, *, spp, rr=True, seed=1, tables=None,
         else:
             img, rays = path_tracer.render_fn(
                 scene, torch.Generator(device=dev).manual_seed(seed),
-                width=WIDTH, height=HEIGHT, spp=spp, spp_chunk=1,
+                width=width, height=height, spp=spp, spp_chunk=spp_chunk,
                 max_depth=DEPTH, t_min=T_MIN, spawn_eps_rel=EPS_REL,
                 intersector=cfg.intersector, russian_roulette=rr,
                 nee=cfg.nee, mis=cfg.mis, device=dev, tables=tables,
@@ -1735,10 +1758,11 @@ def timed_render(tag, scene, dev, *, spp, rr=True, seed=1, tables=None,
     host = img.cpu().numpy()
     extra = (f"; shadow lanes {stats['shadow_lanes']}; steps "
              f"{stats['steps']}" if "shadow_lanes" in stats else "")
-    log(f"render {tag}: {WIDTH}x{HEIGHT} {spp} spp depth {DEPTH} RR "
-        f"{'on' if rr else 'off'}: {rays} rays in {dt:.4f} s = "
-        f"{rays / dt / 1e6:.4f} Mrays/s; launches {launches}{extra}; image "
-        f"mean {host.mean():.6f}")
+    log(f"render {tag}: {width}x{height} {spp} spp (spp_chunk {spp_chunk}) "
+        f"depth {DEPTH} RR {'on' if rr else 'off'} route {cfg.intersector}: "
+        f"{rays} rays in {dt:.4f} s = {rays / dt / 1e6:.4f} Mrays/s; closest "
+        f"launches {launches.get('closest', 0)}; launches {launches}{extra}; "
+        f"image mean {host.mean():.6f}")
     if not (np.isfinite(host).all() and host.mean() > 0 and rays > 0):
         raise AssertionError(f"{tag}: image not finite and positive")
     save_render(os.path.join(ROOT, "output", f"chip_smoke_{tag}.png"), host)
@@ -2437,6 +2461,165 @@ def motion_renders() -> dict:
     return total
 
 
+# ----------------------------------------------------------------- phase 16
+
+def bands(name, img, ref):
+    """tests/test_extensions.py:296-300: gamma mean within 5%, mean
+    |gamma diff| < 0.08."""
+    a, b = (np.sqrt(np.clip(x, 0, None)) for x in (img, ref))
+    dm = a.mean() / b.mean() - 1
+    diff = float(np.abs(a - b).mean())
+    log(f"{name}: gamma means {a.mean():.6f} vs {b.mean():.6f} "
+        f"({dm * 100:+.4f}%), mean |diff| {diff:.4f}")
+    if not (abs(dm) < BAND_MEAN and diff < BAND_DIFF):
+        raise AssertionError(f"{name}: outside the bands")
+
+
+def check_smoke_closest() -> float:
+    """The closest-hit kernel on cornell_smoke's camera rays (rects only)
+    against its plain version. Returns the max |t| difference."""
+    from raytracer_tpu_torch.ops import closest_hit as ch
+    from raytracer_tpu_torch.ops import fused_bounce as fb
+    from raytracer_tpu_torch.scene.builtin import cornell_smoke
+    dev = torch.device(DEV)
+    w = SMOKE_KW["width"]
+    scene = cornell_smoke(1.0)
+    tab = fb.pack_tables(scene.to(dev))
+    if tab.sph.shape[0] or tab.tri.shape[0] or not tab.rect.shape[0]:
+        raise AssertionError("cornell_smoke is not rects only")
+    o, d, alive, _ = make_rays(scene, 16, w * w, w, w, 1.0, dev)
+    inf = float("inf")
+    out = ch.closest_tables(tab, o, d, T_MIN, inf, alive)
+    torch.cuda.synchronize()
+    ref = ch.closest_hit_plain(tab, o, d, T_MIN, inf, alive)
+    err = compare_closest(f"cornell_smoke {w * w} camera rays", scene, tab,
+                          o, d, T_MIN, inf, alive, out, ref)
+    ms = cuda_ms(lambda: ch.closest_tables(tab, o, d, T_MIN, inf, alive))
+    log(f"closest hit at cornell_smoke's {w * w} camera rays x "
+        f"{tab.rect.shape[0]} rects: kernel {ms:.4f} ms")
+    return err
+
+
+def textured_scene(aspect: float):
+    """``textured_spheres`` with its default image: 512x1024, made by numpy
+    from a seed (no PIL on the card)."""
+    from raytracer_tpu_torch.scene.builtin import textured_spheres
+    scene = textured_spheres(aspect)
+    if tuple(scene.images.shape) != (1, 512, 1024, 3):
+        raise AssertionError(f"texture atlas {tuple(scene.images.shape)}")
+    return scene
+
+
+def media_textures() -> dict:
+    """Phase 16. Returns the summed launches of its renders and the
+    closest kernel's max error on smoke's camera rays."""
+    from raytracer_tpu_torch.models import sppm
+    from raytracer_tpu_torch.ops.leaf import build_leaf_tables
+    from raytracer_tpu_torch.scene.builtin import cornell_box, cornell_smoke
+    from raytracer_tpu_torch.utils.config import RenderConfig, SPPMConfig
+    dev = torch.device(DEV)
+    total = {}
+
+    def add(launches, *need):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        for k in need:
+            if not launches.get(k):
+                raise AssertionError(f"the render launched no {k} kernel")
+
+    err = check_smoke_closest()
+    smoke = cornell_smoke(1.0).to(dev)
+    box = cornell_box(1.0).to(dev)
+    timed_render("smoke_warm", smoke, dev, **{**SMOKE_KW, "spp": 4})
+    times = {"smoke": [], "cornell": []}
+    for turn in range(2):
+        img_s, _, dt, l_s = timed_render(f"smoke_{turn}", smoke, dev,
+                                          seed=turn, **SMOKE_KW)
+        add(l_s, "closest")
+        if l_s.get("regen") or l_s.get("bounce"):
+            raise AssertionError("the media scene took the fused kernels")
+        times["smoke"].append(dt)
+        _, _, dt, l_c = timed_render(f"cornell_{turn}", box, dev, seed=turn,
+                                     **SMOKE_KW)
+        add(l_c, "regen")
+        times["cornell"].append(dt)
+    img_p, _, _, l_p = timed_render("cornell_no_mesh", cornell_box(
+        1.0, with_mesh=False).to(dev), dev, **SMOKE_KW)
+    add(l_p)
+    log(f"media tax (smoke / cornell_box() at the same settings, per turn): "
+        + ", ".join(f"{a / b:.4f}" for a, b in zip(times["smoke"],
+                                                   times["cornell"]))
+        + f"; smoke mean {img_s.mean():.6f} vs cornell without mesh "
+        f"{img_p.mean():.6f}")
+    if not img_s.mean() < img_p.mean():
+        raise AssertionError("the smoke does not darken the box")
+    routes = {}
+    for route in ("pallas", "bruteforce"):
+        img, _, _, l_r = timed_render(
+            f"smoke_{route}", smoke, dev, seed=7, intersector=route,
+            **{**SMOKE_KW, "spp": SMOKE_ROUTE_SPP})
+        add(l_r)
+        if (route == "pallas") != bool(l_r.get("closest")):
+            raise AssertionError(f"route {route}: closest launches {l_r}")
+        routes[route] = img
+    bands(f"smoke kernel route vs brute-force route, {SMOKE_ROUTE_SPP} spp",
+          routes["pallas"], routes["bruteforce"])
+
+    tex = textured_scene(WIDTH / HEIGHT).to(dev)
+    img_t, _, _, l_t = timed_render("textured", tex, dev, spp=SPP)
+    add(l_t, "closest")
+    if l_t.get("regen") or l_t.get("bounce"):
+        raise AssertionError("the textured scene took the fused kernels")
+    pt8, _, _, l_8 = timed_render("textured_8", tex, dev, spp=LARGE_SPP)
+    add(l_8, "closest")
+    for kw in (dict(nee=True), dict(mis=True)):
+        img, _, _, l_k = timed_render(f"textured_{list(kw)[0]}", tex, dev,
+                                      spp=LARGE_SPP, **kw)
+        add(l_k, "closest")
+        dm = img.mean() / img_t.mean() - 1
+        log(f"textured {list(kw)[0]}: image mean {img.mean():.6f} against "
+            f"plain PT's {img_t.mean():.6f} ({dm * 100:+.4f}%)")
+        if not abs(dm) <= MEAN_TOL:
+            raise AssertionError(f"textured {kw}: mean off plain PT's")
+    leafy = tex._replace(leaf=build_leaf_tables(tex).to(dev))
+    img_l, _, _, l_l = timed_render("textured_leaf", leafy, dev, spp=SPP,
+                                    intersector="leaf")
+    add(l_l, "leaf")
+    dl = img_l.mean() / img_t.mean() - 1
+    log(f"textured leaf route: image mean {img_l.mean():.6f} against the "
+        f"kernel route's {img_t.mean():.6f} ({dl * 100:+.4f}%)")
+    if not abs(dl) <= LEAF_TOL:
+        raise AssertionError("the textured leaf render is off the kernel "
+                             "route's")
+
+    sp = TEX_SPPM
+    cfg = RenderConfig(
+        width=sp["width"], height=sp["height"], samples_per_pixel=sp["spp"],
+        max_depth=DEPTH, sppm=SPPMConfig(n_iterations=sp["iters"],
+                                         photons_per_iter=sp["photons"]))
+    sppm_tex = textured_scene(sp["width"] / sp["height"]).to(dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    img, rays, state = sppm.render(sppm_tex, cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in counts().items() if v}
+    host = img.cpu().numpy()
+    log(f"sppm textured {sp['width']}x{sp['height']}, {sp['photons']} "
+        f"photons x {sp['iters']} iterations, gather {sp['spp']} spp: "
+        f"{dt:.4f} s, {rays} gather rays; closest launches "
+        f"{launches.get('closest', 0)}; launches {launches}; image mean "
+        f"{host.mean():.6f}")
+    if not (np.isfinite(host).all() and host.mean() > 0
+            and int(state.iteration) == sp["iters"]):
+        raise AssertionError("textured SPPM image is not finite and nonzero")
+    add(launches, "closest", "photon_query")
+    if launches.get("bounce"):
+        raise AssertionError("textured SPPM took the fused bounce")
+    return {"launches": total, "closest_err": err}
+
+
 def main() -> int:
     device = card()
     sys.path.insert(0, ROOT)
@@ -2459,6 +2642,9 @@ def main() -> int:
     f_row = check_fma()
     m_rows = {**check_motion_flat(), **check_motion_ordered()}
     ml = motion_renders()
+    mt = media_textures()
+    p16 = mt["launches"]
+    c_stats["max_abs_err"] = max(c_stats["max_abs_err"], mt["closest_err"])
 
     def row(d):
         return {k: v for k, v in d.items()
@@ -2474,12 +2660,13 @@ def main() -> int:
         {"name": "photon_query", "route": "cuda",
          "source": "raytracer_tpu_torch/csrc/photon_query.cu",
          "replaces": "raytracer_tpu/ops/pallas_photon.py:82",
-         "launches": sppm_launches["photon_query"], **q_stats},
+         "launches": sppm_launches["photon_query"]
+         + p16.get("photon_query", 0), **q_stats},
         {"name": "closest", "route": "cuda",
          "source": "raytracer_tpu_torch/csrc/closest.cu",
          "replaces": "raytracer_tpu/ops/pallas_intersect.py:1054",
-         "launches": nm["nee"]["closest"] + nm["mis"]["closest"],
-         **c_stats},
+         "launches": nm["nee"]["closest"] + nm["mis"]["closest"]
+         + p16.get("closest", 0), **c_stats},
         {"name": "closest_ordered", "route": "cuda",
          "source": "raytracer_tpu_torch/csrc/closest_ordered.cu",
          "replaces": "raytracer_tpu/ops/pallas_intersect.py:1068",
@@ -2493,7 +2680,8 @@ def main() -> int:
         {"name": "leaf", "route": "cuda",
          "source": "raytracer_tpu_torch/csrc/leaf.cu",
          "replaces": "raytracer_tpu/ops/pallas_bvh.py:475",
-         "launches": sl.get("leaf", 0), **row(l_row)},
+         "launches": sl.get("leaf", 0) + p16.get("leaf", 0),
+         **row(l_row)},
         {"name": "regen", "route": "cuda",
          "source": "raytracer_tpu_torch/csrc/regen.cu",
          "replaces": "raytracer_tpu/ops/pallas_intersect.py:1873",

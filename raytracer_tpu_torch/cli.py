@@ -11,6 +11,11 @@ Usage:
         --checkpoint output/sppm.npz
     python -m raytracer_tpu_torch render --scene motion --width 800 \
         --height 600 --spp 8 --max-depth 16 --device cuda
+    python -m raytracer_tpu_torch render --scene smoke --width 400 \
+        --height 400 --spp 32 --max-depth 16 --device cuda
+    python -m raytracer_tpu_torch render --scene textured \
+        --intersector bruteforce --width 64 --height 48 --spp 4 \
+        --device cpu
 
 The other integrators and flags of the JAX CLI are accepted by name so that
 a command written for it fails with a message naming the ROADMAP item that
@@ -39,10 +44,11 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="command", required=True)
     r = sub.add_parser("render", help="render a scene to a PNG")
     r.add_argument("--scene", default="cornell",
-                   help="'cornell', 'spheres', 'smoke', 'field[:N]' "
-                        "(N-sphere field), 'bunnies[:N]' (N bunnies), "
-                        "'motion[:N]' (N moving spheres) or a "
-                        "data/*.json|yaml path")
+                   help="'cornell', 'spheres', 'smoke' (Cornell with "
+                        "two smoke volumes), 'textured' (image and "
+                        "marble spheres), 'field[:N]' (N-sphere field), "
+                        "'bunnies[:N]' (N bunnies), 'motion[:N]' (N "
+                        "moving spheres) or a data/*.json|yaml path")
     r.add_argument("--integrator", choices=["pt", "sppm"], default="pt",
                    help="path tracer or SPPM (the reference's algorithm)")
     r.add_argument("--width", type=int, default=800)
@@ -99,6 +105,8 @@ def load_scene_arg(name: str, aspect: float):
         return builtin.three_spheres(aspect_ratio=aspect)
     if name == "smoke":
         return builtin.cornell_smoke(aspect_ratio=aspect)
+    if name == "textured":
+        return builtin.textured_spheres(aspect_ratio=aspect)
 
     def count(default: int) -> int:
         if ":" not in name:
@@ -151,13 +159,15 @@ def cmd_render(args) -> int:
                         alpha=args.sppm_alpha))
     t0 = time.perf_counter()
     scene = load_scene_arg(args.scene, cfg.width / cfg.height)
-    # a moving scene takes the kernel route instead (dispatch.resolve)
-    if args.intersector == "leaf" and not moving(scene):
-        from raytracer_tpu_torch.ops.leaf import build_leaf_tables
-        scene = scene._replace(leaf=build_leaf_tables(scene))
     t1 = time.perf_counter()
     stats = {}
     try:
+        # a moving scene takes the kernel route instead (dispatch.resolve);
+        # a scene without spheres has no leaf tables (ValueError, as JAX)
+        if args.intersector == "leaf" and not moving(scene):
+            from raytracer_tpu_torch.ops.leaf import build_leaf_tables
+            scene = scene._replace(leaf=build_leaf_tables(scene))
+            t1 = time.perf_counter()
         if args.integrator == "sppm":
             state = None
             if args.resume:

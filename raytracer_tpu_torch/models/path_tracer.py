@@ -1,9 +1,17 @@
 """Path tracer entry points: ``render_fn`` (one batch of samples),
 ``render`` (host batches) and ``trace_radiance`` (one wavefront to
 completion), the PyTorch counterparts of
-``raytracer_tpu/models/path_tracer.py`` on its kernel routes, with NEE
-(``nee``) and mixture importance sampling (``mis``), and motion blur on
-scenes whose spheres move (one shutter time per sample).
+``raytracer_tpu/models/path_tracer.py``, with NEE (``nee``) and mixture
+importance sampling (``mis``), motion blur on scenes whose spheres move
+(one shutter time per sample), media and image and noise textures.
+
+Routes: "pallas" and "leaf" run the regeneration wavefront of
+``wavefront_soa`` on the kernels; "bruteforce" runs the JAX package's
+(N, 3) route: ``render_fn``'s loop over chunks of samples, each a
+wavefront of camera rays (``models/camera.py``) traced to completion by
+``trace_radiance_bruteforce`` with the chunked scan of
+``ops/intersect.py``, ``ops/materials.py`` and the media override of
+``ops/media.py::apply_media`` (``hit_and_attrs``).
 
 Every random draw comes from one ``torch.Generator`` seeded from an int.
 The JAX package draws from threefry keys, so the two packages agree in
@@ -16,14 +24,17 @@ import torch
 
 from typing import NamedTuple
 
+from raytracer_tpu_torch.models.camera import camera_rays
 from raytracer_tpu_torch.models.wavefront_soa import (
+    RR_START_BOUNCE, U_RR, U_TRACE_ROWS, _extra_rows, _media_u, media_rows,
     render_regen_soa, trace_radiance_soa,
 )
+from raytracer_tpu_torch.ops import intersect, materials, media, vec
+from raytracer_tpu_torch.ops import mis as mis_ops
+from raytracer_tpu_torch.ops import nee as nee_ops
 from raytracer_tpu_torch.ops.dispatch import NO_LEAF, resolve
-from raytracer_tpu_torch.ops.fused_bounce import (
-    moving, pack_tables, unported,
-)
-from raytracer_tpu_torch.scene.types import Scene
+from raytracer_tpu_torch.ops.fused_bounce import moving, pack_tables
+from raytracer_tpu_torch.scene.types import INTER_ABSORB, INTER_DIFFUSE, Scene
 from raytracer_tpu_torch.utils.config import RenderConfig
 
 
@@ -35,20 +46,112 @@ class TraceResult(NamedTuple):
 def _resolve(scene: Scene, intersector: str, nee: bool, mis: bool) -> str:
     """The route of a render: the kernel route ("pallas") for "auto" and
     "pallas", "leaf" for the leaf kernel (``ValueError`` when the scene has
-    no leaf tables; a moving scene takes the kernel route, as in JAX);
-    other intersectors and the scenes the port cannot
-    render yet raise ``NotImplementedError`` naming the ROADMAP item that
-    ports them. ``nee`` and ``mis`` together raise ``ValueError``, as in
-    the JAX package."""
+    no leaf tables; a moving scene takes the kernel route, as in JAX),
+    "bruteforce" for the (N, 3) route; "bvh" raises
+    ``NotImplementedError`` naming the ROADMAP item that ports it. ``nee``
+    and ``mis`` together raise ``ValueError``, as in the JAX package."""
     if mis and nee:
         raise ValueError("--mis and --nee are mutually exclusive")
     method = resolve(intersector, moving(scene))
     if method == "leaf" and scene.leaf is None:
         raise ValueError(NO_LEAF)
-    missing = unported(scene)
-    if missing:
-        raise NotImplementedError("; ".join(missing))
     return method
+
+
+def spawn_origin(p, normal, new_dir, eps):
+    """The next ray's origin: ``p`` offset by ``eps`` along the normal, to
+    the side the new direction leaves by."""
+    side = torch.sign(vec.dot(new_dir, normal))
+    return p + normal * (eps * side)[:, None]
+
+
+def hit_and_attrs(scene: Scene, o, d, t_min: float, media_u=None,
+                  time=None, alive=None) -> intersect.HitAttrs:
+    """One bounce's hit on the (N, 3) route: the brute-force closest hit
+    of rays ``o``/``d`` (N, 3), its attributes, then the media override
+    from free-flight uniforms ``media_u`` (K, N) where the scene has
+    media (medium.rs semantics)."""
+    hit = intersect.intersect_bruteforce(scene, o, d, t_min, torch.inf,
+                                         time, alive)
+    attrs = intersect.hit_attributes(scene, o, d, hit, time)
+    if media_u is not None:
+        attrs = media.apply_media(scene.media, media_u, o, d, attrs, t_min)
+    return attrs
+
+
+def trace_radiance_bruteforce(scene: Scene, o, d, gen: torch.Generator, *,
+                              max_depth: int, t_min: float, spawn_eps,
+                              russian_roulette: bool = True,
+                              nee: bool = False, mis: bool = False,
+                              time=None, stats: dict = None) -> TraceResult:
+    """The JAX package's (N, 3) loop (``trace_radiance``'s body): rays
+    ``o``/``d`` (N, 3) traced to completion, at most ``max_depth``
+    bounces, no regeneration. Each step draws the wavefront's uniform rows
+    from ``gen`` as ``trace_radiance_soa`` does (scatter and RR, then NEE's
+    or MIS's rows, then one free-flight row per medium), and casts NEE's
+    shadow rays through the brute-force route. ``time`` (N,): each ray's
+    shutter time. ``stats``, if given, gets the NEE shadow rays cast added
+    to ``shadow_lanes`` and the steps to ``steps``. Returns radiance
+    (N, 3) and the rays traced (alive lanes summed over steps)."""
+    n = o.shape[0]
+    dev = o.device
+    base = U_TRACE_ROWS + _extra_rows(nee, mis)
+    k_med = media_rows(scene)
+    tput = torch.ones((n, 3), device=dev)
+    rad = torch.zeros((n, 3), device=dev)
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    prev_diff = torch.zeros_like(alive)
+    rays = steps = 0
+    shadow = torch.zeros((), dtype=torch.int64, device=dev)
+    for step in range(max_depth):
+        n_alive = int(alive.sum())
+        if n_alive == 0:
+            break
+        rays += n_alive
+        steps += 1
+        U = torch.rand((base + k_med, n), generator=gen, device=dev)
+        attrs = hit_and_attrs(scene, o, d, t_min, _media_u(U, base, k_med),
+                              time, alive)
+        sc = materials.scatter(scene, U, d, attrs)
+        live = alive & attrs.valid
+        # with NEE, emission along a diffuse-scattered ray was counted by
+        # the shadow ray at the vertex before
+        rad = rad + torch.where((live & ~prev_diff)[:, None],
+                                tput * sc.emitted, 0.0)
+        diffuse_now = live & (sc.interaction == INTER_DIFFUSE)
+        extra = U[U_TRACE_ROWS:base]
+        if nee:
+            dl, cast = nee_ops.direct_light(
+                scene, None, extra, attrs.p.T, attrs.normal.T,
+                sc.attenuation.T, diffuse_now, alive=alive,
+                intersector="bruteforce", time=time)
+            shadow += cast.sum()
+            rad = rad + torch.where(diffuse_now[:, None], tput * dl.T, 0.0)
+        direction, attenuation = sc.direction, sc.attenuation
+        if mis:
+            d_mis, w = mis_ops.mixture_reweight(
+                scene.lights, extra, attrs.p.T, attrs.normal.T,
+                sc.direction.T, diffuse_now, time)
+            direction = torch.where(diffuse_now[:, None], d_mis.T, direction)
+            attenuation = attenuation * w[:, None]
+        cont = live & (sc.interaction != INTER_ABSORB)
+        tput = torch.where(cont[:, None], tput * attenuation, tput)
+        if russian_roulette and step >= RR_START_BOUNCE:
+            p_surv = torch.clamp(tput.amax(1), 0.05, 1.0)
+            survive = U[U_RR] < p_surv
+            tput = torch.where((cont & survive)[:, None],
+                               tput / p_surv[:, None], tput)
+            cont = cont & survive
+        new_o = spawn_origin(attrs.p, attrs.normal, direction, spawn_eps)
+        o = torch.where(cont[:, None], new_o, o)
+        d = torch.where(cont[:, None], direction, d)
+        if nee:
+            prev_diff = diffuse_now
+        alive = cont
+    if stats is not None:
+        stats["shadow_lanes"] = stats.get("shadow_lanes", 0) + int(shadow)
+        stats["steps"] = stats.get("steps", 0) + steps
+    return TraceResult(rad, rays)
 
 
 def trace_radiance(scene: Scene, o, d, generator: torch.Generator, *,
@@ -59,11 +162,17 @@ def trace_radiance(scene: Scene, o, d, generator: torch.Generator, *,
                    time=None) -> TraceResult:
     """Trace rays ``o``/``d`` (N, 3) to completion (at most ``max_depth``
     bounces) on their device; returns per-ray radiance (N, 3) and the rays
-    traced. The kernel route only (the JAX package's SoA route,
-    ``trace_radiance_soa``). ``time`` (N,): each ray's shutter time
-    (motion blur; without it a moving scene stands at t = 0)."""
+    traced. The kernel routes take the JAX package's SoA loop
+    (``trace_radiance_soa``), "bruteforce" its (N, 3) loop
+    (``trace_radiance_bruteforce``). ``time`` (N,): each ray's shutter
+    time (motion blur; without it a moving scene stands at t = 0)."""
     method = _resolve(scene, intersector, nee, mis)
     scene = scene.to(o.device)
+    if method == "bruteforce":
+        return trace_radiance_bruteforce(
+            scene, o, d, generator, max_depth=max_depth, t_min=t_min,
+            spawn_eps=spawn_eps, russian_roulette=russian_roulette,
+            nee=nee, mis=mis, time=time)
     if tables is None:
         tables = pack_tables(scene)
     rad, rays = trace_radiance_soa(
@@ -96,6 +205,15 @@ def render_fn(scene: Scene, generator: torch.Generator, *, width: int,
     scene = scene.to(device)
     n_chunks = -(-spp // spp_chunk)
     spawn_eps = spawn_eps_rel * scene.scale      # float32, as in JAX
+    if method == "bruteforce":
+        accum, rays = _render_bruteforce(
+            scene, generator, width=width, height=height,
+            spp_chunk=spp_chunk, n_chunks=n_chunks, max_depth=max_depth,
+            t_min=t_min, spawn_eps=spawn_eps,
+            russian_roulette=russian_roulette, nee=nee, mis=mis,
+            stats=stats)
+        img = accum / (n_chunks * spp_chunk)
+        return img.reshape(height, width, 3), rays
     if tables is None:
         tables = pack_tables(scene)
     accum, rays, _steps = render_regen_soa(
@@ -106,6 +224,37 @@ def render_fn(scene: Scene, generator: torch.Generator, *, width: int,
         mis=mis, stats=stats)
     img = accum / (n_chunks * spp_chunk)
     return img.reshape(height, width, 3), rays
+
+
+def _render_bruteforce(scene: Scene, gen: torch.Generator, *, width: int,
+                       height: int, spp_chunk: int, n_chunks: int,
+                       max_depth: int, t_min: float, spawn_eps,
+                       russian_roulette: bool, nee: bool, mis: bool,
+                       stats: dict = None):
+    """The JAX ``render_fn``'s loop over chunks of samples: each chunk is
+    ``spp_chunk`` camera rays per pixel (pixel-major within a sample, as
+    JAX lays them out), with a shutter time each on a moving scene, traced
+    to completion. Returns ((npix, 3) radiance sum, rays as an int)."""
+    dev = scene.camera.origin.device
+    cam = scene.camera
+    npix = width * height
+    pixel_ids = torch.arange(npix, device=dev).repeat(spp_chunk)
+    accum = torch.zeros((npix, 3), device=dev)
+    rays = 0
+    for _ in range(n_chunks):
+        o, d = camera_rays(cam, gen, pixel_ids, width, height)
+        time = None
+        if scene.spheres.motion_marker.shape[0]:
+            time = cam.time0 + torch.rand(
+                (o.shape[0],), generator=gen, device=dev) * (cam.time1
+                                                             - cam.time0)
+        res = trace_radiance_bruteforce(
+            scene, o, d, gen, max_depth=max_depth, t_min=t_min,
+            spawn_eps=spawn_eps, russian_roulette=russian_roulette, nee=nee,
+            mis=mis, time=time, stats=stats)
+        accum += res.radiance.reshape(spp_chunk, npix, 3).sum(0)
+        rays += res.rays_traced
+    return accum, rays
 
 
 def render(scene: Scene, config: RenderConfig, seed: int, *,

@@ -27,7 +27,7 @@ import torch
 
 from raytracer_tpu_torch.models import wavefront_soa as wf
 from raytracer_tpu_torch.ops import photon_grid as pg
-from raytracer_tpu_torch.ops.fused_bounce import pack_tables, unported
+from raytracer_tpu_torch.ops.fused_bounce import has_media, pack_tables
 from raytracer_tpu_torch.ops.photon_query import query_photons
 from raytracer_tpu_torch.scene.types import Scene
 from raytracer_tpu_torch.utils.config import RenderConfig, SPPMConfig
@@ -130,7 +130,7 @@ def measurement_pass(scene: Scene, tables, gen, width: int, height: int,
     o, d = wf.camera_rays_soa(
         scene.camera, px, py, width, height,
         torch.rand((4, pix.shape[0]), generator=gen, device=dev))
-    return wf.measurement_soa(tables, gen, o, d, max_depth=max_depth,
+    return wf.measurement_soa(scene, tables, gen, o, d, max_depth=max_depth,
                               t_min=t_min, spawn_eps=spawn_eps)
 
 
@@ -298,7 +298,9 @@ def gather_fn(scene: Scene, tables, state: SPPMState, gen, *, width: int,
 
 def check_scene(scene: Scene):
     """Refuse what SPPM cannot render, with the JAX package's messages,
-    and what the port does not take yet."""
+    and what the port does not take yet: media, which the JAX package's
+    SPPM renders through its (N, 3) loops (its ``models/sppm.py:146-147,
+    202-205``)."""
     if scene.lights.kind.shape[0] == 0:
         raise ValueError(
             "SPPM requires at least one light in the scene (photon emission "
@@ -310,9 +312,10 @@ def check_scene(scene: Scene):
             "have no shutter-time dimension — the whole iteration would "
             "silently freeze at t=0); use --integrator pt, which draws "
             "per-sample shutter times")
-    missing = unported(scene)
-    if missing:
-        raise NotImplementedError("; ".join(missing))
+    if has_media(scene):
+        raise NotImplementedError(
+            "SPPM on a scene with media is not ported yet: the JAX "
+            "package's SPPM takes its (N, 3) loops there (ROADMAP A11)")
 
 
 def iteration_kwargs(scene: Scene, config: RenderConfig) -> dict:

@@ -8,8 +8,16 @@ The PyTorch counterpart of ``raytracer_tpu/models/wavefront_soa.py``:
 ``render_regen_soa`` with NEE and MIS (and, where neither is on, its
 one-kernel step, ``ops/regen.py``), and for SPPM ``gather_regen_soa``,
 ``measurement_soa``, ``emit_photons_soa`` and
-``trace_photon_deposits_regen_soa``. Media and image and noise textures are
-not ported yet (ROADMAP A7, A8).
+``trace_photon_deposits_regen_soa``.
+
+Media, image and noise textures (JAX ``bounce_fused_eligible``): such a
+scene leaves the fused bounce and the one-kernel step for the unfused
+stage (``use_fused``), whose texture evaluation reads the image atlas and
+the marble noise (``eval_texture_soa``). On a scene with K media the path
+tracer's loops draw K free-flight rows after every row they already draw,
+and the unfused bounce lets a medium event replace the closest hit
+(``ops/media.py::apply_media_soa``); a media-free scene draws exactly what
+it drew before.
 
 Motion blur (JAX ``wavefront_soa.py``'s ``motion`` carry): on a scene whose
 spheres move, each sample owns one shutter time in [time0, time1], drawn
@@ -34,21 +42,25 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.ops import dispatch
+from raytracer_tpu_torch.ops import media as media_ops
 from raytracer_tpu_torch.ops import mis as mis_ops
 from raytracer_tpu_torch.ops import nee as nee_ops
 from raytracer_tpu_torch.ops import regen as regen_ops
 from raytracer_tpu_torch.ops.fused_bounce import (
-    BounceTables, _take, _unit3, bounce_tables,
+    BounceTables, _take, _unit3, bounce_tables, fused_eligible, has_media,
 )
 from raytracer_tpu_torch.ops.lights import light_cols, pick_light
+from raytracer_tpu_torch.ops.materials import image_texel
+from raytracer_tpu_torch.ops.noise import marble
 from raytracer_tpu_torch.ops.sampling import (
     camera_rays_soa, uniform_sphere_from,
 )
 from raytracer_tpu_torch.scene.types import (
     INTER_ABSORB, INTER_DIFFUSE, INTER_REFLECT, INTER_REFRACT,
     INTER_SPECULAR, LIGHT_SPHERE, MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT,
-    MAT_ISOTROPIC, MAT_LAMBERTIAN, MAT_METAL, PRIM_RECT, PRIM_SPHERE,
-    PRIM_TRIANGLE, TEX_CHECKER, Lights, Scene,
+    MAT_ISOTROPIC, MAT_LAMBERTIAN, MAT_METAL, PRIM_MEDIA, PRIM_RECT,
+    PRIM_SPHERE, PRIM_TRIANGLE, TEX_CHECKER, TEX_IMAGE, TEX_NOISE, Lights,
+    Scene,
 )
 
 PI = 3.141592653589793
@@ -66,6 +78,8 @@ U_JX, U_JY, U_LR, U_LPHI = 4, 5, 6, 7
 U_REGEN_ROWS = 8
 # With NEE (MIS), nee.NEE_ROWS (mis.MIS_ROWS) more rows follow the loop's
 # own: the JAX package draws them from separate keys (fold 53, fold 61).
+# On a scene with media, one free-flight row per medium comes last (JAX:
+# fold 29).
 
 RR_START_BOUNCE = 3
 
@@ -146,13 +160,17 @@ def attrs_soa(tables: BounceTables, o, d, hit, time=None) -> tuple:
     slots). ``o``/``d`` (3, N); ``time`` (N,): the rays' shutter times, at
     which a moving sphere winner's centre is taken (JAX ``_run``'s centre
     fold). A miss gives zero normal and features, as the TPU kernel's
-    all-zero winner record does. Returns (HitSoA, FeatSoA)."""
+    all-zero winner record does. A medium event (``PRIM_MEDIA``, index
+    the medium's) gets its medium's material (``tables.med_mat``), the
+    dummy normal (1, 0, 0) of medium.rs:45 flipped to face the ray, and
+    uv (0, 0). Returns (HitSoA, FeatSoA)."""
     valid = torch.isfinite(hit.t)
     p = o + torch.where(valid, hit.t, 0.0) * d
     ix = hit.ix.long()
     is_s = hit.ty == PRIM_SPHERE
     is_r = hit.ty == PRIM_RECT
     is_t = hit.ty == PRIM_TRIANGLE
+    is_m = hit.ty == PRIM_MEDIA
 
     sph = _take(tables.sph, ix, is_s)
     c = sph[:, :3].T
@@ -174,8 +192,10 @@ def attrs_soa(tables: BounceTables, o, d, hit, time=None) -> tuple:
     tn = torch.stack(_unit3(*(tb0 * nrm[0] + hit.b1 * nrm[1]
                               + hit.b2 * nrm[2])))
 
-    no = torch.where(is_s, sn, torch.where(is_r, rn, tn))
-    # sphere uv (sphere.rs:16-21); triangles get (0, 0)
+    dummy = (torch.arange(3, device=p.device) == 0).to(p.dtype)[:, None]
+    no = torch.where(is_s, sn, torch.where(is_r, rn,
+                                           torch.where(is_m, dummy, tn)))
+    # sphere uv (sphere.rs:16-21); triangles and media get (0, 0)
     theta = torch.arccos(torch.clamp(-sn[1], -1.0, 1.0))
     phi = torch.atan2(-sn[2], sn[0]) + PI
     u = torch.where(is_s, phi / TWO_PI, torch.where(is_r, rect_u, 0.0))
@@ -186,6 +206,8 @@ def attrs_soa(tables: BounceTables, o, d, hit, time=None) -> tuple:
     mid = torch.where(is_s, _take(tables.sph_mat, ix, is_s),
                       torch.where(is_r, _take(tables.rect_mat, ix, is_r),
                                   _take(tables.tri_mat, ix, is_t)))
+    if tables.med_mat is not None:
+        mid = torch.where(is_m, _take(tables.med_mat, ix, is_m), mid)
     feat = _take(tables.mat, mid.long(), valid)
     i32 = torch.int32
     feats = FeatSoA(
@@ -197,16 +219,22 @@ def attrs_soa(tables: BounceTables, o, d, hit, time=None) -> tuple:
 
 
 def eval_texture_soa(scene: Scene, f: FeatSoA, h: HitSoA):
-    """The albedo (3, N) of constant and checker textures (the checker
-    picks colour 1 where sin(10x) sin(10y) sin(10z) >= 0). Image and noise
-    textures are not ported yet (ROADMAP A8)."""
-    if scene.images.shape[0] or scene.textures.noise_marker.shape[0]:
-        raise NotImplementedError(
-            "image and noise textures are not ported yet (ROADMAP A8)")
+    """The albedo (3, N): constant and checker textures (the checker picks
+    colour 1 where sin(10x) sin(10y) sin(10z) >= 0), images at their
+    nearest texel (``materials.image_texel``: u, v clamped, v flipped) and
+    the marble noise with its scale in colour 0's first channel, the same
+    in all three channels."""
     sines = (torch.sin(10.0 * h.p[0]) * torch.sin(10.0 * h.p[1])
              * torch.sin(10.0 * h.p[2]))
-    return torch.where((f.tex_kind == TEX_CHECKER) & (sines >= 0.0), f.c1,
-                       f.c0)
+    out = torch.where((f.tex_kind == TEX_CHECKER) & (sines >= 0.0), f.c1,
+                      f.c0)
+    if scene.images.shape[0]:
+        out = torch.where(f.tex_kind == TEX_IMAGE,
+                          image_texel(scene, f.image_id, h.u, h.v).T, out)
+    if scene.textures.noise_marker.shape[0]:
+        out = torch.where(f.tex_kind == TEX_NOISE,
+                          marble(h.p.T, f.c0[0]), out)
+    return out
 
 
 class ScatterSoA(NamedTuple):
@@ -273,14 +301,18 @@ def use_fused(scene: Scene, intersector: str) -> bool:
     textures, no media, the "pallas" route) and also scenes past the TPU
     kernel's table caps, which the CUDA kernels read from global memory.
     The "leaf" route is unfused, as in the JAX package."""
-    return (intersector == "pallas" and scene.images.shape[0] == 0
-            and scene.textures.noise_marker.shape[0] == 0
-            and (scene.media is None or scene.media.kind.shape[0] == 0))
+    return intersector == "pallas" and fused_eligible(scene)
+
+
+def media_rows(scene: Scene) -> int:
+    """Free-flight rows a path-tracer step draws: one per medium."""
+    return int(scene.media.kind.shape[0]) if has_media(scene) else 0
 
 
 def bounce_step(tables: BounceTables, uni, o, d, alive, *, t_min: float,
                 spawn_eps, fused: bool = True, scene: Scene = None,
-                intersector: str = "pallas", time=None) -> Bounce:
+                intersector: str = "pallas", time=None,
+                media_u=None) -> Bounce:
     """Advance one bounce: intersect + attributes + texture + scatter.
     ``uni`` holds at least the three scatter rows; ``spawn_eps`` is a 0-d
     tensor (or float). The fused path is one kernel launch
@@ -290,7 +322,12 @@ def bounce_step(tables: BounceTables, uni, o, d, alive, *, t_min: float,
     leaf kernel for "leaf") followed by ``attrs_soa`` and ``scatter_soa``
     in plain PyTorch. Both consume the same uniform rows and give dead
     lanes the miss outputs, so they agree lane for lane. ``time`` (N,):
-    the lanes' shutter times (motion blur)."""
+    the lanes' shutter times (motion blur). ``media_u`` (K, N): free-flight
+    uniforms (``ops/media.py``) on the unfused path of a scene with K
+    media; a medium event then replaces the closest hit (JAX
+    ``bounce_step``'s ``media_key``, applied after the "pallas" and the
+    "leaf" route's closest hit alike), and the spawn offset follows its
+    dummy normal."""
     n = o.shape[1]
     if fused:
         eps = torch.as_tensor(spawn_eps, dtype=torch.float32,
@@ -301,6 +338,9 @@ def bounce_step(tables: BounceTables, uni, o, d, alive, *, t_min: float,
     hit = dispatch.intersect_scene(scene, o, d, t_min, float("inf"),
                                    method=intersector, alive=alive,
                                    tables=tables, time=time)
+    if media_u is not None:
+        hit = media_ops.apply_media_soa(scene.media, media_u, o, d, hit,
+                                        t_min)
     h, f = attrs_soa(tables, o, d, hit, time)
     sc = scatter_soa(scene, uni, d, h, f)
     side = torch.sign((sc.nd * h.n).sum(0)) * spawn_eps
@@ -325,6 +365,12 @@ def _mis_bounce(lights: Lights, rows, b: Bounce, diffuse_now,
 
 def _extra_rows(nee: bool, mis: bool) -> int:
     return nee_ops.NEE_ROWS if nee else (mis_ops.MIS_ROWS if mis else 0)
+
+
+def _media_u(U, start: int, k: int):
+    """The free-flight uniforms (K, N) in U's last ``k`` rows (from
+    ``start``), or None on a media-free scene."""
+    return media_ops.uniform_rows(U[start:start + k]) if k else None
 
 
 def _shade(scene, tables, U, base: int, b: Bounce, alive, tput, samp,
@@ -365,6 +411,8 @@ def trace_radiance_soa(scene: Scene, tables: BounceTables, o, d,
     n = o.shape[1]
     dev = o.device
     fused = use_fused(scene, intersector)
+    base = U_TRACE_ROWS + _extra_rows(nee, mis)
+    k_med = media_rows(scene)
     tput = torch.ones((3, n), device=dev)
     rad = torch.zeros((3, n), device=dev)
     alive = torch.ones((n,), dtype=torch.bool, device=dev)
@@ -376,11 +424,11 @@ def trace_radiance_soa(scene: Scene, tables: BounceTables, o, d,
         if n_alive == 0:
             break
         rays += n_alive
-        U = torch.rand((U_TRACE_ROWS + _extra_rows(nee, mis), n),
-                       generator=gen, device=dev)
+        U = torch.rand((base + k_med, n), generator=gen, device=dev)
         b = bounce_step(tables, U, o, d, alive, t_min=t_min,
                         spawn_eps=spawn_eps, fused=fused, scene=scene,
-                        intersector=intersector, time=time)
+                        intersector=intersector, time=time,
+                        media_u=_media_u(U, base, k_med))
         b, rad, diffuse_now, _ = _shade(
             scene, tables, U, U_TRACE_ROWS, b, alive, tput, rad, prev_diff,
             nee=nee, mis=mis, spawn_eps=spawn_eps, intersector=intersector,
@@ -432,11 +480,13 @@ def _step(s: _Lanes, tables, scene, gen, *, width, height, quota, max_depth,
     sample. Returns (lanes, shadow-ray lanes of the step or None)."""
     nl = s.o.shape[1]
     base = U_REGEN_ROWS + (s.time is not None)     # the time row, if moving
-    U = torch.rand((base + _extra_rows(nee, mis), nl), generator=gen,
-                   device=s.o.device)
+    rows = base + _extra_rows(nee, mis)
+    k_med = media_rows(scene)
+    U = torch.rand((rows + k_med, nl), generator=gen, device=s.o.device)
     b = bounce_step(tables, U, s.o, s.d, s.alive, t_min=t_min,
                     spawn_eps=spawn_eps, fused=fused, scene=scene,
-                    intersector=intersector, time=s.time)
+                    intersector=intersector, time=s.time,
+                    media_u=_media_u(U, rows, k_med))
     alive = s.alive
     b, samp, diffuse_now, shadow = _shade(
         scene, tables, U, base, b, alive, s.tput, s.samp,
@@ -584,14 +634,17 @@ class MeasurePoints(NamedTuple):
     bsdf: torch.Tensor    # (N, 3) the point's bsdf colour (albedo or 1/pi)
 
 
-def measurement_soa(tables: BounceTables, gen: torch.Generator, o, d, *,
-                    max_depth: int, t_min: float,
-                    spawn_eps) -> MeasurePoints:
+def measurement_soa(scene: Scene, tables: BounceTables,
+                    gen: torch.Generator, o, d, *, max_depth: int,
+                    t_min: float, spawn_eps) -> MeasurePoints:
     """update_sppm's specular walk to the first diffuse hit
     (photon_mapper.rs:277-300): no emission, no throughput. ``o``/``d``
-    (3, N) camera rays. One host sync per step for the loop condition."""
+    (3, N) camera rays; the bounce is fused where ``use_fused`` says (an
+    image or noise texture takes the unfused stage). One host sync per
+    step for the loop condition."""
     n = o.shape[1]
     dev = o.device
+    fused = use_fused(scene, "pallas")
     alive = torch.ones((n,), dtype=torch.bool, device=dev)
     valid = torch.zeros((n,), dtype=torch.bool, device=dev)
     p, nrm, bsdf = (torch.zeros((3, n), device=dev) for _ in range(3))
@@ -599,7 +652,7 @@ def measurement_soa(tables: BounceTables, gen: torch.Generator, o, d, *,
     while step < max_depth and bool(alive.any()):
         U = torch.rand((U_DIEL + 1, n), generator=gen, device=dev)
         b = bounce_step(tables, U, o, d, alive, t_min=t_min,
-                        spawn_eps=spawn_eps)
+                        spawn_eps=spawn_eps, fused=fused, scene=scene)
         diffuse_now = alive & (b.inter == INTER_DIFFUSE)
         valid = valid | diffuse_now
         # the bsdf colour is the scatter's attenuation (albedo, 1/pi for a
@@ -699,6 +752,7 @@ def trace_photon_deposits_regen_soa(scene, tables: BounceTables,
     S = window + max_bounces
     dev = tables.sph.device
     f32 = torch.float32
+    fused = use_fused(scene, "pallas")
     dep = torch.empty((9, S, L), dtype=f32, device=dev)
     flags = torch.empty((2, S, L), dtype=torch.bool, device=dev)
 
@@ -711,7 +765,7 @@ def trace_photon_deposits_regen_soa(scene, tables: BounceTables,
     for step in range(S):
         U = torch.rand((U_TRACE_ROWS, L), generator=gen, device=dev)
         b = bounce_step(tables, U, o, d, alive, t_min=t_min,
-                        spawn_eps=spawn_eps)
+                        spawn_eps=spawn_eps, fused=fused, scene=scene)
         hmax = b.att.amax(0)
         survive = U[U_RR] <= hmax
         inter = torch.where(survive, b.inter, INTER_ABSORB)

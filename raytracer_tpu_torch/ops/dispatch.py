@@ -7,8 +7,10 @@ slab chain have no counterpart) runs the closest-hit kernel
 (``ops/closest_hit.py``), the ordered one when ``pack_tables`` attached an
 ordered stage. "leaf" runs the leaf kernel (``ops/leaf.py``) and needs the
 scene's leaf tables (``ValueError`` without, as JAX ``pallas_bvh._run``).
-"bvh" and "bruteforce" raise, naming the ROADMAP item that ports them. Rays
-are (3, N) rows, as everywhere in the port.
+"bruteforce" runs the chunked (N, 3) scan of ``ops/intersect.py`` (no
+kernel: the JAX function is XLA), whose winner gets its barycentrics
+recomputed. "bvh" raises, naming the ROADMAP item that ports it. Rays are
+(3, N) rows, as everywhere in the port.
 
 Motion blur, as JAX ``_resolve``: a scene whose spheres move takes the
 kernel route even when "leaf" is asked for (the leaf kernel has no motion
@@ -19,27 +21,27 @@ JAX's brute-force route gives.
 
 from __future__ import annotations
 
-from raytracer_tpu_torch.ops import closest_hit, leaf
+import torch
+
+from raytracer_tpu_torch.ops import closest_hit, intersect, leaf
 from raytracer_tpu_torch.ops.fused_bounce import (
     BounceTables, moving, pack_tables,
 )
-from raytracer_tpu_torch.scene.types import Scene
+from raytracer_tpu_torch.scene.types import PRIM_TRIANGLE, Scene
 
 UNPORTED = {
     "bvh": "the flat BVH is not ported yet (ROADMAP A10)",
-    "bruteforce": "the brute-force XLA intersector is not ported yet "
-                  "(ROADMAP A3)",
 }
 NO_LEAF = "scene has no leaf tables; call with_leaf_tables"
 
 
 def resolve(method: str, moves: bool = False) -> str:
     """"auto" and "pallas" resolve to "pallas", "leaf" to itself, or to
-    "pallas" for a scene whose spheres move (``moves``); "bvh" and
-    "bruteforce" raise ``NotImplementedError`` naming their ROADMAP
+    "pallas" for a scene whose spheres move (``moves``), "bruteforce" to
+    itself; "bvh" raises ``NotImplementedError`` naming its ROADMAP
     item."""
-    if method in ("auto", "pallas"):
-        return "pallas"
+    if method in ("auto", "pallas", "bruteforce"):
+        return "pallas" if method == "auto" else method
     if method == "leaf":
         return "pallas" if moves else method
     if method in UNPORTED:
@@ -48,8 +50,29 @@ def resolve(method: str, moves: bool = False) -> str:
     raise ValueError(f"unknown intersector {method!r}")
 
 
+def bruteforce_closest(scene: Scene, o, d, t_min, t_max, alive=None,
+                       time=None) -> closest_hit.Closest:
+    """``intersect.intersect_bruteforce`` on (3, N) rays as a ``Closest``,
+    the triangle winners' barycentrics recomputed."""
+    ot, dt = o.T, d.T
+    h = intersect.intersect_bruteforce(scene, ot, dt, t_min, t_max, time,
+                                       alive)
+    b1 = b2 = torch.zeros_like(h.t)
+    tr = scene.triangles
+    if tr.mat_id.shape[0]:
+        is_t = h.prim_type == PRIM_TRIANGLE
+        i = h.prim_idx.long().clamp(0, tr.mat_id.shape[0] - 1)
+        tb1, tb2 = intersect.tri_barycentrics(tr, i, ot, dt)
+        b1 = torch.where(is_t, tb1, 0.0)
+        b2 = torch.where(is_t, tb2, 0.0)
+    return closest_hit.Closest(h.t, h.prim_type, h.prim_idx, b1, b2)
+
+
 def _closest(scene, o, d, t_min, t_max, method, alive, tables, time):
     method = resolve(method, moving(scene))
+    if method == "bruteforce":
+        return tables, bruteforce_closest(scene, o, d, t_min, t_max, alive,
+                                          time)
     if method == "leaf" and scene.leaf is None:
         raise ValueError(NO_LEAF)
     if tables is None:
@@ -81,4 +104,6 @@ def intersect_and_attrs(scene: Scene, o, d, t_min, t_max,
     from raytracer_tpu_torch.models.wavefront_soa import attrs_soa
     tables, c = _closest(scene, o, d, t_min, t_max, method, alive, tables,
                          time)
+    if tables is None:                        # the brute-force route
+        tables = pack_tables(scene, order=False)
     return (c, *attrs_soa(tables, o, d, c, time))

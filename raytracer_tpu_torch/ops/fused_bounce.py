@@ -83,7 +83,10 @@ class BounceTables(NamedTuple):
     the near-to-far walk, else None; ``leaf``: the leaf kernel's tables
     (``ops/leaf.py::LeafPack``) when the scene carries leaf tables;
     ``sph_vel``: (S, 4) f32 sphere velocities (vx, vy, vz, 0) when the
-    spheres move, else None."""
+    spheres move, else None; ``med_mat``: (K,) int32 the material of each
+    medium (``scene.media.mat_id``) when the scene has media, else None:
+    the unfused stage's attributes read it for a medium event's winner
+    (``ops/media.py::apply_media_soa``)."""
     sph: torch.Tensor
     sph_mat: torch.Tensor
     rect: torch.Tensor
@@ -96,6 +99,7 @@ class BounceTables(NamedTuple):
     otri: Optional[OrderedStage] = None
     leaf: Optional[tuple] = None
     sph_vel: Optional[torch.Tensor] = None
+    med_mat: Optional[torch.Tensor] = None
 
     @property
     def ordered(self) -> bool:
@@ -112,20 +116,18 @@ class BounceTables(NamedTuple):
 FLAT = BounceTables._fields[:8]
 
 
-def unported(scene: Scene) -> list:
-    """What of ``scene`` the fused bounce does not take yet, each naming
-    the ROADMAP item that ports it; empty when the scene is eligible. The
-    JAX package's ``bounce_fused_eligible`` sends such scenes (image or
-    noise textures, media) through ``_closest_kernel`` and an unfused
-    stage; it also caps the table size, which the CUDA kernel does not
-    need: it streams any table through shared memory."""
-    out = []
-    if scene.images.shape[0] or scene.textures.noise_marker.shape[0]:
-        out.append("image and noise textures are not ported yet "
-                   "(ROADMAP A8)")
-    if scene.media is not None and scene.media.kind.shape[0]:
-        out.append("media are not ported yet (ROADMAP A7)")
-    return out
+def has_media(scene: Scene) -> bool:
+    """Does the scene hold constant-density media?"""
+    return scene.media is not None and scene.media.kind.shape[0] > 0
+
+
+def fused_eligible(scene: Scene) -> bool:
+    """The JAX ``bounce_fused_eligible`` rule without its table caps (the
+    CUDA kernels stream any table): no image or noise texture, no medium.
+    Other scenes take the unfused stage (``wavefront_soa.use_fused``)."""
+    return (scene.images.shape[0] == 0
+            and scene.textures.noise_marker.shape[0] == 0
+            and not has_media(scene))
 
 
 def moving(scene: Scene) -> bool:
@@ -170,7 +172,7 @@ def pack_tables(scene: Scene, order: bool = True) -> BounceTables:
 
     i32 = torch.int32
     sph, tri = c(sph), c(tri)
-    osph = otri = leaf = sph_vel = None
+    osph = otri = leaf = sph_vel = med_mat = None
     if moving(scene):
         sph_vel = c(torch.cat([s.velocity, torch.zeros_like(s.radius)[:, None]],
                               1).to(f32))
@@ -183,10 +185,12 @@ def pack_tables(scene: Scene, order: bool = True) -> BounceTables:
     if scene.leaf is not None:
         from raytracer_tpu_torch.ops.leaf import pack_leaf
         leaf = pack_leaf(scene.leaf, sph)
+    if has_media(scene):
+        med_mat = c(scene.media.mat_id.to(i32))
     return BounceTables(sph, c(s.mat_id.to(i32)), c(rect),
                         c(r.mat_id.to(i32)), tri, c(tri_nrm),
                         c(tr.mat_id.to(i32)), c(mat), osph, otri, leaf,
-                        sph_vel)
+                        sph_vel, med_mat)
 
 
 # --------------------------------------------------------------- plain
@@ -668,8 +672,9 @@ def bounce_fused(scene: Scene, o_t, d_t, t_min: float, alive, uni_t,
     rays on the second axis (``o_t``/``d_t`` (3, N), ``uni_t`` (4, N)),
     ``time`` (N,) for motion blur. Packs the tables on every call; loops
     pack once and call ``bounce_tables``."""
-    missing = unported(scene)
-    if missing:
-        raise NotImplementedError("; ".join(missing))
+    if not fused_eligible(scene):
+        raise ValueError("the fused bounce takes no image or noise "
+                         "texture and no medium (JAX "
+                         "bounce_fused_eligible): use the unfused stage")
     return bounce_tables(pack_tables(scene), o_t, d_t, t_min, alive, uni_t,
                          time=time)

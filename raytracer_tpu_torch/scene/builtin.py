@@ -155,6 +155,42 @@ def three_spheres(aspect_ratio: float = 16.0 / 9.0):
     return b.compile()
 
 
+def texture_image(seed: int = 0) -> np.ndarray:
+    """A (512, 1024, 3) uint8 image made from ``seed``: colour bands in
+    longitude and latitude with per-texel noise, a stand-in for an
+    equirectangular map that needs no image file."""
+    rng = np.random.default_rng(seed)
+    height, width = 512, 1024
+    y, x = np.mgrid[0:height, 0:width].astype(np.float64)
+    base = np.stack([0.5 + 0.4 * np.sin(x / width * 12 * np.pi),
+                     0.5 + 0.4 * np.cos(y / height * 6 * np.pi),
+                     0.5 + 0.4 * np.sin((x + y) / width * 4 * np.pi)], -1)
+    img = base + rng.uniform(-0.1, 0.1, base.shape)
+    return np.clip(img * 255.0, 0, 255).astype(np.uint8)
+
+
+def textured_spheres(aspect_ratio: float = 4.0 / 3.0, seed: int = 0,
+                     builder=SceneBuilder):
+    """Image and noise textures (extension of the book-2 earth and marble
+    spheres): a sphere textured with ``texture_image(seed)`` (no PIL
+    needed), a marble sphere (noise scale 4) and a visible sphere light,
+    unenclosed, over a checker ground. ``builder``: the scene builder
+    class (any with ``SceneBuilder``'s methods)."""
+    b = builder()
+    ground = b.lambertian(b.checker_texture((0.2, 0.3, 0.1),
+                                            (0.9, 0.9, 0.9)))
+    b.add_sphere((0.0, -100.0, 0.0), 100.0, ground)
+    b.add_sphere((-1.1, 1.0, 0.0), 1.0,
+                 b.lambertian(b.image_texture(texture_image(seed))))
+    b.add_sphere((1.1, 1.0, 0.0), 1.0,
+                 b.lambertian(b.noise_texture(scale=4.0)))
+    b.add_sphere_light((0.0, 3.5, 2.0), 0.7, (4.0, 4.0, 4.0), 10.0)
+    b.set_camera(look_from=(0.0, 2.0, 7.0), look_at=(0.0, 1.0, 0.0),
+                 vfov=40.0, aspect_ratio=aspect_ratio, aperture=0.0,
+                 focus_dist=7.0)
+    return b.compile()
+
+
 def bunny_field(n_bunnies: int = 25, aspect_ratio: float = 4.0 / 3.0,
                 data_dir: str = _DATA):
     """Large-MESH stress bench: an n x n grid of Stanford bunnies

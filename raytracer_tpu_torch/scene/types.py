@@ -139,9 +139,9 @@ class Camera(NamedTuple):
 
 
 class Media(NamedTuple):
-    """Constant-density volumes (medium.rs:7-61). The port builds the table
-    so that scenes with media are recognised; rendering them is still to
-    be ported."""
+    """Constant-density volumes (medium.rs:7-61): analytic sphere or box
+    boundaries, each with its isotropic phase material (``ops/media.py``).
+    """
     kind: torch.Tensor             # (V,) int32: 0 sphere, 1 box
     p0: torch.Tensor               # (V, 3)
     p1: torch.Tensor               # (V, 3)

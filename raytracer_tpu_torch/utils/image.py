@@ -1,9 +1,10 @@
 """Image output: gamma-2 encode and a PNG writer (vec3.rs:223-231,
-main.rs:55).
+main.rs:55), and ``load_image`` for image textures.
 
 The PyTorch counterpart of ``raytracer_tpu/utils/image.py`` with
-``ops/vec.py::to_rgb8``: numpy and zlib only, so it runs wherever the port
-runs.
+``ops/vec.py::to_rgb8``: the writer needs numpy and zlib only, so it runs
+wherever the port runs. ``load_image`` imports PIL when it is called, as
+in the JAX package; nothing else of the port needs PIL.
 """
 
 from __future__ import annotations
@@ -46,3 +47,10 @@ def save_png(path: str, rgb8: np.ndarray):
 def save_render(path: str, img_linear):
     """Gamma-encode a linear (H, W, 3) image and write it as PNG."""
     save_png(path, linear_to_rgb8(img_linear))
+
+
+def load_image(path: str) -> np.ndarray:
+    """Load an image file as (H, W, 3) uint8 (for ``SceneBuilder.
+    image_texture``). Needs PIL, imported here."""
+    from PIL import Image
+    return np.asarray(Image.open(path).convert("RGB"))

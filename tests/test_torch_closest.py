@@ -243,18 +243,26 @@ def test_unfused_bounce_matches_fused(name):
 
 
 # "leaf" is ported: without leaf tables it raises ValueError, as JAX
-# pallas_bvh._run does (the case keeps its id)
+# pallas_bvh._run does; "bruteforce" is ported: it runs and finds the
+# kernel route's winners (the cases keep their ids)
 @pytest.mark.parametrize("method,error,item", [
     ("bvh", NotImplementedError, "A10"),
     pytest.param("leaf", ValueError, "no leaf tables", id="leaf-B4"),
-    ("bruteforce", NotImplementedError, "A3")],
+    ("bruteforce", None, None)],
     ids=["bvh-A10", "leaf-B4", "bruteforce-A3"])
 def test_dispatch_refuses_unported_routes(method, error, item):
     tscene = SCENES["three_spheres"][1]()
     o = torch.zeros((3, 4))
     d = torch.ones((3, 4))
-    with pytest.raises(error, match=item):
-        dispatch.intersect_scene(tscene, o, d, T_MIN, float("inf"), method)
+    if error is None:
+        got = dispatch.intersect_scene(tscene, o, d, T_MIN, float("inf"),
+                                       method)
+        ref = dispatch.intersect_scene(tscene, o, d, T_MIN, float("inf"))
+        assert (got.ty == ref.ty).all() and (got.ix == ref.ix).all()
+    else:
+        with pytest.raises(error, match=item):
+            dispatch.intersect_scene(tscene, o, d, T_MIN, float("inf"),
+                                     method)
     hit, h, f = dispatch.intersect_and_attrs(tscene, o, d, T_MIN,
                                              float("inf"), "auto")
     assert hit.t.shape == (4,) and h.p.shape == (3, 4)
@@ -262,14 +270,20 @@ def test_dispatch_refuses_unported_routes(method, error, item):
 
 
 def test_unfused_texture_refuses_images():
+    """Image textures are ported (the name is kept): the unfused bounce
+    reads the hit's texel, and the fused kernel, which evaluates constant
+    and checker textures only, refuses the scene."""
     b = SceneBuilder()
-    img = b.image_texture(np.ones((2, 2, 3), np.float32))
+    img = b.image_texture(np.full((2, 2, 3), 0.5, np.float32))
     b.add_sphere((0.0, 0.0, -2.0), 0.5, b.lambertian(img))
     scene = b.compile()
     tab = fused_bounce.pack_tables(scene)
     o = torch.zeros((3, 2))
     d = torch.tensor([[0.0, 0.0], [0.0, 0.0], [-1.0, -1.0]])
-    with pytest.raises(NotImplementedError, match="A8"):
-        twf.bounce_step(tab, torch.rand((3, 2)), o, d,
-                        torch.ones(2, dtype=torch.bool), t_min=T_MIN,
-                        spawn_eps=1e-4, fused=False, scene=scene)
+    alive = torch.ones(2, dtype=torch.bool)
+    out = twf.bounce_step(tab, torch.rand((3, 2)), o, d, alive, t_min=T_MIN,
+                          spawn_eps=1e-4, fused=False, scene=scene)
+    np.testing.assert_array_equal(out.att.numpy(), 0.5)
+    with pytest.raises(ValueError, match="unfused"):
+        fused_bounce.bounce_fused(scene, o, d, T_MIN, alive,
+                                  torch.rand((4, 2)))

@@ -117,13 +117,20 @@ def test_render_fn_refuses_unported_options(kw, error, item):
         path_tracer.render_fn(scene, torch.Generator(), **{**base, **kw})
 
 
+# media are ported: ``render_fn`` renders cornell_smoke, and what stays
+# refused on it is SPPM, naming A11 (the case keeps its id)
 @pytest.mark.parametrize("make,item", [
-    (lambda: tbuiltin.cornell_smoke(), "A7")])
+    pytest.param(lambda: tbuiltin.cornell_smoke(), "A11", id="<lambda>-A7")])
 def test_render_fn_refuses_ineligible_scenes(make, item):
+    from raytracer_tpu_torch.models import sppm
+    img, rays = path_tracer.render_fn(
+        make(), torch.Generator(), width=4, height=4, spp=1, spp_chunk=1,
+        max_depth=2, t_min=1e-3, spawn_eps_rel=1e-5, device="cpu")
+    assert torch.isfinite(img).all() and rays >= 16
     with pytest.raises(NotImplementedError, match=item):
-        path_tracer.render_fn(make(), torch.Generator(), width=4, height=4,
-                              spp=1, spp_chunk=1, max_depth=2, t_min=1e-3,
-                              spawn_eps_rel=1e-5, device="cpu")
+        sppm.render(make(), RenderConfig(width=4, height=4,
+                                         samples_per_pixel=1), 0,
+                    device="cpu")
 
 
 def test_render_fn_takes_its_device_explicitly():
@@ -166,14 +173,17 @@ def test_cli_refuses_unported(args):
         in res.stderr
 
 
+# ``--scene smoke`` renders since media are ported; SPPM on it exits 2
+# naming A11 (the case keeps its id)
 @pytest.mark.parametrize("args,item", [
-    (["--scene", "smoke"], "ROADMAP A7"),
+    pytest.param(["--scene", "smoke", "--integrator", "sppm"], "ROADMAP A11",
+                 id="args0-ROADMAP A7"),
     (["--profile-dir", "output/prof"], "ROADMAP A13"),
     (["--debug-nans"], "ROADMAP A13")])
 def test_cli_names_the_item_that_ports(args, item):
-    """The JAX CLI's smoke scene and its profiling and NaN-debugging flags
-    are accepted by name and exit 2 naming the ROADMAP item that ports
-    them."""
+    """SPPM on the JAX CLI's smoke scene and its profiling and
+    NaN-debugging flags are accepted by name and exit 2 naming the ROADMAP
+    item that ports them."""
     res = _cli(*args, "--width", "8", "--height", "8", "--spp", "1",
                "--device", "cpu", "--out", os.devnull)
     assert res.returncode == 2, res.stderr
