@@ -100,7 +100,27 @@ Phases, each of which raises on failure (exit code non-zero):
    light) at 800x600, 32 spp, depth 16, then with NEE and with MIS at 8
    spp (means within 3% of plain PT's) and through the leaf route (within
    ``LEAF_TOL``); two SPPM iterations on it at 400x400 with 100,000
-   photons. Each render with its seconds, rays, Mrays/s and launches.
+   photons. Each render with its seconds, rays, Mrays/s and launches;
+17. SPPM's (N, 3) route, the flat BVH and the CLI: SPPM on
+   ``cornell_smoke`` at the reference settings (800x800, 500,000 photons,
+   photon depth 16, camera depth 50), cut to 2 iterations and a 4-spp
+   gather (from 50 and 256), with per-iteration seconds split by stage
+   and the photon pass's share, its image mean below Cornell's at the
+   same settings; the closest-hit kernel held against its plain version
+   (phase 8's tolerances) on the inputs of one captured photon step and
+   one gather step, and the photon-query kernel on both maps of the
+   first iteration; SPPM route agreement at 400x400 with 100,000 photons
+   x 2 and a 4-spp gather (Cornell: kernel route against brute-force
+   route; textured_spheres: kernel route against the leaf route, whose
+   leaf kernel is held against its plain version on a captured photon
+   step), means within SPPM_ROUTE_BAND; the BVH: native and numpy builds
+   of bunny_field(25) and scene_500 timed, bunny_field 800x600 through
+   ``--intersector bvh`` at 1 spp and depth 2 (cut from bench.py's 8 spp
+   and depth 16: there its BVH pops nearly every node, ~60 s a
+   traversal), the winners of its first traversal (the 480,000 camera
+   rays) against the ordered and flat closest-hit kernels, scene_500
+   through it at 1 spp, depth 16, each mean against the kernel route's;
+   and ``--preset ci --profile-dir --debug-nans`` in one CLI command.
 
 It imports no JAX. The line before the last is a JSON object with the
 kernels' launches, errors, times and bounds; the last line is
@@ -195,6 +215,27 @@ SMOKE_KW = dict(width=400, height=400, spp=32, spp_chunk=4)
 SMOKE_ROUTE_SPP = 8
 BAND_MEAN, BAND_DIFF = 0.05, 0.08   # tests/test_extensions.py:296-300
 TEX_SPPM = dict(width=400, height=400, photons=100_000, iters=2, spp=4)
+# Phase 17: SPPM on cornell_smoke at RenderConfig()'s reference settings
+# (800x800, 500,000 photons, photon depth 16, camera depth 50; bench.py:
+# 192-208) cut to 2 iterations and a 4-spp gather; the photon step whose
+# closest-hit inputs are held (the second: photons after one bounce)
+SMOKE_SPPM_ITERS, SMOKE_SPPM_SPP, SMOKE_PHOTON_STEP = 2, 4, 1
+# SPPM route agreement at 400x400, 100,000 photons x 2, a 4-spp gather,
+# depth 16. On the CPU one render's mean spreads by 2.5% from seed to seed
+# at 16x16 with 4,000 photons (tests/test_torch_sppm_aos.py); 25x the
+# photons scale that to 0.5%, and 4 standard errors of a difference of two
+# renders to 0.5% * 4 * sqrt(2) = 2.8%
+ROUTE_SPPM = dict(width=400, height=400, photons=100_000, iters=2, spp=4)
+SPPM_ROUTE_BAND = 0.03
+# Renders through --intersector bvh at 1 spp (bench.py renders bunny_field
+# at 8), each mean against the kernel route's at the same settings: the
+# mean of 480,000 independent 1-spp pixels; the band is 4 x sqrt(2) of a
+# relative standard error of 0.5% (the two kernel-route seeds' spread is
+# printed beside it). bunny_field at depth 2: its BVH barely culls (each
+# triangle box is padded by 1e-4 x the scene's scale, 3.47 units), so a
+# traversal of 480,000 rays pops ~53,700 nodes in ~60 s on the card
+BVH_SPP, BVH_FIELD_DEPTH = 1, 2
+BVH_BAND = 0.03
 # A winner flip is excused only where the ray's float64 distance from the
 # winner's silhouette is within EDGE_ULPS and within EDGE_R2 of r^2, so
 # that no band covers a whole sphere: at field64k distances (|o - c|^2 up
@@ -1717,10 +1758,12 @@ def zero_counts():
 
 def timed_render(tag, scene, dev, *, spp, rr=True, seed=1, tables=None,
                  loop_step=False, stats=None, width=WIDTH, height=HEIGHT,
-                 spp_chunk=1, **kw):
-    """One render at ``width`` x ``height`` (800x600), depth 16,
-    ``spp_chunk`` (1), with every kernel count set to 0 just before and
-    read just after. Through
+                 spp_chunk=1, t_min=T_MIN, spawn_eps_rel=EPS_REL,
+                 depth=DEPTH, **kw):
+    """One render at ``width`` x ``height`` (800x600), ``depth`` (16),
+    ``spp_chunk`` (1), ``t_min`` and ``spawn_eps_rel`` (T_MIN, EPS_REL),
+    with every kernel count set to 0 just before and read just after.
+    Through
     ``path_tracer.render``, or ``render_fn`` when ``tables`` forces a
     route; ``loop_step`` takes the loop's own step where the one-kernel
     step would run (the test hook ``wavefront_soa._ONE_KERNEL_STEP``);
@@ -1731,8 +1774,9 @@ def timed_render(tag, scene, dev, *, spp, rr=True, seed=1, tables=None,
     from raytracer_tpu_torch.utils.config import RenderConfig
     from raytracer_tpu_torch.utils.image import save_render
     cfg = RenderConfig(width=width, height=height, samples_per_pixel=spp,
-                       spp_chunk=spp_chunk, max_depth=DEPTH, t_min=T_MIN,
-                       spawn_eps_rel=EPS_REL, russian_roulette=rr, **kw)
+                       spp_chunk=spp_chunk, max_depth=depth, t_min=t_min,
+                       spawn_eps_rel=spawn_eps_rel, russian_roulette=rr,
+                       **kw)
     stats = {} if stats is None else stats
     torch.cuda.synchronize()
     zero_counts()
@@ -1746,7 +1790,7 @@ def timed_render(tag, scene, dev, *, spp, rr=True, seed=1, tables=None,
             img, rays = path_tracer.render_fn(
                 scene, torch.Generator(device=dev).manual_seed(seed),
                 width=width, height=height, spp=spp, spp_chunk=spp_chunk,
-                max_depth=DEPTH, t_min=T_MIN, spawn_eps_rel=EPS_REL,
+                max_depth=depth, t_min=t_min, spawn_eps_rel=spawn_eps_rel,
                 intersector=cfg.intersector, russian_roulette=rr,
                 nee=cfg.nee, mis=cfg.mis, device=dev, tables=tables,
                 stats=stats)
@@ -1759,7 +1803,7 @@ def timed_render(tag, scene, dev, *, spp, rr=True, seed=1, tables=None,
     extra = (f"; shadow lanes {stats['shadow_lanes']}; steps "
              f"{stats['steps']}" if "shadow_lanes" in stats else "")
     log(f"render {tag}: {width}x{height} {spp} spp (spp_chunk {spp_chunk}) "
-        f"depth {DEPTH} RR {'on' if rr else 'off'} route {cfg.intersector}: "
+        f"depth {depth} RR {'on' if rr else 'off'} route {cfg.intersector}: "
         f"{rays} rays in {dt:.4f} s = {rays / dt / 1e6:.4f} Mrays/s; closest "
         f"launches {launches.get('closest', 0)}; launches {launches}{extra}; "
         f"image mean {host.mean():.6f}")
@@ -2620,6 +2664,391 @@ def media_textures() -> dict:
     return {"launches": total, "closest_err": err}
 
 
+# ----------------------------------------------------------------- phase 17
+
+def capture_sppm(run, picks: dict):
+    """Run ``run()`` with spies on ``closest_hit.closest_tables``,
+    ``leaf.leaf_closest`` and ``photon_query.query_planes`` that only copy
+    inputs: the k-th closest-hit (or leaf) call made inside each pass named
+    in ``picks`` ({"photon" | "gather" | "leaf photon": k}; the passes are
+    told apart by wrapping ``sppm.trace_photon_deposits``,
+    ``sppm.gather_walk`` and ``wavefront_soa.
+    trace_photon_deposits_regen_soa``) and the first two queries. Returns
+    (run's result, {pass: (tables, o, d, t_min, t_max, alive)}, [(planes,
+    points, r2, cap2)])."""
+    from raytracer_tpu_torch.models import sppm
+    from raytracer_tpu_torch.models import wavefront_soa as wf
+    from raytracer_tpu_torch.ops import closest_hit as ch
+    from raytracer_tpu_torch.ops import leaf
+    from raytracer_tpu_torch.ops import photon_query as pq
+    where, seen, got, queries = [None], {}, {}, []
+    real = {(ch, "closest_tables"): ch.closest_tables,
+            (leaf, "leaf_closest"): leaf.leaf_closest,
+            (pq, "query_planes"): pq.query_planes,
+            (sppm, "trace_photon_deposits"): sppm.trace_photon_deposits,
+            (sppm, "gather_walk"): sppm.gather_walk,
+            (wf, "trace_photon_deposits_regen_soa"):
+                wf.trace_photon_deposits_regen_soa}
+
+    def in_pass(name, fn):
+        def wrapped(*a, **k):
+            where[0] = name
+            try:
+                return fn(*a, **k)
+            finally:
+                where[0] = None
+        return wrapped
+
+    def hit(fn, prefix=""):
+        def wrapped(tab, o, d, t_min, t_max, alive, *a, **k):
+            name = prefix + str(where[0])
+            if name in picks:
+                i = seen.get(name, 0)
+                seen[name] = i + 1
+                if i == picks[name]:
+                    got[name] = (tab, o.clone(), d.clone(), t_min,
+                                 t_max.clone() if torch.is_tensor(t_max)
+                                 else t_max, alive.clone())
+            return fn(tab, o, d, t_min, t_max, alive, *a, **k)
+        return wrapped
+
+    def query(planes, points, r2, cap2):
+        if len(queries) < 2:
+            queries.append((planes, points.clone(), r2.clone(),
+                            cap2.clone()))
+        return real[(pq, "query_planes")](planes, points, r2, cap2)
+
+    spies = {(ch, "closest_tables"): hit(ch.closest_tables),
+             (leaf, "leaf_closest"): hit(leaf.leaf_closest, "leaf "),
+             (pq, "query_planes"): query,
+             (sppm, "trace_photon_deposits"):
+                 in_pass("photon", sppm.trace_photon_deposits),
+             (sppm, "gather_walk"): in_pass("gather", sppm.gather_walk),
+             (wf, "trace_photon_deposits_regen_soa"):
+                 in_pass("photon", wf.trace_photon_deposits_regen_soa)}
+    for (mod, fn), spy in spies.items():
+        setattr(mod, fn, spy)
+    try:
+        out = run()
+    finally:
+        for (mod, fn), fn0 in real.items():
+            setattr(mod, fn, fn0)
+    torch.cuda.synchronize()
+    missing = set(picks) - set(got)
+    if missing or len(queries) != 2:
+        raise AssertionError(f"capture missed {missing} / queries "
+                             f"{len(queries)}")
+    return out, got, queries
+
+
+def timed_sppm(tag, scene, cfg, dev, seed=0):
+    """``sppm.render`` with every kernel count set to 0 just before and
+    read just after, and per-stage seconds. Returns (image on the host,
+    gather rays, seconds, launches, per-iteration stage splits, times)."""
+    from raytracer_tpu_torch.models import sppm
+    from raytracer_tpu_torch.utils.image import save_render
+    times, per_iter = {}, []
+
+    def split(state):
+        done = dict(times)
+        prev = per_iter[-1][1] if per_iter else {}
+        per_iter.append(({k: v - prev.get(k, 0.0) for k, v in done.items()},
+                         done))
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    img, rays, state = sppm.render(scene, cfg, seed, checkpoint_cb=split,
+                                   device=dev, times=times)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in counts().items() if v}
+    host = img.cpu().numpy()
+    for i, (sp, _) in enumerate(per_iter):
+        log(f"sppm {tag} iteration {i}: {sum(sp.values()):.4f} s = "
+            + ", ".join(f"{k} {v:.4f}" for k, v in sp.items()))
+    log(f"sppm {tag} {cfg.width}x{cfg.height}, {cfg.sppm.photons_per_iter} "
+        f"photons x {cfg.sppm.n_iterations} iterations (photon depth "
+        f"{cfg.sppm.max_photon_bounces}, camera depth "
+        f"{cfg.sppm.max_camera_bounces}), gather {cfg.samples_per_pixel} spp "
+        f"depth {cfg.max_depth}, route {cfg.intersector}: {dt:.4f} s; "
+        f"gather {times['gather']:.4f} s, {rays} rays; closest launches "
+        f"{launches.get('closest', 0)}, photon_query launches "
+        f"{launches.get('photon_query', 0)}; launches {launches}; image "
+        f"mean {host.mean():.6f}")
+    if not (np.isfinite(host).all() and host.mean() > 0 and rays > 0
+            and state.iteration == cfg.sppm.n_iterations):
+        raise AssertionError(f"sppm {tag}: image not finite and positive")
+    save_render(os.path.join(ROOT, "output", f"chip_smoke_sppm_{tag}.png"),
+                host)
+    return host, rays, dt, launches, per_iter, times
+
+
+def hold_closest(name, scene, args, leaf_kernel=False) -> float:
+    """A captured closest-hit (or leaf) call against its plain version,
+    with phase 8's tolerances (phase 11's for the leaf); prints the
+    kernel's time. Returns the max |t| difference held to tolerance."""
+    from raytracer_tpu_torch.ops import closest_hit as ch
+    from raytracer_tpu_torch.ops import leaf
+    tab, o, d, t_min, t_max, alive = args
+    if leaf_kernel:
+        out = leaf.leaf_closest(tab, o, d, t_min, t_max, alive)
+        torch.cuda.synchronize()
+        ref = leaf.leaf_closest_plain(tab, o, d, t_min, t_max, alive)
+        err = compare_winners(name, scene, tab, o, d, out, ref, alive,
+                              PLAIN_EDGE)
+        ms = cuda_ms(lambda: leaf.leaf_closest(tab, o, d, t_min, t_max,
+                                               alive))
+    else:
+        out = ch.closest_tables(tab, o, d, t_min, t_max, alive)
+        torch.cuda.synchronize()
+        ref = ch.closest_hit_plain(tab, o, d, t_min, t_max, alive)
+        err = compare_closest(name, scene, tab, o, d, t_min, t_max, alive,
+                              out, ref)
+        ms = cuda_ms(lambda: ch.closest_tables(tab, o, d, t_min, t_max,
+                                               alive))
+    log(f"  {name}: {o.shape[1]} lanes, {int(alive.sum())} alive; kernel "
+        f"{ms:.4f} ms (median of 10 CUDA-event timings)")
+    return err
+
+
+def sppm_smoke(dev) -> dict:
+    """SPPM on cornell_smoke at the reference's settings (cut to
+    SMOKE_SPPM_ITERS iterations and a SMOKE_SPPM_SPP-spp gather), with the
+    closest-hit kernel's inputs of one photon step and one gather step
+    and both queries of the first iteration captured and held against the
+    plain versions; then Cornell at the same settings, whose mean the
+    smoke's must lie below."""
+    from raytracer_tpu_torch.ops import photon_query as pq
+    from raytracer_tpu_torch.scene.builtin import cornell_box, cornell_smoke
+    cfg = sppm_config(SMOKE_SPPM_SPP, n_iterations=SMOKE_SPPM_ITERS)
+    smoke = cornell_smoke(1.0).to(dev)
+    (img, rays, dt, launches, per_iter, times), got, queries = capture_sppm(
+        lambda: timed_sppm("smoke", smoke, cfg, dev),
+        {"photon": SMOKE_PHOTON_STEP, "gather": 0})
+    for k in ("closest", "photon_query"):
+        if not launches.get(k):
+            raise AssertionError(f"SPPM on smoke launched no {k} kernel")
+    if launches.get("bounce") or launches.get("regen"):
+        raise AssertionError("SPPM on smoke took the fused kernels")
+    it = [sum(sp.values()) for sp, _ in per_iter]
+    photon = [sp.get("photon pass", 0.0) for sp, _ in per_iter]
+    log(f"sppm smoke: seconds per iteration {', '.join(f'{x:.4f}' for x in it)}"
+        f"; photon pass share {', '.join(f'{p / x:.4f}' for p, x in zip(photon, it))}"
+        f"; gather {times['gather']:.4f} s, {rays} rays")
+    box = cornell_box(1.0).to(dev)
+    img_c, *_ = timed_sppm("cornell", box, cfg, dev)
+    log(f"sppm smoke mean {img.mean():.6f} against Cornell's "
+        f"{img_c.mean():.6f} at the same settings")
+    if not img.mean() < img_c.mean():
+        raise AssertionError("the smoke does not darken the SPPM image")
+    log("closest-hit kernel on SPPM smoke's captured steps:")
+    scene_cpu = cornell_smoke(1.0)
+    err = max(hold_closest(f"smoke photon step {SMOKE_PHOTON_STEP}",
+                           scene_cpu, got["photon"]),
+              hold_closest("smoke gather step 0", scene_cpu, got["gather"]))
+    log("photon-query kernel on SPPM smoke's first iteration:")
+    q_err = 0.0
+    for name, (planes, pts, r2, cap2) in zip(("global", "caustic"),
+                                             queries):
+        out = pq.query_planes(planes, pts, r2, cap2)
+        torch.cuda.synchronize()
+        ref = pq.query_photons_plain(planes, pts, r2, cap2)
+        q_err = max(q_err, compare_query(f"smoke {name} map", out, ref))
+        log(f"  smoke {name} map: {pts.shape[0]} points, counts r "
+            f"{int(out.count_r.sum())} cap {int(out.count_cap.sum())}, "
+            "bit-equal")
+    return {"launches": launches, "closest_err": err, "query_err": q_err}
+
+
+def sppm_routes(dev) -> dict:
+    """SPPM route agreement at ROUTE_SPPM's size: Cornell through the SoA
+    kernel route and the brute-force (N, 3) route, textured_spheres
+    through the kernel route and the leaf route (one photon step's leaf
+    call captured and held against its plain version); image means within
+    SPPM_ROUTE_BAND."""
+    from raytracer_tpu_torch.ops.leaf import build_leaf_tables
+    from raytracer_tpu_torch.scene.builtin import cornell_box
+    sp = ROUTE_SPPM
+    cfg = sppm_config(sp["spp"], n_iterations=sp["iters"],
+                      photons_per_iter=sp["photons"], max_camera_bounces=DEPTH)
+    cfg = cfg.replace(width=sp["width"], height=sp["height"],
+                      max_depth=DEPTH)
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    means = {}
+    box = cornell_box(1.0).to(dev)
+    for route in ("pallas", "bruteforce"):
+        img, _, _, l_r, _, _ = timed_sppm(f"cornell_{route}", box,
+                                          cfg.replace(intersector=route),
+                                          dev)
+        add(l_r)
+        if (route == "pallas") != bool(l_r.get("bounce")):
+            raise AssertionError(f"route {route}: launches {l_r}")
+        means[f"cornell {route}"] = img.mean()
+    tex = textured_scene(1.0)
+    tex = tex._replace(leaf=build_leaf_tables(tex)).to(dev)
+    img, _, _, l_k, _, _ = timed_sppm("textured_pallas", tex, cfg, dev)
+    add(l_k)
+    means["textured pallas"] = img.mean()
+    (img, _, _, l_l, _, _), got, _ = capture_sppm(
+        lambda: timed_sppm("textured_leaf", tex,
+                           cfg.replace(intersector="leaf"), dev),
+        {"leaf photon": 1})
+    add(l_l)
+    if not l_l.get("leaf"):
+        raise AssertionError("SPPM --intersector leaf launched no leaf "
+                             "kernel")
+    means["textured leaf"] = img.mean()
+    for a, b in (("cornell bruteforce", "cornell pallas"),
+                 ("textured leaf", "textured pallas")):
+        dm = means[a] / means[b] - 1
+        log(f"sppm route agreement: {a} {means[a]:.6f} vs {b} "
+            f"{means[b]:.6f} ({dm * 100:+.4f}%, band "
+            f"{SPPM_ROUTE_BAND * 100:.1f}%)")
+        if not abs(dm) <= SPPM_ROUTE_BAND:
+            raise AssertionError(f"SPPM routes disagree: {a} vs {b}")
+    log("leaf kernel on SPPM's captured leaf photon step:")
+    err = hold_closest("textured leaf photon step 1", textured_scene(1.0),
+                       got["leaf photon"], leaf_kernel=True)
+    return {"launches": total, "leaf_err": err}
+
+
+def bvh_render(tag, scene, dev, depth, capture=False):
+    """``scene`` (with its BVH) through ``--intersector bvh`` at BVH_SPP
+    spp and ``depth``, and through the kernel route at the same settings
+    with two seeds (their spread printed); the image means within
+    BVH_BAND. ``capture``: also return the first traversal's inputs and
+    winners (the render's camera rays). Returns (kernel-route launches,
+    captured (o, d, Hit) or None)."""
+    from raytracer_tpu_torch.ops import bvh
+    real, got = bvh.intersect_bvh, []
+
+    def spy(scene_, o, d, *a, **k):
+        h = real(scene_, o, d, *a, **k)
+        if capture and not got:
+            got.append((o.clone(), d.clone(), h))
+        return h
+
+    bvh.intersect_bvh = spy
+    try:
+        img_b, rays_b, dt_b, l_b = timed_render(
+            f"{tag}_bvh", scene, dev, spp=BVH_SPP, depth=depth,
+            intersector="bvh")
+    finally:
+        bvh.intersect_bvh = real
+    if l_b:
+        raise AssertionError(f"the BVH route launched kernels: {l_b}")
+    kern = [timed_render(f"{tag}_{s}", scene, dev, spp=BVH_SPP, depth=depth,
+                         seed=s) for s in (1, 2)]
+    spread = abs(kern[1][0].mean() / kern[0][0].mean() - 1)
+    dm = img_b.mean() / kern[0][0].mean() - 1
+    log(f"bvh render {tag} {BVH_SPP} spp depth {depth}: {dt_b:.4f} s, "
+        f"{rays_b} rays = {rays_b / dt_b / 1e6:.4f} Mrays/s; image mean "
+        f"{img_b.mean():.6f} vs the kernel route's {kern[0][0].mean():.6f} "
+        f"({dm * 100:+.4f}%; that route's seed spread {spread * 100:.4f}%, "
+        f"band {BVH_BAND * 100:.1f}%)")
+    if not abs(dm) <= BVH_BAND:
+        raise AssertionError(f"the BVH render of {tag} is off the kernel "
+                             "route's")
+    launches = {}
+    for r in kern:
+        for k, v in r[3].items():
+            launches[k] = launches.get(k, 0) + v
+    return launches, (got[0] if got else None)
+
+
+def bvh_phase(dev) -> dict:
+    """The flat BVH: both builders on bunny_field(25) and scene_500;
+    bunny_field through ``--intersector bvh`` at BVH_SPP spp and depth
+    BVH_FIELD_DEPTH, its first traversal's winners (the render's 480,000
+    camera rays) held against the ordered and flat closest-hit kernels;
+    scene_500 through it at depth 16. Each render's mean against the
+    kernel route's."""
+    from raytracer_tpu_torch.native import runtime
+    from raytracer_tpu_torch.ops import bvh, closest_hit as ch
+    from raytracer_tpu_torch.ops import fused_bounce as fb
+    if not runtime.available():
+        raise AssertionError(f"native BVH builder: {runtime.why()}")
+    built = {}
+    for name, scene in (("bunny_field", large_scene("bunny_field")),
+                        ("scene_500", load("scene_500", WIDTH / HEIGHT))):
+        for native in (True, False):
+            t0 = time.perf_counter()
+            b = bvh.build_bvh(scene, use_native=native)
+            dt = time.perf_counter() - t0
+            log(f"bvh build {name} ({b.bvh.prim_type.shape[0]} primitives, "
+                f"{b.bvh.left.shape[0]} nodes), "
+                f"{'native' if native else 'numpy'}: {dt:.4f} s")
+            built[(name, native)] = b
+    scene = built[("bunny_field", True)].to(dev)
+    total, (o, d, h) = bvh_render("bunny_field", scene, dev,
+                                  BVH_FIELD_DEPTH, capture=True)
+    o, d = o.T.contiguous(), d.T.contiguous()
+    alive = torch.ones(o.shape[1], dtype=torch.bool, device=dev)
+    out = (h.t, h.prim_type, h.prim_idx)
+    inf = float("inf")
+    log(f"bvh traversal winners on the render's {o.shape[1]} camera rays:")
+    for label, tab in (("ordered", fb.pack_tables(scene)),
+                       ("flat", fb.pack_tables(scene, order=False))):
+        ref = ch.closest_tables(tab, o, d, T_MIN, inf, alive)
+        torch.cuda.synchronize()
+        compare_winners(f"bvh traversal vs the {label} closest-hit kernel",
+                        scene, tab, o, d, out, ref, alive)
+    more, _ = bvh_render("scene_500", built[("scene_500", True)].to(dev),
+                         dev, DEPTH)
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+    return {"launches": total}
+
+
+def cli_flags() -> dict:
+    """``--preset ci``, ``--profile-dir`` and ``--debug-nans`` in one
+    command on the card (a clean render must exit 0, the trace must
+    exist)."""
+    prof = os.path.join(ROOT, "output", "chip_smoke_profile")
+    trace = os.path.join(prof, "trace.json")
+    if os.path.exists(trace):
+        os.unlink(trace)
+    cmd = [sys.executable, "-m", "raytracer_tpu_torch", "render", "--scene",
+           "cornell", "--preset", "ci", "--profile-dir", prof,
+           "--debug-nans", "--device", DEV, "--out",
+           os.path.join(ROOT, "output", "chip_smoke_cli_ci.png")]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    dt = time.perf_counter() - t0
+    log(f"cli {' '.join(cmd[3:])}: rc {res.returncode} in {dt:.2f} s; "
+        + " | ".join(res.stdout.strip().splitlines()))
+    if res.returncode != 0:
+        raise AssertionError(f"the CLI failed: {res.stderr[-2000:]}")
+    size = os.path.getsize(trace) if os.path.exists(trace) else 0
+    log(f"cli trace {trace}: {size} bytes")
+    if not size:
+        raise AssertionError("--profile-dir wrote no trace")
+    return {}
+
+
+def aos_bvh_cli() -> dict:
+    """Phase 17. Returns the summed launches of its main-path runs and the
+    kernels' max errors on the new inputs."""
+    dev = torch.device(DEV)
+    sm = sppm_smoke(dev)
+    rt = sppm_routes(dev)
+    bv = bvh_phase(dev)
+    cli_flags()
+    total = {}
+    for part in (sm, rt, bv):
+        for k, v in part["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return {"launches": total, "closest_err": sm["closest_err"],
+            "query_err": sm["query_err"], "leaf_err": rt["leaf_err"]}
+
+
 def main() -> int:
     device = card()
     sys.path.insert(0, ROOT)
@@ -2645,6 +3074,11 @@ def main() -> int:
     mt = media_textures()
     p16 = mt["launches"]
     c_stats["max_abs_err"] = max(c_stats["max_abs_err"], mt["closest_err"])
+    ab = aos_bvh_cli()
+    p17 = ab["launches"]
+    c_stats["max_abs_err"] = max(c_stats["max_abs_err"], ab["closest_err"])
+    q_stats["max_abs_err"] = max(q_stats["max_abs_err"], ab["query_err"])
+    l_row["max_abs_err"] = max(l_row["max_abs_err"], ab["leaf_err"])
 
     def row(d):
         return {k: v for k, v in d.items()
@@ -2656,21 +3090,23 @@ def main() -> int:
          "source": "raytracer_tpu_torch/csrc/bounce.cu",
          "replaces": "raytracer_tpu/ops/pallas_intersect.py:1731",
          "launches": sppm_launches["bounce"] + nm["nee"]["bounce"]
-         + nm["mis"]["bounce"], **stats},
+         + nm["mis"]["bounce"] + p17.get("bounce", 0), **stats},
         {"name": "photon_query", "route": "cuda",
          "source": "raytracer_tpu_torch/csrc/photon_query.cu",
          "replaces": "raytracer_tpu/ops/pallas_photon.py:82",
          "launches": sppm_launches["photon_query"]
-         + p16.get("photon_query", 0), **q_stats},
+         + p16.get("photon_query", 0) + p17.get("photon_query", 0),
+         **q_stats},
         {"name": "closest", "route": "cuda",
          "source": "raytracer_tpu_torch/csrc/closest.cu",
          "replaces": "raytracer_tpu/ops/pallas_intersect.py:1054",
          "launches": nm["nee"]["closest"] + nm["mis"]["closest"]
-         + p16.get("closest", 0), **c_stats},
+         + p16.get("closest", 0) + p17.get("closest", 0), **c_stats},
         {"name": "closest_ordered", "route": "cuda",
          "source": "raytracer_tpu_torch/csrc/closest_ordered.cu",
          "replaces": "raytracer_tpu/ops/pallas_intersect.py:1068",
-         "launches": sl.get("closest_ordered", 0),
+         "launches": sl.get("closest_ordered", 0)
+         + p17.get("closest_ordered", 0),
          **row(o_rows["closest_ordered"])},
         {"name": "bounce_ordered", "route": "cuda",
          "source": "raytracer_tpu_torch/csrc/bounce_ordered.cu",
@@ -2680,18 +3116,19 @@ def main() -> int:
         {"name": "leaf", "route": "cuda",
          "source": "raytracer_tpu_torch/csrc/leaf.cu",
          "replaces": "raytracer_tpu/ops/pallas_bvh.py:475",
-         "launches": sl.get("leaf", 0) + p16.get("leaf", 0),
-         **row(l_row)},
+         "launches": sl.get("leaf", 0) + p16.get("leaf", 0)
+         + p17.get("leaf", 0), **row(l_row)},
         {"name": "regen", "route": "cuda",
          "source": "raytracer_tpu_torch/csrc/regen.cu",
          "replaces": "raytracer_tpu/ops/pallas_intersect.py:1873",
-         "launches": pt_regen + sl.get("regen", 0) + rl.get("regen", 0),
+         "launches": pt_regen + sl.get("regen", 0) + rl.get("regen", 0)
+         + p17.get("regen", 0),
          **row(r_rows["regen"])},
         {"name": "regen_ordered", "route": "cuda",
          "source": "raytracer_tpu_torch/csrc/regen_ordered.cu",
          "replaces": "raytracer_tpu/ops/pallas_intersect.py:1906",
          "launches": sl.get("regen_ordered", 0)
-         + rl.get("regen_ordered", 0),
+         + rl.get("regen_ordered", 0) + p17.get("regen_ordered", 0),
          **row(r_rows["regen_ordered"])},
         {"name": "fma_rate", "route": "cuda",
          "source": "raytracer_tpu_torch/csrc/fma_rate.cu",

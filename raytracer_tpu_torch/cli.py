@@ -16,26 +16,26 @@ Usage:
     python -m raytracer_tpu_torch render --scene textured \
         --intersector bruteforce --width 64 --height 48 --spp 4 \
         --device cpu
+    python -m raytracer_tpu_torch render --scene bunnies --intersector bvh \
+        --width 800 --height 600 --spp 1 --max-depth 16 --device cuda
+    python -m raytracer_tpu_torch render --scene smoke --integrator sppm \
+        --preset ci --device cpu --profile-dir output/prof
 
-The other integrators and flags of the JAX CLI are accepted by name so that
-a command written for it fails with a message naming the ROADMAP item that
-ports the feature, instead of an argparse error; ``--jax-cache`` is
-accepted and does nothing (the port compiles no XLA programs).
+``--sharded`` is accepted by name so that a command written for the JAX
+CLI fails with a message naming the ROADMAP item that ports it, instead of
+an argparse error; ``--jax-cache`` is accepted and does nothing (the port
+compiles no XLA programs). ``--debug-nans`` checks every wavefront step's
+outputs for NaN (``utils/nans.py``).
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
-import time
 
 # flag -> ROADMAP item that ports it (queue A of ROADMAP.md)
 UNPORTED = {
-    "bvh": "A10 (large scenes)",
     "sharded": "A12 (multi-device)",
-    "preset": "A13 (the rest of the CLI)",
-    "profile_dir": "A13 (the rest of the CLI)",
-    "debug_nans": "A13 (the rest of the CLI)",
 }
 
 
@@ -73,15 +73,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="mixture-PDF importance sampling for the pt "
                         "integrator (50/50 cosine/light direction at "
                         "diffuse vertices). Exclusive with --nee")
-    for flag in ("bvh", "sharded"):
-        r.add_argument(f"--{flag}", action="store_true",
-                       help=f"not ported yet (ROADMAP {UNPORTED[flag]})")
-    r.add_argument("--preset", default=None,
-                   help=f"not ported yet (ROADMAP {UNPORTED['preset']})")
+    r.add_argument("--bvh", action="store_true",
+                   help="build a BVH for the scene")
+    r.add_argument("--sharded", action="store_true",
+                   help=f"not ported yet (ROADMAP {UNPORTED['sharded']})")
+    r.add_argument("--preset", choices=["ci"], default=None,
+                   help="small CI workload (RenderConfig.ci_preset)")
     r.add_argument("--profile-dir", default=None,
-                   help=f"not ported yet (ROADMAP {UNPORTED['profile_dir']})")
+                   help="write a torch.profiler trace (trace.json) here")
     r.add_argument("--debug-nans", action="store_true",
-                   help=f"not ported yet (ROADMAP {UNPORTED['debug_nans']})")
+                   help="raise FloatingPointError at the first wavefront "
+                        "step whose outputs hold a NaN")
     r.add_argument("--jax-cache", default=None,
                    help="accepted for the JAX CLI's sake; no effect (the "
                         "port has no XLA compilation cache)")
@@ -145,9 +147,12 @@ def cmd_render(args) -> int:
     from raytracer_tpu_torch.models import path_tracer, sppm
     from raytracer_tpu_torch.ops.fused_bounce import moving
     from raytracer_tpu_torch.utils import checkpoint as ckpt
+    from raytracer_tpu_torch.utils import nans
     from raytracer_tpu_torch.utils.config import RenderConfig, SPPMConfig
     from raytracer_tpu_torch.utils.image import save_render
+    from raytracer_tpu_torch.utils.timing import StageTimer, maybe_profile
 
+    timer = StageTimer()
     cfg = RenderConfig(
         width=args.width, height=args.height, samples_per_pixel=args.spp,
         spp_chunk=args.spp_chunk, max_depth=args.max_depth,
@@ -157,57 +162,77 @@ def cmd_render(args) -> int:
         sppm=SPPMConfig(n_iterations=args.sppm_iters,
                         photons_per_iter=args.sppm_photons,
                         alpha=args.sppm_alpha))
-    t0 = time.perf_counter()
-    scene = load_scene_arg(args.scene, cfg.width / cfg.height)
-    t1 = time.perf_counter()
+    if args.preset == "ci":
+        ci = RenderConfig.ci_preset()
+        cfg = cfg.replace(width=ci.width, height=ci.height,
+                          samples_per_pixel=ci.samples_per_pixel,
+                          max_depth=ci.max_depth, sppm=ci.sppm)
     stats = {}
     try:
-        # a moving scene takes the kernel route instead (dispatch.resolve);
-        # a scene without spheres has no leaf tables (ValueError, as JAX)
-        if args.intersector == "leaf" and not moving(scene):
-            from raytracer_tpu_torch.ops.leaf import build_leaf_tables
-            scene = scene._replace(leaf=build_leaf_tables(scene))
-            t1 = time.perf_counter()
-        if args.integrator == "sppm":
-            state = None
-            if args.resume:
-                # the stored seed reproduces the original random streams;
-                # an explicit --seed overrides it, with a warning
-                state, stored_seed = ckpt.load_state(args.resume)
-                if args.seed is None:
-                    cfg = cfg.replace(seed=stored_seed)
-                elif args.seed != stored_seed:
-                    print(f"warning: --seed {args.seed} != checkpoint seed "
-                          f"{stored_seed}; resumed render will not match the "
-                          "original", file=sys.stderr)
-                print(f"resumed from {args.resume} at iteration "
-                      f"{state.iteration}")
-            cb = None
-            if args.checkpoint:
-                def cb(s):
-                    ckpt.save_state(args.checkpoint, s, cfg.seed)
-            img, rays, _ = sppm.render(scene, cfg, cfg.seed, state=state,
-                                       checkpoint_cb=cb, device=args.device)
-        else:
-            img, rays = path_tracer.render(scene, cfg, cfg.seed,
-                                           device=args.device, stats=stats)
+        with timer.stage("Scene build"):
+            scene = load_scene_arg(args.scene, cfg.width / cfg.height)
+            if args.bvh or args.intersector == "bvh":
+                from raytracer_tpu_torch.ops.bvh import build_bvh
+                scene = build_bvh(scene)
+            # a moving scene takes the kernel route instead
+            # (dispatch.resolve); a scene without spheres has no leaf
+            # tables (ValueError, as JAX)
+            if args.intersector == "leaf" and not moving(scene):
+                from raytracer_tpu_torch.ops.leaf import build_leaf_tables
+                scene = scene._replace(leaf=build_leaf_tables(scene))
+        with maybe_profile(args.profile_dir, args.device), \
+                nans.debug_nans(args.debug_nans):
+            if args.integrator == "sppm":
+                state = None
+                if args.resume:
+                    # the stored seed reproduces the original random
+                    # streams; an explicit --seed overrides it, with a
+                    # warning
+                    state, stored_seed = ckpt.load_state(args.resume)
+                    if args.seed is None:
+                        cfg = cfg.replace(seed=stored_seed)
+                    elif args.seed != stored_seed:
+                        print(f"warning: --seed {args.seed} != checkpoint "
+                              f"seed {stored_seed}; resumed render will not "
+                              "match the original", file=sys.stderr)
+                    print(f"resumed from {args.resume} at iteration "
+                          f"{state.iteration}")
+                cb = None
+                if args.checkpoint:
+                    def cb(s):
+                        ckpt.save_state(args.checkpoint, s, cfg.seed)
+                with timer.stage("SPPM"):
+                    img, rays, _ = sppm.render(
+                        scene, cfg, cfg.seed, state=state, checkpoint_cb=cb,
+                        device=args.device)
+                    if img.is_cuda:
+                        torch.cuda.synchronize(img.device)
+            else:
+                with timer.stage("RT"):
+                    img, rays = path_tracer.render(
+                        scene, cfg, cfg.seed, device=args.device,
+                        stats=stats)
+                    if img.is_cuda:
+                        torch.cuda.synchronize(img.device)
     except (NotImplementedError, ValueError) as e:
         print(f"raytracer_tpu_torch: {e}", file=sys.stderr)
         return 2
-    if img.is_cuda:
-        torch.cuda.synchronize(img.device)
-    t2 = time.perf_counter()
-    save_render(cfg.output, img)
+    timer.count("traced_rays", rays)
+    with timer.stage("Save"):
+        save_render(cfg.output, img)
+    build_s = timer.stages["Scene build"]
+    render_s = timer.stages.get("SPPM", timer.stages.get("RT"))
     if args.integrator == "sppm":
-        print(f"scene build {t1 - t0:.3f} s; render {t2 - t1:.3f} s on "
+        print(f"scene build {build_s:.3f} s; render {render_s:.3f} s on "
               f"{args.device}; {rays} rays in the final gather")
     else:
-        print(f"scene build {t1 - t0:.3f} s; render {t2 - t1:.3f} s on "
-              f"{args.device}; {rays} rays ({rays / (t2 - t1) / 1e6:.2f} "
+        print(f"scene build {build_s:.3f} s; render {render_s:.3f} s on "
+              f"{args.device}; {rays} rays ({rays / render_s / 1e6:.2f} "
               "Mrays/s)")
         if args.nee:
             print(f"{stats['shadow_lanes']} NEE shadow rays (not counted "
                   "as rays)")
+    print(timer.summary())
     print(f"wrote {cfg.output}")
     return 0
 

@@ -6,11 +6,12 @@ importance sampling (``mis``), motion blur on scenes whose spheres move
 (one shutter time per sample), media and image and noise textures.
 
 Routes: "pallas" and "leaf" run the regeneration wavefront of
-``wavefront_soa`` on the kernels; "bruteforce" runs the JAX package's
-(N, 3) route: ``render_fn``'s loop over chunks of samples, each a
-wavefront of camera rays (``models/camera.py``) traced to completion by
+``wavefront_soa`` on the kernels; "bruteforce" and "bvh" run the JAX
+package's (N, 3) route: ``render_fn``'s loop over chunks of samples, each
+a wavefront of camera rays (``models/camera.py``) traced to completion by
 ``trace_radiance_bruteforce`` with the chunked scan of
-``ops/intersect.py``, ``ops/materials.py`` and the media override of
+``ops/intersect.py`` or the flat BVH of ``ops/bvh.py``,
+``ops/materials.py`` and the media override of
 ``ops/media.py::apply_media`` (``hit_and_attrs``).
 
 Every random draw comes from one ``torch.Generator`` seeded from an int.
@@ -29,13 +30,14 @@ from raytracer_tpu_torch.models.wavefront_soa import (
     RR_START_BOUNCE, U_RR, U_TRACE_ROWS, _extra_rows, _media_u, media_rows,
     render_regen_soa, trace_radiance_soa,
 )
-from raytracer_tpu_torch.ops import intersect, materials, media, vec
+from raytracer_tpu_torch.ops import dispatch, intersect, materials, media, vec
 from raytracer_tpu_torch.ops import mis as mis_ops
 from raytracer_tpu_torch.ops import nee as nee_ops
-from raytracer_tpu_torch.ops.dispatch import NO_LEAF, resolve
 from raytracer_tpu_torch.ops.fused_bounce import moving, pack_tables
 from raytracer_tpu_torch.scene.types import INTER_ABSORB, INTER_DIFFUSE, Scene
+from raytracer_tpu_torch.utils import nans
 from raytracer_tpu_torch.utils.config import RenderConfig
+from raytracer_tpu_torch.utils.timing import Progress, sync_for
 
 
 class TraceResult(NamedTuple):
@@ -46,15 +48,14 @@ class TraceResult(NamedTuple):
 def _resolve(scene: Scene, intersector: str, nee: bool, mis: bool) -> str:
     """The route of a render: the kernel route ("pallas") for "auto" and
     "pallas", "leaf" for the leaf kernel (``ValueError`` when the scene has
-    no leaf tables; a moving scene takes the kernel route, as in JAX),
-    "bruteforce" for the (N, 3) route; "bvh" raises
-    ``NotImplementedError`` naming the ROADMAP item that ports it. ``nee``
-    and ``mis`` together raise ``ValueError``, as in the JAX package."""
+    no leaf tables), "bruteforce" and "bvh" for the (N, 3) route (the BVH
+    route raises ``ValueError`` when the scene has none); a moving scene
+    takes the kernel route for "leaf" and "bvh", as in JAX. ``nee`` and
+    ``mis`` together raise ``ValueError``, as in the JAX package."""
     if mis and nee:
         raise ValueError("--mis and --nee are mutually exclusive")
-    method = resolve(intersector, moving(scene))
-    if method == "leaf" and scene.leaf is None:
-        raise ValueError(NO_LEAF)
+    method = dispatch.resolve(intersector, moving(scene))
+    dispatch.check_route(scene, method)
     return method
 
 
@@ -66,13 +67,22 @@ def spawn_origin(p, normal, new_dir, eps):
 
 
 def hit_and_attrs(scene: Scene, o, d, t_min: float, media_u=None,
-                  time=None, alive=None) -> intersect.HitAttrs:
-    """One bounce's hit on the (N, 3) route: the brute-force closest hit
-    of rays ``o``/``d`` (N, 3), its attributes, then the media override
-    from free-flight uniforms ``media_u`` (K, N) where the scene has
-    media (medium.rs semantics)."""
-    hit = intersect.intersect_bruteforce(scene, o, d, t_min, torch.inf,
-                                         time, alive)
+                  time=None, alive=None, intersector: str = "bruteforce",
+                  tables=None) -> intersect.HitAttrs:
+    """One bounce's hit in the (N, 3) loops: the closest hit of rays
+    ``o``/``d`` (N, 3) on ``intersector``'s route (the brute-force scan or
+    the BVH in (N, 3); the closest-hit or leaf kernel on (3, N) rows, with
+    ``tables`` from ``pack_tables`` if given), its attributes, then the
+    media override from free-flight uniforms ``media_u`` (K, N) where the
+    scene has media (medium.rs semantics; JAX ``hit_and_attrs``)."""
+    if intersector in dispatch.AOS_ROUTES:
+        hit = dispatch.aos_hit(scene, o, d, t_min, torch.inf, intersector,
+                               alive, time)
+    else:
+        c = dispatch.intersect_scene(scene, o.T.contiguous(),
+                                     d.T.contiguous(), t_min, torch.inf,
+                                     intersector, alive, tables, time)
+        hit = intersect.Hit(c.t, c.ty, c.ix)
     attrs = intersect.hit_attributes(scene, o, d, hit, time)
     if media_u is not None:
         attrs = media.apply_media(scene.media, media_u, o, d, attrs, t_min)
@@ -83,13 +93,17 @@ def trace_radiance_bruteforce(scene: Scene, o, d, gen: torch.Generator, *,
                               max_depth: int, t_min: float, spawn_eps,
                               russian_roulette: bool = True,
                               nee: bool = False, mis: bool = False,
-                              time=None, stats: dict = None) -> TraceResult:
+                              time=None, stats: dict = None,
+                              intersector: str = "bruteforce",
+                              tables=None) -> TraceResult:
     """The JAX package's (N, 3) loop (``trace_radiance``'s body): rays
     ``o``/``d`` (N, 3) traced to completion, at most ``max_depth``
     bounces, no regeneration. Each step draws the wavefront's uniform rows
     from ``gen`` as ``trace_radiance_soa`` does (scatter and RR, then NEE's
-    or MIS's rows, then one free-flight row per medium), and casts NEE's
-    shadow rays through the brute-force route. ``time`` (N,): each ray's
+    or MIS's rows, then one free-flight row per medium), and casts its
+    rays and NEE's shadow rays through ``intersector``'s route
+    ("bruteforce" or "bvh"; ``tables``: ``pack_tables`` of the scene for
+    the kernel routes, if any). ``time`` (N,): each ray's
     shutter time. ``stats``, if given, gets the NEE shadow rays cast added
     to ``shadow_lanes`` and the steps to ``steps``. Returns radiance
     (N, 3) and the rays traced (alive lanes summed over steps)."""
@@ -111,7 +125,7 @@ def trace_radiance_bruteforce(scene: Scene, o, d, gen: torch.Generator, *,
         steps += 1
         U = torch.rand((base + k_med, n), generator=gen, device=dev)
         attrs = hit_and_attrs(scene, o, d, t_min, _media_u(U, base, k_med),
-                              time, alive)
+                              time, alive, intersector, tables)
         sc = materials.scatter(scene, U, d, attrs)
         live = alive & attrs.valid
         # with NEE, emission along a diffuse-scattered ray was counted by
@@ -122,9 +136,9 @@ def trace_radiance_bruteforce(scene: Scene, o, d, gen: torch.Generator, *,
         extra = U[U_TRACE_ROWS:base]
         if nee:
             dl, cast = nee_ops.direct_light(
-                scene, None, extra, attrs.p.T, attrs.normal.T,
+                scene, tables, extra, attrs.p.T, attrs.normal.T,
                 sc.attenuation.T, diffuse_now, alive=alive,
-                intersector="bruteforce", time=time)
+                intersector=intersector, time=time)
             shadow += cast.sum()
             rad = rad + torch.where(diffuse_now[:, None], tput * dl.T, 0.0)
         direction, attenuation = sc.direction, sc.attenuation
@@ -148,6 +162,8 @@ def trace_radiance_bruteforce(scene: Scene, o, d, gen: torch.Generator, *,
         if nee:
             prev_diff = diffuse_now
         alive = cont
+        nans.check("a path-tracer step", radiance=rad, throughput=tput,
+                   origin=o, direction=d)
     if stats is not None:
         stats["shadow_lanes"] = stats.get("shadow_lanes", 0) + int(shadow)
         stats["steps"] = stats.get("steps", 0) + steps
@@ -163,16 +179,16 @@ def trace_radiance(scene: Scene, o, d, generator: torch.Generator, *,
     """Trace rays ``o``/``d`` (N, 3) to completion (at most ``max_depth``
     bounces) on their device; returns per-ray radiance (N, 3) and the rays
     traced. The kernel routes take the JAX package's SoA loop
-    (``trace_radiance_soa``), "bruteforce" its (N, 3) loop
+    (``trace_radiance_soa``), "bruteforce" and "bvh" its (N, 3) loop
     (``trace_radiance_bruteforce``). ``time`` (N,): each ray's shutter
     time (motion blur; without it a moving scene stands at t = 0)."""
     method = _resolve(scene, intersector, nee, mis)
     scene = scene.to(o.device)
-    if method == "bruteforce":
+    if method in dispatch.AOS_ROUTES:
         return trace_radiance_bruteforce(
             scene, o, d, generator, max_depth=max_depth, t_min=t_min,
             spawn_eps=spawn_eps, russian_roulette=russian_roulette,
-            nee=nee, mis=mis, time=time)
+            nee=nee, mis=mis, time=time, intersector=method)
     if tables is None:
         tables = pack_tables(scene)
     rad, rays = trace_radiance_soa(
@@ -205,13 +221,13 @@ def render_fn(scene: Scene, generator: torch.Generator, *, width: int,
     scene = scene.to(device)
     n_chunks = -(-spp // spp_chunk)
     spawn_eps = spawn_eps_rel * scene.scale      # float32, as in JAX
-    if method == "bruteforce":
+    if method in dispatch.AOS_ROUTES:
         accum, rays = _render_bruteforce(
             scene, generator, width=width, height=height,
             spp_chunk=spp_chunk, n_chunks=n_chunks, max_depth=max_depth,
             t_min=t_min, spawn_eps=spawn_eps,
             russian_roulette=russian_roulette, nee=nee, mis=mis,
-            stats=stats)
+            stats=stats, intersector=method)
         img = accum / (n_chunks * spp_chunk)
         return img.reshape(height, width, 3), rays
     if tables is None:
@@ -230,11 +246,12 @@ def _render_bruteforce(scene: Scene, gen: torch.Generator, *, width: int,
                        height: int, spp_chunk: int, n_chunks: int,
                        max_depth: int, t_min: float, spawn_eps,
                        russian_roulette: bool, nee: bool, mis: bool,
-                       stats: dict = None):
+                       stats: dict = None, intersector: str = "bruteforce"):
     """The JAX ``render_fn``'s loop over chunks of samples: each chunk is
     ``spp_chunk`` camera rays per pixel (pixel-major within a sample, as
     JAX lays them out), with a shutter time each on a moving scene, traced
-    to completion. Returns ((npix, 3) radiance sum, rays as an int)."""
+    to completion on ``intersector``'s (N, 3) route. Returns ((npix, 3)
+    radiance sum, rays as an int)."""
     dev = scene.camera.origin.device
     cam = scene.camera
     npix = width * height
@@ -251,7 +268,7 @@ def _render_bruteforce(scene: Scene, gen: torch.Generator, *, width: int,
         res = trace_radiance_bruteforce(
             scene, o, d, gen, max_depth=max_depth, t_min=t_min,
             spawn_eps=spawn_eps, russian_roulette=russian_roulette, nee=nee,
-            mis=mis, time=time, stats=stats)
+            mis=mis, time=time, stats=stats, intersector=intersector)
         accum += res.radiance.reshape(spp_chunk, npix, 3).sum(0)
         rays += res.rays_traced
     return accum, rays
@@ -262,7 +279,8 @@ def render(scene: Scene, config: RenderConfig, seed: int, *,
     """Render ``config`` on ``device``: returns ((H, W, 3) linear image on
     the device, rays traced as an int). The sample budget is split into
     host batches of ``config.host_spp_batch``; ``spp_chunk`` is capped so a
-    wavefront stays under ~1.5M lanes. ``stats``: as for ``render_fn``."""
+    wavefront stays under ~1.5M lanes. ``stats``: as for ``render_fn``.
+    A ``Progress`` line ticks per batch on a TTY."""
     device = torch.device(device)
     scene = scene.to(device)
     tables = pack_tables(scene)
@@ -276,6 +294,7 @@ def render(scene: Scene, config: RenderConfig, seed: int, *,
     accum = torch.zeros((config.height, config.width, 3), device=device)
     rays = 0
     done = 0
+    prog = Progress(total=total, label="pt spp")
     while done < total:
         spp = min(batch, total - done)
         img, r = render_fn(
@@ -288,4 +307,6 @@ def render(scene: Scene, config: RenderConfig, seed: int, *,
         accum += img * (spp / total)
         rays += r
         done += spp
+        sync_for(prog, device)
+        prog.tick(spp, rays=r)
     return accum, rays

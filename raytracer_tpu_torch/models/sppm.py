@@ -1,13 +1,25 @@
 """SPPM integrator: the reference's render algorithm (photon_mapper.rs), the
-PyTorch counterpart of ``raytracer_tpu/models/sppm.py`` on its SoA route.
+PyTorch counterpart of ``raytracer_tpu/models/sppm.py``.
 
-Each iteration: a regenerating photon pass and two photon maps (global and
-caustic, sorted uniform grids), a measurement pass (one jittered camera ray
-per pixel walks the specular chain to its first diffuse hit), both dense
-photon queries with the points cell-sorted, and the per-pixel update with
-the alpha radius shrink (photon_mapper.rs:49-63). Then a final gather adds
-the pixels' density estimates at the first diffuse hit of every camera
-path (photon_mapper.rs:326-365).
+Each iteration: a photon pass and two photon maps (global and caustic,
+sorted uniform grids), a measurement pass (one jittered camera ray per
+pixel walks the specular chain to its first diffuse hit), both photon
+queries with the points cell-sorted, and the per-pixel update with the
+alpha radius shrink (photon_mapper.rs:49-63). Then a final gather adds the
+pixels' density estimates at the first diffuse hit of every camera path
+(photon_mapper.rs:326-365).
+
+Routes, as in the JAX package (``soa_eligible``): on a scene without media
+the "pallas" (and "auto") and "leaf" routes take the SoA passes of
+``wavefront_soa`` on that route's kernel (a regenerating photon pass, the
+measurement walk, the regenerating gather); a scene with media, and the
+"bruteforce" and "bvh" routes, take the (N, 3) loops of this module
+(``trace_photon_deposits``, the (N, 3) ``measurement_pass``,
+``gather_walk`` and ``gather_fn``'s chunk loop), whose hit goes through
+``path_tracer.hit_and_attrs`` on the route asked for (the closest-hit or
+leaf kernel, the brute-force scan or the BVH) and then the media override.
+The queries are the dense kernel (``query_impl="dense"``) or the 27-cell
+gather of ``ops/photon_grid.py`` ("grid").
 
 The whole image is one iteration: the JAX package's pixel-blocked
 iteration exists because long TPU dispatches failed, and is not ported.
@@ -26,11 +38,16 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.models import wavefront_soa as wf
+from raytracer_tpu_torch.models.camera import camera_rays
+from raytracer_tpu_torch.models.path_tracer import hit_and_attrs, spawn_origin
+from raytracer_tpu_torch.ops import dispatch, materials
 from raytracer_tpu_torch.ops import photon_grid as pg
 from raytracer_tpu_torch.ops.fused_bounce import has_media, pack_tables
 from raytracer_tpu_torch.ops.photon_query import query_photons
-from raytracer_tpu_torch.scene.types import Scene
+from raytracer_tpu_torch.scene.types import INTER_ABSORB, INTER_DIFFUSE, Scene
+from raytracer_tpu_torch.utils import nans
 from raytracer_tpu_torch.utils.config import RenderConfig, SPPMConfig
+from raytracer_tpu_torch.utils.timing import Progress, sync_for
 
 PI = 3.141592653589793
 PHOTON_T_MIN = 1e-4         # photon_mapper.rs:242
@@ -94,17 +111,104 @@ class _Stages:
         self.t = now
 
 
+# ----------------------------------------------------------------- routes
+
+def soa_eligible(scene: Scene, intersector: str) -> bool:
+    """Whether SPPM takes the SoA passes (JAX ``_soa_eligible``): the
+    "pallas" or "leaf" route on a scene without media."""
+    return (dispatch.resolve(intersector) in ("pallas", "leaf")
+            and not has_media(scene))
+
+
+def _route(scene: Scene, intersector: str) -> str:
+    """The resolved route, checked against the scene's tables."""
+    method = dispatch.resolve(intersector)
+    dispatch.check_route(scene, method)
+    return method
+
+
+def _media_u(scene: Scene, U, start: int):
+    """The free-flight uniforms in U's rows from ``start`` (one per
+    medium), or None on a media-free scene."""
+    return wf._media_u(U, start, wf.media_rows(scene))
+
+
+# ------------------------------------------------------------ photon pass
+
+def trace_photon_deposits(scene: Scene, tables, gen, n_photons: int,
+                          max_bounces: int, t_min: float, spawn_eps,
+                          intersector: str) -> wf.Deposits:
+    """The (N, 3) photon pass (JAX ``trace_photon_deposits``): all
+    ``n_photons`` lanes emit once and bounce for a fixed ``max_bounces``
+    steps (no host sync), each step's hit on ``intersector``'s route.
+    Every surviving diffuse interaction deposits the photon's power from
+    before the bounce's renormalisation (photon_mapper.rs:248 pushes
+    ``power``, then updates it); the caustic flag marks the first diffuse
+    hit after a specular-only prefix (photon_mapper.rs:249-251). Each step
+    draws the four photon rows (scatter and roulette, ``materials.
+    scatter_photon``) and one free-flight row per medium. Returns
+    ``wf.Deposits`` of ``max_bounces * n_photons`` slots, step-major."""
+    n = int(n_photons)
+    dev = tables.sph.device
+    k_rows = wf.U_TRACE_ROWS + wf.media_rows(scene)
+    o, d, w = (x.T.contiguous() for x in wf.emit_photons_soa(
+        scene.lights, gen, n))
+    pos = torch.empty((max_bounces, n, 3), device=dev)
+    power = torch.empty_like(pos)
+    norm = torch.empty_like(pos)
+    flags = torch.empty((2, max_bounces, n), dtype=torch.bool, device=dev)
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    has_spec = torch.zeros_like(alive)
+    has_diff = torch.zeros_like(alive)
+    for step in range(max_bounces):
+        U = torch.rand((k_rows, n), generator=gen, device=dev)
+        attrs = hit_and_attrs(scene, o, d, t_min,
+                              _media_u(scene, U, wf.U_TRACE_ROWS),
+                              alive=alive, intersector=intersector,
+                              tables=tables)
+        sc, new_power = materials.scatter_photon(scene, U, d, attrs, w)
+        live = alive & attrs.valid
+        diffuse_now = live & (sc.interaction == INTER_DIFFUSE)
+        pos[step] = attrs.p
+        power[step] = w
+        norm[step] = attrs.normal
+        flags[0, step] = diffuse_now
+        flags[1, step] = diffuse_now & has_spec & ~has_diff
+        cont = live & (sc.interaction != INTER_ABSORB)
+        c2 = cont[:, None]
+        o = torch.where(c2, spawn_origin(attrs.p, attrs.normal, sc.direction,
+                                         spawn_eps), o)
+        d = torch.where(c2, sc.direction, d)
+        w = torch.where(c2, new_power, w)
+        has_spec = has_spec | (cont & ~diffuse_now)
+        has_diff = has_diff | diffuse_now
+        alive = cont
+        nans.check("a photon step", power=w, origin=o, direction=d)
+    flat = [x.reshape(-1, 3).T for x in (pos, power, norm)]
+    flags = flags.reshape(2, -1)
+    return wf.Deposits(*flat, flags[0], flags[1])
+
+
 # ------------------------------------------------------------ photon maps
 
 def photon_maps(scene: Scene, tables, gen, *, n_photons: int,
-                max_photon_bounces: int, grid_res, spawn_eps, stage=None):
-    """Photon pass + both maps (``_photon_maps`` of the JAX package, SoA
-    route). The global map sorts every deposit slot; a path deposits into
-    the caustic set at most once, so the caustic map keeps at most
-    ``n_photons`` (photon_mapper.rs:249-251)."""
-    dep, _spawned = wf.trace_photon_deposits_regen_soa(
-        scene, tables, gen, n_photons, max_photon_bounces, PHOTON_T_MIN,
-        spawn_eps)
+                max_photon_bounces: int, grid_res, spawn_eps,
+                intersector: str = "pallas", stage=None):
+    """Photon pass + both maps (``_photon_maps`` of the JAX package). The
+    SoA route regenerates (``trace_photon_deposits_regen_soa``); the
+    (N, 3) route scans ``trace_photon_deposits``. The global map sorts
+    every deposit slot; a path deposits into the caustic set at most once,
+    so the caustic map keeps at most ``n_photons``
+    (photon_mapper.rs:249-251)."""
+    method = _route(scene, intersector)
+    if soa_eligible(scene, method):
+        dep, _spawned = wf.trace_photon_deposits_regen_soa(
+            scene, tables, gen, n_photons, max_photon_bounces, PHOTON_T_MIN,
+            spawn_eps, intersector=method)
+    else:
+        dep = trace_photon_deposits(scene, tables, gen, n_photons,
+                                    max_photon_bounces, PHOTON_T_MIN,
+                                    spawn_eps, method)
     if stage:
         stage("photon pass")
     pos, power, norm = dep.pos.T, dep.power.T, dep.norm.T
@@ -118,11 +222,15 @@ def photon_maps(scene: Scene, tables, gen, *, n_photons: int,
     return g, c
 
 
+# ------------------------------------------------------- measurement pass
+
 def measurement_pass(scene: Scene, tables, gen, width: int, height: int,
-                     max_depth: int, t_min: float,
-                     spawn_eps) -> wf.MeasurePoints:
+                     max_depth: int, t_min: float, spawn_eps,
+                     intersector: str = "pallas") -> wf.MeasurePoints:
     """One jittered camera ray per pixel, in pixel order, walked to its
-    first diffuse hit."""
+    first diffuse hit: ``wf.measurement_soa`` on the SoA route, else the
+    (N, 3) walk of ``_measurement_aos``."""
+    method = _route(scene, intersector)
     dev = tables.sph.device
     pix = torch.arange(width * height, device=dev)
     px = (pix % width).to(torch.float32)
@@ -130,23 +238,81 @@ def measurement_pass(scene: Scene, tables, gen, width: int, height: int,
     o, d = wf.camera_rays_soa(
         scene.camera, px, py, width, height,
         torch.rand((4, pix.shape[0]), generator=gen, device=dev))
-    return wf.measurement_soa(scene, tables, gen, o, d, max_depth=max_depth,
-                              t_min=t_min, spawn_eps=spawn_eps)
+    if soa_eligible(scene, method):
+        return wf.measurement_soa(scene, tables, gen, o, d,
+                                  max_depth=max_depth, t_min=t_min,
+                                  spawn_eps=spawn_eps, intersector=method)
+    return _measurement_aos(scene, tables, gen, o.T.contiguous(),
+                            d.T.contiguous(), max_depth=max_depth,
+                            t_min=t_min, spawn_eps=spawn_eps,
+                            intersector=method)
+
+
+def _measurement_aos(scene: Scene, tables, gen, o, d, *, max_depth: int,
+                     t_min: float, spawn_eps,
+                     intersector: str) -> wf.MeasurePoints:
+    """update_sppm's specular walk (photon_mapper.rs:277-300) on (N, 3)
+    rays (the JAX (N, 3) ``measurement_pass``): no emission, no
+    throughput; the point's colour is the material's bsdf
+    (``materials.bsdf_from``). Each step draws the three scatter rows and
+    one free-flight row per medium."""
+    n = o.shape[0]
+    dev = o.device
+    k_rows = wf.U_DIEL + 1 + wf.media_rows(scene)
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    valid = torch.zeros_like(alive)
+    p, nrm, bsdf = (torch.zeros((n, 3), device=dev) for _ in range(3))
+    step = 0
+    while step < max_depth and bool(alive.any()):
+        U = torch.rand((k_rows, n), generator=gen, device=dev)
+        attrs = hit_and_attrs(scene, o, d, t_min,
+                              _media_u(scene, U, wf.U_DIEL + 1),
+                              alive=alive, intersector=intersector,
+                              tables=tables)
+        feats = materials.fetch_mat_features(scene, attrs.mat_id)
+        sc = materials.scatter(scene, U, d, attrs, feats)
+        live = alive & attrs.valid
+        diffuse_now = live & (sc.interaction == INTER_DIFFUSE)
+        dn = diffuse_now[:, None]
+        valid = valid | diffuse_now
+        p = torch.where(dn, attrs.p, p)
+        nrm = torch.where(dn, attrs.normal, nrm)
+        bsdf = torch.where(dn, materials.bsdf_from(scene, feats, attrs.p,
+                                                   attrs.uv), bsdf)
+        cont = live & ~diffuse_now & (sc.interaction != INTER_ABSORB)
+        o = torch.where(cont[:, None], spawn_origin(
+            attrs.p, attrs.normal, sc.direction, spawn_eps), o)
+        d = torch.where(cont[:, None], sc.direction, d)
+        alive = cont
+        step += 1
+        nans.check("a measurement step", point=p, normal=nrm, bsdf=bsdf,
+                   origin=o, direction=d)
+    return wf.MeasurePoints(valid, p, nrm, bsdf)
 
 
 # ---------------------------------------------------------------- queries
 
-def _query(grid: pg.PhotonGrid, points, radius, cap_radius) -> pg.QueryResult:
-    """Dense dual-radius query of one map (exact within-radius sums, the
-    reference kd-tree's semantics, photon_mapper.rs:102-114)."""
-    valid = (torch.arange(grid.pos.shape[0], device=grid.pos.device)
-             < grid.n_valid)
-    return query_photons(grid.pos, grid.power.float(), grid.norm.float(),
-                         valid, points, radius, cap_radius)
+def _query(grid: pg.PhotonGrid, grid_res, points, radius, cap_radius,
+           k_per_cell: int, impl: str) -> pg.QueryResult:
+    """Dual-radius query of one map: "dense" is the photon-query kernel
+    (exact within-radius sums, the reference kd-tree's semantics,
+    photon_mapper.rs:102-114); "grid" the 27-cell gather of
+    ``photon_grid.query_grid_chunked`` (at most ``k_per_cell`` photons a
+    cell)."""
+    if impl == "dense":
+        valid = (torch.arange(grid.pos.shape[0], device=grid.pos.device)
+                 < grid.n_valid)
+        return query_photons(grid.pos, grid.power.float(), grid.norm.float(),
+                             valid, points, radius, cap_radius)
+    if impl == "grid":
+        return pg.query_grid_chunked(grid, grid_res, points, radius,
+                                     cap_radius, k_per_cell)
+    raise ValueError(f"unknown query_impl {impl!r}")
 
 
 def _sorted_dual_query(g_grid, c_grid, grid_res, pts_p, rg, cap_g, rc,
-                       cap_c, bounds_min, bounds_max, stage=None):
+                       cap_c, bounds_min, bounds_max, stage=None,
+                       k_per_cell: int = 64, impl: str = "dense"):
     """Both map queries with the points cell-sorted (one shared stable
     sort), so a kernel tile covers a compact patch of surface and culls
     most photon chunks. Results are unsorted back; the sums are those of
@@ -164,10 +330,12 @@ def _sorted_dual_query(g_grid, c_grid, grid_res, pts_p, rg, cap_g, rc,
     def unsort(q):
         return pg.QueryResult(*(x[inv] for x in q))
 
-    qg = _query(g_grid, p_s, rg[order], cap_g[order])
+    qg = _query(g_grid, grid_res, p_s, rg[order], cap_g[order], k_per_cell,
+                impl)
     if stage:
         stage("query global")
-    qc = _query(c_grid, p_s, rc[order], cap_c[order])
+    qc = _query(c_grid, grid_res, p_s, rc[order], cap_c[order], k_per_cell,
+                impl)
     if stage:
         stage("query caustic")
     return unsort(qg), unsort(qc)
@@ -235,9 +403,12 @@ def sppm_iteration(scene: Scene, tables, state: SPPMState, seed: int, *,
                    max_photon_bounces: int, max_camera_bounces: int,
                    grid_res, alpha: float, k_global: float,
                    k_caustic: float, t_min: float, spawn_eps_rel: float,
+                   intersector: str = "pallas", query_impl: str = "dense",
+                   k_per_cell: int = 64,
                    times: Optional[dict] = None) -> SPPMState:
-    """One SPPM iteration over the whole image. ``times``: a dict that
-    receives per-stage seconds (each stage ends in a device sync)."""
+    """One SPPM iteration over the whole image, on ``intersector``'s
+    route, the queries by ``query_impl``. ``times``: a dict that receives
+    per-stage seconds (each stage ends in a device sync)."""
     dev = tables.sph.device
     it = int(state.iteration)
     spawn_eps = spawn_eps_rel * scene.scale
@@ -245,19 +416,24 @@ def sppm_iteration(scene: Scene, tables, state: SPPMState, seed: int, *,
     g_grid, c_grid = photon_maps(
         scene, tables, _generator(dev, seed, _PHOTONS, it),
         n_photons=n_photons, max_photon_bounces=max_photon_bounces,
-        grid_res=grid_res, spawn_eps=spawn_eps, stage=stage)
+        grid_res=grid_res, spawn_eps=spawn_eps, intersector=intersector,
+        stage=stage)
     pts = measurement_pass(scene, tables, _generator(dev, seed, _MEASURE, it),
                            width, height, max_camera_bounces, t_min,
-                           spawn_eps)
+                           spawn_eps, intersector)
     stage("measurement")
     cap = cap_radius(scene, grid_res)
     rg, cap_g = query_radii(state.glob, cap)
     rc, cap_c = query_radii(state.caustic, cap)
     qg, qc = _sorted_dual_query(g_grid, c_grid, grid_res, pts.p, rg, cap_g,
                                 rc, cap_c, scene.bounds_min,
-                                scene.bounds_max, stage)
+                                scene.bounds_max, stage, k_per_cell,
+                                query_impl)
     glob = _update_half(state.glob, pts, qg, k_global, alpha, cap)
     caus = _update_half(state.caustic, pts, qc, k_caustic, alpha, cap)
+    for name, half in (("global", glob), ("caustic", caus)):
+        nans.check(f"the {name} stat update", flux=half.flux,
+                   radius2=half.radius2, photons=half.photons)
     stage("update")
     return SPPMState(glob, caus, it + 1)
 
@@ -277,19 +453,89 @@ def density_estimates(state: SPPMState, n_total_photons) -> torch.Tensor:
     return one(state.glob) + one(state.caustic)
 
 
+def gather_walk(scene: Scene, tables, o, d, est, gen, *, max_depth: int,
+                t_min: float, spawn_eps, intersector: str):
+    """The sample_ray walk (photon_mapper.rs:326-365) of one wavefront
+    ``o``/``d`` (N, 3) traced to completion (JAX ``gather_walk``): Le at
+    every hit, the lane's density estimate ``est`` (N, 3) at its first
+    diffuse hit, where it stops; specular chains multiply the throughput.
+    ``wf.gather_walk_soa`` on the SoA route, else the (N, 3) loop; both
+    draw the three scatter rows and one free-flight row per medium each
+    step. Returns ((N, 3) radiance, rays as an int: alive lanes summed over
+    steps)."""
+    method = _route(scene, intersector)
+    if soa_eligible(scene, method):
+        rad, rays = wf.gather_walk_soa(
+            scene, tables, o.T.contiguous(), d.T.contiguous(),
+            est.T.contiguous(), gen, max_depth=max_depth, t_min=t_min,
+            spawn_eps=spawn_eps, intersector=method)
+        return rad.T, rays
+    n = o.shape[0]
+    dev = o.device
+    k_rows = wf.U_DIEL + 1 + wf.media_rows(scene)
+    tput = torch.ones((n, 3), device=dev)
+    rad = torch.zeros((n, 3), device=dev)
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    rays = 0
+    for _ in range(max_depth):
+        n_alive = int(alive.sum())
+        if n_alive == 0:
+            break
+        rays += n_alive
+        U = torch.rand((k_rows, n), generator=gen, device=dev)
+        attrs = hit_and_attrs(scene, o, d, t_min,
+                              _media_u(scene, U, wf.U_DIEL + 1),
+                              alive=alive, intersector=method, tables=tables)
+        sc = materials.scatter(scene, U, d, attrs)
+        live = alive & attrs.valid
+        rad = rad + torch.where(live[:, None], tput * sc.emitted, 0.0)
+        diffuse_now = live & (sc.interaction == INTER_DIFFUSE)
+        rad = rad + torch.where(diffuse_now[:, None], tput * est, 0.0)
+        cont = live & ~diffuse_now & (sc.interaction != INTER_ABSORB)
+        c2 = cont[:, None]
+        tput = torch.where(c2, tput * sc.attenuation, tput)
+        o = torch.where(c2, spawn_origin(attrs.p, attrs.normal, sc.direction,
+                                         spawn_eps), o)
+        d = torch.where(c2, sc.direction, d)
+        alive = cont
+        nans.check("a gather-walk step", radiance=rad, throughput=tput,
+                   origin=o, direction=d)
+    return rad, rays
+
+
 def gather_fn(scene: Scene, tables, state: SPPMState, gen, *, width: int,
               height: int, spp: int, spp_chunk: int, max_depth: int,
-              t_min: float, spawn_eps_rel: float, n_total_photons: int):
+              t_min: float, spawn_eps_rel: float, n_total_photons: int,
+              intersector: str = "pallas"):
     """Final render from the accumulated per-pixel stats (sample_ray,
-    photon_mapper.rs:326-365) on the regeneration loop. Returns ((H, W, 3)
-    image on the device, rays as an int)."""
+    photon_mapper.rs:326-365): the regeneration loop on the SoA route,
+    else the JAX chunk loop: ceil(spp / spp_chunk) chunks of ``spp_chunk``
+    camera rays per pixel, each traced by ``gather_walk``. Returns
+    ((H, W, 3) image on the device, rays as an int)."""
+    method = _route(scene, intersector)
     est = density_estimates(state, n_total_photons)
     n_chunks = -(-spp // spp_chunk)
-    accum, rays, _steps = wf.gather_regen_soa(
-        scene, tables, est, gen, width=width, height=height,
-        lanes_per_pixel=spp_chunk, samples_per_lane=n_chunks,
-        max_depth=max_depth, t_min=t_min,
-        spawn_eps=spawn_eps_rel * scene.scale)
+    spawn_eps = spawn_eps_rel * scene.scale
+    if soa_eligible(scene, method):
+        accum, rays, _steps = wf.gather_regen_soa(
+            scene, tables, est, gen, width=width, height=height,
+            lanes_per_pixel=spp_chunk, samples_per_lane=n_chunks,
+            max_depth=max_depth, t_min=t_min, spawn_eps=spawn_eps,
+            intersector=method)
+    else:
+        npix = width * height
+        dev = est.device
+        pixel_ids = torch.arange(npix, device=dev).repeat(spp_chunk)
+        est_rep = est.repeat(spp_chunk, 1)
+        accum = torch.zeros((npix, 3), device=dev)
+        rays = 0
+        for _ in range(n_chunks):
+            o, d = camera_rays(scene.camera, gen, pixel_ids, width, height)
+            rad, r = gather_walk(scene, tables, o, d, est_rep, gen,
+                                 max_depth=max_depth, t_min=t_min,
+                                 spawn_eps=spawn_eps, intersector=method)
+            accum += rad.reshape(spp_chunk, npix, 3).sum(0)
+            rays += r
     img = accum / (n_chunks * spp_chunk)
     return img.reshape(height, width, 3), rays
 
@@ -297,10 +543,8 @@ def gather_fn(scene: Scene, tables, state: SPPMState, gen, *, width: int,
 # -------------------------------------------------------------- top level
 
 def check_scene(scene: Scene):
-    """Refuse what SPPM cannot render, with the JAX package's messages,
-    and what the port does not take yet: media, which the JAX package's
-    SPPM renders through its (N, 3) loops (its ``models/sppm.py:146-147,
-    202-205``)."""
+    """Refuse what SPPM cannot render, with the JAX package's messages:
+    a scene without lights, and moving spheres."""
     if scene.lights.kind.shape[0] == 0:
         raise ValueError(
             "SPPM requires at least one light in the scene (photon emission "
@@ -312,10 +556,6 @@ def check_scene(scene: Scene):
             "have no shutter-time dimension — the whole iteration would "
             "silently freeze at t=0); use --integrator pt, which draws "
             "per-sample shutter times")
-    if has_media(scene):
-        raise NotImplementedError(
-            "SPPM on a scene with media is not ported yet: the JAX "
-            "package's SPPM takes its (N, 3) loops there (ROADMAP A11)")
 
 
 def iteration_kwargs(scene: Scene, config: RenderConfig) -> dict:
@@ -330,19 +570,24 @@ def iteration_kwargs(scene: Scene, config: RenderConfig) -> dict:
                 max_camera_bounces=sp.max_camera_bounces, grid_res=grid_res,
                 alpha=sp.alpha, k_global=sp.k_global,
                 k_caustic=sp.k_caustic, t_min=config.t_min,
-                spawn_eps_rel=config.spawn_eps_rel)
+                spawn_eps_rel=config.spawn_eps_rel,
+                intersector=config.intersector, query_impl=sp.query_impl,
+                k_per_cell=sp.max_photons_per_cell)
 
 
 def render(scene: Scene, config: RenderConfig, seed: int, *,
            state: Optional[SPPMState] = None, checkpoint_cb=None,
            device="cuda", times: Optional[dict] = None):
     """Full SPPM render on ``device``: the iterations left after ``state``
-    (a fresh state by default), then the final gather. ``checkpoint_cb
-    (state)`` is called after every iteration. ``times``: a dict that
-    receives per-stage seconds summed over the iterations, plus "gather".
-    Returns ((H, W, 3) linear image on the device, rays of the gather as an
-    int, the final state)."""
+    (a fresh state by default), then the final gather, on
+    ``config.intersector``'s route. ``checkpoint_cb(state)`` is called
+    after every iteration. ``times``: a dict that receives per-stage
+    seconds summed over the iterations, plus "gather". ``Progress`` lines
+    tick per iteration and per gather batch on a TTY. Returns ((H, W, 3)
+    linear image on the device, rays of the gather as an int, the final
+    state)."""
     check_scene(scene)
+    _route(scene, config.intersector)
     sp: SPPMConfig = config.sppm
     device = torch.device(device)
     scene = scene.to(device)
@@ -351,10 +596,16 @@ def render(scene: Scene, config: RenderConfig, seed: int, *,
     state = init_state(npix, device) if state is None else \
         state_to(state, device)
     kw = iteration_kwargs(scene, config)
-    for _ in range(int(state.iteration), sp.n_iterations):
+    start = int(state.iteration)
+    prog = Progress(total=sp.n_iterations, label="sppm iter")
+    if start:
+        prog.tick(start)          # resumed from a checkpoint
+    for _ in range(start, sp.n_iterations):
         state = sppm_iteration(scene, tables, state, seed, times=times, **kw)
         if checkpoint_cb is not None:
             checkpoint_cb(state)
+        sync_for(prog, device)
+        prog.tick(1)
 
     # final gather in host batches; spp_chunk is capped so a wavefront
     # stays under ~1.5M lanes
@@ -365,6 +616,7 @@ def render(scene: Scene, config: RenderConfig, seed: int, *,
     chunk = max(1, min(config.spp_chunk, batch, max(1, 1_500_000 // npix)))
     accum = torch.zeros((config.height, config.width, 3), device=device)
     rays, done, b = 0, 0, 0
+    prog = Progress(total=total, label="gather spp")
     while done < total:
         spp = min(batch, total - done)
         img, r = gather_fn(
@@ -372,11 +624,13 @@ def render(scene: Scene, config: RenderConfig, seed: int, *,
             width=config.width, height=config.height, spp=spp,
             spp_chunk=min(chunk, spp), max_depth=config.max_depth,
             t_min=config.t_min, spawn_eps_rel=config.spawn_eps_rel,
-            n_total_photons=n_total)
+            n_total_photons=n_total, intersector=config.intersector)
         accum += img * (spp / total)
         rays += r
         done += spp
         b += 1
+        sync_for(prog, device)
+        prog.tick(spp, rays=r)
     if times is not None:
         if device.type == "cuda":
             torch.cuda.synchronize(device)

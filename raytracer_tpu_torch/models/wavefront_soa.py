@@ -7,8 +7,11 @@ The PyTorch counterpart of ``raytracer_tpu/models/wavefront_soa.py``:
 ``scatter_soa``), ``_mis_bounce``, ``trace_radiance_soa`` and
 ``render_regen_soa`` with NEE and MIS (and, where neither is on, its
 one-kernel step, ``ops/regen.py``), and for SPPM ``gather_regen_soa``,
-``measurement_soa``, ``emit_photons_soa`` and
-``trace_photon_deposits_regen_soa``.
+``gather_walk_soa``, ``measurement_soa``, ``emit_photons_soa``,
+``trace_photon_deposits_soa`` and ``trace_photon_deposits_regen_soa``.
+The SPPM passes take the "pallas" or the "leaf" route (``intersector``);
+``--debug-nans`` checks each loop's state after every step
+(``utils/nans.py``).
 
 Media, image and noise textures (JAX ``bounce_fused_eligible``): such a
 scene leaves the fused bounce and the one-kernel step for the unfused
@@ -55,6 +58,7 @@ from raytracer_tpu_torch.ops.noise import marble
 from raytracer_tpu_torch.ops.sampling import (
     camera_rays_soa, uniform_sphere_from,
 )
+from raytracer_tpu_torch.utils import nans
 from raytracer_tpu_torch.scene.types import (
     INTER_ABSORB, INTER_DIFFUSE, INTER_REFLECT, INTER_REFRACT,
     INTER_SPECULAR, LIGHT_SPHERE, MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT,
@@ -446,6 +450,8 @@ def trace_radiance_soa(scene: Scene, tables: BounceTables, o, d,
             prev_diff = diffuse_now
         alive = cont
         step += 1
+        nans.check("a path-tracer step", radiance=rad, throughput=tput,
+                   origin=o, direction=d)
     return rad, rays
 
 
@@ -591,6 +597,9 @@ def render_regen_soa(scene, tables: BounceTables, gen: torch.Generator, *,
                 if cast is not None:
                     shadow += cast.sum()
             steps += 1
+            nans.check("a path-regeneration step", origin=s.o,
+                       direction=s.d, throughput=s.tput,
+                       sample_radiance=s.samp, radiance=s.acc)
         if level == 0:
             # level 0 keeps its static lane -> slot map: a reshape-sum
             accum += s.acc.reshape(3, lanes_per_pixel, n_out).sum(1)
@@ -611,18 +620,60 @@ def render_regen_soa(scene, tables: BounceTables, gen: torch.Generator, *,
 def gather_regen_soa(scene, tables: BounceTables, est, gen: torch.Generator,
                      *, width: int, height: int, lanes_per_pixel: int,
                      samples_per_lane: int, max_depth: int, t_min: float,
-                     spawn_eps):
+                     spawn_eps, intersector: str = "pallas"):
     """The SPPM final gather (sample_ray, photon_mapper.rs:326-365 with the
     depth cap) on the regeneration loop of ``render_regen_soa``: Le at
     every hit, the pixel's density estimate ``est`` (npix, 3) at the first
     diffuse hit, specular chains multiply the throughput, no Russian
-    roulette. Returns ((npix, 3) radiance sum in pixel order, rays, steps).
-    """
+    roulette, on ``intersector``'s route ("pallas" or "leaf"). Returns
+    ((npix, 3) radiance sum in pixel order, rays, steps)."""
     return render_regen_soa(
         scene, tables, gen, width=width, height=height,
         lanes_per_pixel=lanes_per_pixel, samples_per_lane=samples_per_lane,
         max_depth=max_depth, t_min=t_min, spawn_eps=spawn_eps,
-        russian_roulette=False, est=est)
+        intersector=intersector, russian_roulette=False, est=est)
+
+
+def gather_walk_soa(scene: Scene, tables: BounceTables, o, d, est,
+                    gen: torch.Generator, *, max_depth: int, t_min: float,
+                    spawn_eps, intersector: str = "pallas"):
+    """The sample_ray walk (photon_mapper.rs:326-365) of one wavefront
+    ``o``/``d`` (3, N), traced to completion without regeneration (the
+    JAX ``gather_walk_soa``): Le at every hit, the lane's density estimate
+    ``est`` (3, N) at its first diffuse hit, where it stops; specular
+    chains multiply the throughput. Each step draws the three scatter rows
+    and then one free-flight row per medium from ``gen``, the rows
+    ``models/sppm.py::gather_walk`` draws, on ``intersector``'s route
+    ("pallas" or "leaf"). Returns ((3, N) radiance, rays as an int)."""
+    n = o.shape[1]
+    dev = o.device
+    fused = use_fused(scene, intersector)
+    k_med = media_rows(scene)
+    tput = torch.ones((3, n), device=dev)
+    rad = torch.zeros((3, n), device=dev)
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    rays = 0
+    for _ in range(max_depth):
+        n_alive = int(alive.sum())
+        if n_alive == 0:
+            break
+        rays += n_alive
+        U = torch.rand((U_DIEL + 1 + k_med, n), generator=gen, device=dev)
+        b = bounce_step(tables, U, o, d, alive, t_min=t_min,
+                        spawn_eps=spawn_eps, fused=fused, scene=scene,
+                        intersector=intersector,
+                        media_u=_media_u(U, U_DIEL + 1, k_med))
+        rad = rad + torch.where(alive, tput * b.emit, 0.0)
+        diffuse_now = alive & (b.inter == INTER_DIFFUSE)
+        rad = rad + torch.where(diffuse_now, tput * est, 0.0)
+        cont = alive & ~diffuse_now & (b.inter != INTER_ABSORB)
+        tput = torch.where(cont, tput * b.att, tput)
+        o = torch.where(cont, b.no, o)
+        d = torch.where(cont, b.nd, d)
+        alive = cont
+        nans.check("a gather-walk step", radiance=rad, throughput=tput,
+                   origin=o, direction=d)
+    return rad, rays
 
 
 class MeasurePoints(NamedTuple):
@@ -636,15 +687,17 @@ class MeasurePoints(NamedTuple):
 
 def measurement_soa(scene: Scene, tables: BounceTables,
                     gen: torch.Generator, o, d, *, max_depth: int,
-                    t_min: float, spawn_eps) -> MeasurePoints:
+                    t_min: float, spawn_eps,
+                    intersector: str = "pallas") -> MeasurePoints:
     """update_sppm's specular walk to the first diffuse hit
     (photon_mapper.rs:277-300): no emission, no throughput. ``o``/``d``
-    (3, N) camera rays; the bounce is fused where ``use_fused`` says (an
-    image or noise texture takes the unfused stage). One host sync per
-    step for the loop condition."""
+    (3, N) camera rays, on ``intersector``'s route ("pallas" or "leaf");
+    the bounce is fused where ``use_fused`` says (an image or noise
+    texture, or the leaf route, takes the unfused stage). One host sync
+    per step for the loop condition."""
     n = o.shape[1]
     dev = o.device
-    fused = use_fused(scene, "pallas")
+    fused = use_fused(scene, intersector)
     alive = torch.ones((n,), dtype=torch.bool, device=dev)
     valid = torch.zeros((n,), dtype=torch.bool, device=dev)
     p, nrm, bsdf = (torch.zeros((3, n), device=dev) for _ in range(3))
@@ -652,7 +705,8 @@ def measurement_soa(scene: Scene, tables: BounceTables,
     while step < max_depth and bool(alive.any()):
         U = torch.rand((U_DIEL + 1, n), generator=gen, device=dev)
         b = bounce_step(tables, U, o, d, alive, t_min=t_min,
-                        spawn_eps=spawn_eps, fused=fused, scene=scene)
+                        spawn_eps=spawn_eps, fused=fused, scene=scene,
+                        intersector=intersector)
         diffuse_now = alive & (b.inter == INTER_DIFFUSE)
         valid = valid | diffuse_now
         # the bsdf colour is the scatter's attenuation (albedo, 1/pi for a
@@ -664,6 +718,8 @@ def measurement_soa(scene: Scene, tables: BounceTables,
         o = torch.where(alive, b.no, o)
         d = torch.where(alive, b.nd, d)
         step += 1
+        nans.check("a measurement step", point=p, normal=nrm, bsdf=bsdf,
+                   origin=o, direction=d)
     return MeasurePoints(valid, p.T.contiguous(), nrm.T.contiguous(),
                          bsdf.T.contiguous())
 
@@ -723,7 +779,8 @@ def trace_photon_deposits_regen_soa(scene, tables: BounceTables,
                                     gen: torch.Generator, n_photons: int,
                                     max_bounces: int, t_min: float,
                                     spawn_eps, lanes: int = 16384,
-                                    window: int = None):
+                                    window: int = None,
+                                    intersector: str = "pallas"):
     """Path-regeneration photon pass: a fixed wavefront of
     ``min(lanes, n_photons)`` lanes traces photons; when a photon dies
     (Russian roulette, miss or the ``max_bounces`` cap) its lane emits the
@@ -743,6 +800,8 @@ def trace_photon_deposits_regen_soa(scene, tables: BounceTables,
     renormalisation at every diffuse hit, and a caustic flag on the first
     diffuse hit after a specular-only prefix.
 
+    The bounce takes ``intersector``'s route ("pallas" or "leaf").
+
     Returns (``Deposits`` of S * L slots, photons spawned as a 0-d device
     tensor)."""
     B = int(n_photons)
@@ -752,7 +811,7 @@ def trace_photon_deposits_regen_soa(scene, tables: BounceTables,
     S = window + max_bounces
     dev = tables.sph.device
     f32 = torch.float32
-    fused = use_fused(scene, "pallas")
+    fused = use_fused(scene, intersector)
     dep = torch.empty((9, S, L), dtype=f32, device=dev)
     flags = torch.empty((2, S, L), dtype=torch.bool, device=dev)
 
@@ -765,7 +824,8 @@ def trace_photon_deposits_regen_soa(scene, tables: BounceTables,
     for step in range(S):
         U = torch.rand((U_TRACE_ROWS, L), generator=gen, device=dev)
         b = bounce_step(tables, U, o, d, alive, t_min=t_min,
-                        spawn_eps=spawn_eps, fused=fused, scene=scene)
+                        spawn_eps=spawn_eps, fused=fused, scene=scene,
+                        intersector=intersector)
         hmax = b.att.amax(0)
         survive = U[U_RR] <= hmax
         inter = torch.where(survive, b.inter, INTER_ABSORB)
@@ -801,7 +861,61 @@ def trace_photon_deposits_regen_soa(scene, tables: BounceTables,
             depth = torch.where(spawn, 0, depth)
             alive_next = alive_next | spawn
         alive = alive_next
+        nans.check("a photon step", power=w, origin=o, direction=d)
     dep[3:6] *= B / torch.clamp(counter, min=1).to(f32)
     dep = dep.reshape(9, S * L)
     flags = flags.reshape(2, S * L)
     return Deposits(dep[0:3], dep[3:6], dep[6:9], flags[0], flags[1]), counter
+
+
+def trace_photon_deposits_soa(scene, tables: BounceTables,
+                              gen: torch.Generator, n_photons: int,
+                              max_bounces: int, t_min: float, spawn_eps,
+                              intersector: str = "pallas") -> Deposits:
+    """The photon pass without regeneration (the JAX
+    ``trace_photon_deposits_soa``): ``n_photons`` lanes emit once and
+    bounce for a fixed ``max_bounces`` steps, with the per-photon rules of
+    ``trace_photon_deposits_regen_soa`` (Russian roulette with the power
+    renormalised, a deposit of the power from before it at every diffuse
+    hit, the caustic flag). Each step draws the four photon rows and then
+    one free-flight row per medium from ``gen``, the rows
+    ``models/sppm.py::trace_photon_deposits`` draws. Returns ``Deposits``
+    of ``max_bounces * n_photons`` slots, step-major."""
+    n = int(n_photons)
+    dev = tables.sph.device
+    fused = use_fused(scene, intersector)
+    k_med = media_rows(scene)
+    dep = torch.empty((9, max_bounces, n), device=dev)
+    flags = torch.empty((2, max_bounces, n), dtype=torch.bool, device=dev)
+    o, d, w = emit_photons_soa(scene.lights, gen, n)
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    has_spec = torch.zeros_like(alive)
+    has_diff = torch.zeros_like(alive)
+    for step in range(max_bounces):
+        U = torch.rand((U_TRACE_ROWS + k_med, n), generator=gen, device=dev)
+        b = bounce_step(tables, U, o, d, alive, t_min=t_min,
+                        spawn_eps=spawn_eps, fused=fused, scene=scene,
+                        intersector=intersector,
+                        media_u=_media_u(U, U_TRACE_ROWS, k_med))
+        hmax = b.att.amax(0)
+        survive = U[U_RR] <= hmax
+        inter = torch.where(survive, b.inter, INTER_ABSORB)
+        diffuse_now = alive & (inter == INTER_DIFFUSE)
+        dep[0:3, step] = b.p
+        dep[3:6, step] = w
+        dep[6:9, step] = b.n
+        flags[0, step] = diffuse_now
+        flags[1, step] = diffuse_now & has_spec & ~has_diff
+        cont = alive & (inter != INTER_ABSORB)
+        renorm = torch.where(survive, b.att / torch.clamp(hmax, min=1e-12),
+                             1.0)
+        o = torch.where(cont, b.no, o)
+        d = torch.where(cont, b.nd, d)
+        w = torch.where(cont, w * renorm, w)
+        has_spec = has_spec | (cont & ~diffuse_now)
+        has_diff = has_diff | diffuse_now
+        alive = cont
+        nans.check("a photon step", power=w, origin=o, direction=d)
+    dep = dep.reshape(9, -1)
+    flags = flags.reshape(2, -1)
+    return Deposits(dep[0:3], dep[3:6], dep[6:9], flags[0], flags[1])

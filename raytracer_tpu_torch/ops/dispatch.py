@@ -1,5 +1,5 @@
 """Intersection dispatch: the counterpart of
-``raytracer_tpu/ops/dispatch.py`` for the routes the port has.
+``raytracer_tpu/ops/dispatch.py``.
 
 ``method`` "pallas" (and "auto", which resolves to it: the CUDA kernels
 read any table size from global memory, so the JAX package's VMEM caps and
@@ -7,13 +7,15 @@ slab chain have no counterpart) runs the closest-hit kernel
 (``ops/closest_hit.py``), the ordered one when ``pack_tables`` attached an
 ordered stage. "leaf" runs the leaf kernel (``ops/leaf.py``) and needs the
 scene's leaf tables (``ValueError`` without, as JAX ``pallas_bvh._run``).
-"bruteforce" runs the chunked (N, 3) scan of ``ops/intersect.py`` (no
-kernel: the JAX function is XLA), whose winner gets its barycentrics
-recomputed. "bvh" raises, naming the ROADMAP item that ports it. Rays are
-(3, N) rows, as everywhere in the port.
+The (N, 3) routes have no kernel (their JAX functions are XLA):
+"bruteforce" runs the chunked scan of ``ops/intersect.py``, "bvh" the
+flat BVH's traversal of ``ops/bvh.py`` (``ValueError`` without a BVH, as
+JAX ``intersect_scene``); their winners get the triangle barycentrics
+recomputed. Rays are (3, N) rows, as everywhere in the port, but for
+``aos_hit``, which takes the (N, 3) routes' own (N, 3) rays.
 
 Motion blur, as JAX ``_resolve``: a scene whose spheres move takes the
-kernel route even when "leaf" is asked for (the leaf kernel has no motion
+kernel route even when "leaf" or "bvh" is asked for (neither has a motion
 form), and with a per-ray ``time`` the closest hit tests the spheres at
 c + v t. Without a time it is intersected at its t = 0 centres, the answer
 JAX's brute-force route gives.
@@ -23,40 +25,72 @@ from __future__ import annotations
 
 import torch
 
-from raytracer_tpu_torch.ops import closest_hit, intersect, leaf
+from raytracer_tpu_torch.ops import bvh, closest_hit, intersect, leaf
 from raytracer_tpu_torch.ops.fused_bounce import (
     BounceTables, moving, pack_tables,
 )
 from raytracer_tpu_torch.scene.types import PRIM_TRIANGLE, Scene
 
-UNPORTED = {
-    "bvh": "the flat BVH is not ported yet (ROADMAP A10)",
-}
 NO_LEAF = "scene has no leaf tables; call with_leaf_tables"
+NO_BVH = bvh.NO_BVH
+AOS_ROUTES = ("bruteforce", "bvh")
 
 
 def resolve(method: str, moves: bool = False) -> str:
-    """"auto" and "pallas" resolve to "pallas", "leaf" to itself, or to
-    "pallas" for a scene whose spheres move (``moves``), "bruteforce" to
-    itself; "bvh" raises ``NotImplementedError`` naming its ROADMAP
-    item."""
+    """"auto" and "pallas" resolve to "pallas"; "leaf" and "bvh" to
+    themselves, or to "pallas" for a scene whose spheres move (``moves``);
+    "bruteforce" to itself."""
     if method in ("auto", "pallas", "bruteforce"):
         return "pallas" if method == "auto" else method
-    if method == "leaf":
+    if method in ("leaf", "bvh"):
         return "pallas" if moves else method
-    if method in UNPORTED:
-        raise NotImplementedError(f"intersector {method!r}: "
-                                  + UNPORTED[method])
     raise ValueError(f"unknown intersector {method!r}")
 
 
-def bruteforce_closest(scene: Scene, o, d, t_min, t_max, alive=None,
-                       time=None) -> closest_hit.Closest:
-    """``intersect.intersect_bruteforce`` on (3, N) rays as a ``Closest``,
-    the triangle winners' barycentrics recomputed."""
+def check_route(scene: Scene, method: str):
+    """Raise ``ValueError`` where the resolved ``method`` needs tables the
+    scene lacks (leaf tables, a BVH)."""
+    if method == "leaf" and scene.leaf is None:
+        raise ValueError(NO_LEAF)
+    if method == "bvh" and scene.bvh is None:
+        raise ValueError(NO_BVH)
+
+
+def aos_hit(scene: Scene, o, d, t_min, t_max, method: str, alive=None,
+            time=None) -> intersect.Hit:
+    """The closest hit of an (N, 3) route ("bruteforce" or "bvh") for rays
+    ``o``/``d`` (N, 3); lanes outside ``alive`` miss. The BVH traverses
+    the alive lanes only (JAX traverses every lane and the caller masks
+    the dead ones: the same winners)."""
+    if method == "bruteforce":
+        return intersect.intersect_bruteforce(scene, o, d, t_min, t_max,
+                                              time, alive)
+    check_route(scene, method)
+    if alive is None:
+        return bvh.intersect_bvh(scene, o, d, t_min, t_max)
+    idx = alive.nonzero()[:, 0]
+
+    def lanes(x):
+        return x[idx] if torch.is_tensor(x) and x.dim() else x
+
+    h = bvh.intersect_bvh(scene, o[idx], d[idx], lanes(t_min), lanes(t_max))
+    n = o.shape[0]
+    out = intersect.Hit(torch.full((n,), torch.inf, device=o.device),
+                        torch.full((n,), -1, dtype=torch.int32,
+                                   device=o.device),
+                        torch.full((n,), -1, dtype=torch.int32,
+                                   device=o.device))
+    for a, b in zip(out, h):
+        a[idx] = b
+    return out
+
+
+def aos_closest(scene: Scene, o, d, t_min, t_max, method: str, alive=None,
+                time=None) -> closest_hit.Closest:
+    """``aos_hit`` on (3, N) rays as a ``Closest``, the triangle winners'
+    barycentrics recomputed."""
     ot, dt = o.T, d.T
-    h = intersect.intersect_bruteforce(scene, ot, dt, t_min, t_max, time,
-                                       alive)
+    h = aos_hit(scene, ot, dt, t_min, t_max, method, alive, time)
     b1 = b2 = torch.zeros_like(h.t)
     tr = scene.triangles
     if tr.mat_id.shape[0]:
@@ -70,11 +104,10 @@ def bruteforce_closest(scene: Scene, o, d, t_min, t_max, alive=None,
 
 def _closest(scene, o, d, t_min, t_max, method, alive, tables, time):
     method = resolve(method, moving(scene))
-    if method == "bruteforce":
-        return tables, bruteforce_closest(scene, o, d, t_min, t_max, alive,
-                                          time)
-    if method == "leaf" and scene.leaf is None:
-        raise ValueError(NO_LEAF)
+    if method in AOS_ROUTES:
+        return tables, aos_closest(scene, o, d, t_min, t_max, method, alive,
+                                   time)
+    check_route(scene, method)
     if tables is None:
         tables = pack_tables(scene)
     if alive is None:
@@ -104,6 +137,6 @@ def intersect_and_attrs(scene: Scene, o, d, t_min, t_max,
     from raytracer_tpu_torch.models.wavefront_soa import attrs_soa
     tables, c = _closest(scene, o, d, t_min, t_max, method, alive, tables,
                          time)
-    if tables is None:                        # the brute-force route
+    if tables is None:                        # an (N, 3) route
         tables = pack_tables(scene, order=False)
     return (c, *attrs_soa(tables, o, d, c, time))

@@ -22,11 +22,12 @@ width and height in the padded atlas; and the marble noise of
 ``ops/noise.py``, whose scale is the texture's colour0[0].
 
 The uniforms are rows (``scatter``'s ``uni``: the unit-sphere pair and
-the dielectric's choice), drawn by the caller. ``scatter_photon`` is not
-ported (ROADMAP A11). ``bsdf``, ``bsdf_from``, ``emitted`` and
-``eval_texture`` have no caller in the renderer yet: they are the JAX
-module's API for the loops still to port, SPPM's AoS walks (A11, which
-call ``bsdf_from`` and ``bsdf``) and ``sample_li`` (A6, ``bsdf``).
+the dielectric's choice; ``scatter_photon``'s fourth row, the photon's
+Russian roulette), drawn by the caller. SPPM's (N, 3) loops
+(``models/sppm.py``) take ``scatter_photon`` and, for the measurement
+point's colour, ``bsdf_from``; ``nee.sample_li`` takes ``bsdf``.
+``emitted`` and ``eval_texture`` are the JAX module's API for Le by
+material id (``scatter`` returns Le itself); only the tests call them.
 """
 
 from __future__ import annotations
@@ -203,3 +204,20 @@ def scatter(scene: Scene, uni, d_in, attrs: HitAttrs,
     inter = torch.where(attrs.valid, inter, INTER_ABSORB).to(torch.int32)
     le = torch.where((is_light & attrs.valid)[:, None], albedo, 0.0)
     return Scatter(inter, direction, attenuation, le)
+
+
+def scatter_photon(scene: Scene, uni, d_in, attrs: HitAttrs, power,
+                   feats: MatFeatures = None):
+    """Photon bounce with Russian roulette (material.rs:27-45): the
+    photon survives with probability h = max(attenuation) and then
+    carries power * attenuation / h. ``uni`` (>= 4, N) uniform rows: 0-2
+    as for ``scatter``, 3 the roulette. Returns (``Scatter`` whose
+    interaction is Absorb where the roulette kills, the new power (N, 3);
+    a killed photon keeps its power)."""
+    s = scatter(scene, uni[:3], d_in, attrs, feats)
+    h = s.attenuation.amax(-1)
+    survive = uni[3] <= h
+    inter = torch.where(survive, s.interaction, INTER_ABSORB).to(torch.int32)
+    new_power = power * s.attenuation / torch.clamp(h, min=1e-12)[:, None]
+    new_power = torch.where(survive[:, None], new_power, power)
+    return Scatter(inter, s.direction, s.attenuation, s.emitted), new_power

@@ -25,15 +25,22 @@ vertex, so light is counted once. The reference's quirks are kept:
 The estimator is split in two so that a test can feed it the JAX package's
 own draws: ``nee_draws`` turns uniform rows into (light index, uniforms),
 and ``direct_light_from`` is a deterministic function of those, the
-shading point and the tables. ``sample_li`` (the reference's never-called
-estimator) is not ported (ROADMAP A6).
+shading point and the tables.
+
+``sample_li`` is the reference's own estimator (light.rs:107-124, 170-183;
+never called by its integrators), on (N, 3) rows as in the JAX package:
+``n_samples`` shadow rays a point, each toward one light picked by power
+and weighted by 1/prob, from the TRUE surface point with the window
+(1e-4, max(dist - 1e-4, 1e-4)), contribution flux x bsdf x max(0, n . dir)
+with no distance falloff (light.rs:120 is commented out).
 """
 
 from __future__ import annotations
 
 import torch
 
-from raytracer_tpu_torch.ops import dispatch
+from raytracer_tpu_torch.ops import dispatch, materials, vec
+from raytracer_tpu_torch.ops.intersect import HitAttrs
 from raytracer_tpu_torch.ops.lights import light_cols, pick_light
 from raytracer_tpu_torch.ops.sampling import uniform_hemisphere, unit
 from raytracer_tpu_torch.scene.types import LIGHT_SPHERE, Scene
@@ -127,3 +134,54 @@ def direct_light(scene: Scene, tables, rows, p, normal, albedo, valid,
     idx, uni = nee_draws(scene.lights, rows)
     return direct_light_from(scene, tables, idx, uni, p, normal, albedo,
                              valid, alive, intersector, time)
+
+
+def sample_li(scene: Scene, attrs: HitAttrs, n_samples: int = 4,
+              intersector: str = "auto", gen: torch.Generator = None,
+              rows=None, tables=None):
+    """Direct radiance (N, 3) at each shading point of ``attrs`` (JAX
+    ``sample_li``): the mean over ``n_samples`` of flux / prob x bsdf x
+    max(0, n . dir) where the shadow ray reaches the light. The uniforms
+    are ``rows`` (n_samples, NEE_ROWS, N), laid out as ``nee_draws``
+    takes them (pick, hemisphere pair, rect uv), or drawn from ``gen``.
+    The shadow rays take ``intersector``'s route (``tables``:
+    ``pack_tables`` of the scene, if any)."""
+    n = attrs.p.shape[0]
+    dev = attrs.p.device
+    lights = scene.lights
+    if lights.kind.shape[0] == 0:
+        return torch.zeros((n, 3), device=dev)
+    if rows is None:
+        rows = torch.rand((n_samples, NEE_ROWS, n), generator=gen,
+                          device=dev)
+    bsdf = materials.bsdf(scene, attrs.mat_id, attrs.p, attrs.uv)
+    p_t = attrs.p.T
+    total = torch.zeros((n, 3), device=dev)
+    for s in range(n_samples):
+        idx, uni = nee_draws(lights, rows[s])
+        inv_prob = torch.exp(-lights.log_prob)[idx]
+        p0 = lights.p0[idx]
+        p1 = lights.p1[idx]
+        # sphere light: hemisphere toward the shading point (light.rs:110-113)
+        sph_pt = p0 + uniform_hemisphere(
+            uni[0], uni[1], unit(p_t - p0.T)).T * lights.r0[idx][:, None]
+        # rect light: a uniform point of its area (light.rs:148-154)
+        rect_pt = torch.stack([p0[:, 0] + (p1[:, 0] - p0[:, 0]) * uni[2],
+                               p0[:, 1],
+                               p0[:, 2] + (p1[:, 2] - p0[:, 2]) * uni[3]], -1)
+        point = torch.where((lights.kind[idx] == LIGHT_SPHERE)[:, None],
+                            sph_pt, rect_pt)
+        to_light = point - attrs.p
+        dist = torch.sqrt(vec.dot(to_light, to_light))
+        dir_ = to_light / torch.clamp(dist, min=1e-12)[:, None]
+        hit = dispatch.intersect_scene(
+            scene, p_t.contiguous(), dir_.T.contiguous(), 1e-4,
+            torch.clamp(dist - 1e-4, min=1e-4).contiguous(),
+            method=intersector, tables=tables)
+        visible = ~torch.isfinite(hit.t)
+        cos_term = torch.clamp(vec.dot(attrs.normal, dir_), min=0.0)
+        contrib = (lights.flux[idx] * inv_prob[:, None] * bsdf
+                   * cos_term[:, None])
+        total = total + torch.where((visible & attrs.valid)[:, None],
+                                    contrib, 0.0)
+    return total / n_samples

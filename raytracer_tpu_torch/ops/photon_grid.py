@@ -1,11 +1,13 @@
 """Uniform-grid photon map: photons binned over the scene bounds and
 sorted by linearized cell id.
 
-The PyTorch counterpart of ``raytracer_tpu/ops/photon_grid.py`` for the
-dense-query route: ``PhotonGrid``, ``QueryResult``, ``build_grid`` and
-``choose_grid_resolution``. The 27-cell gather query (``query_grid``, the
-``query_impl="grid"`` option) is not ported (ROADMAP A11); the SPPM path
-queries the sorted arrays with ``ops/photon_query.py``.
+The PyTorch counterpart of ``raytracer_tpu/ops/photon_grid.py``:
+``PhotonGrid``, ``QueryResult``, ``build_grid``, ``choose_grid_resolution``
+and the 27-cell gather query ``query_grid`` / ``query_grid_chunked``, the
+``SPPMConfig.query_impl="grid"`` route: each point gathers up to
+``k_per_cell`` photons from each of the 27 cells around its own (valid
+because query radii are capped at one cell), plain PyTorch. The default
+"dense" route queries the sorted arrays with ``ops/photon_query.py``.
 
 Photon arrays keep the JAX package's (P, 3) layout, so both packages hold
 the same photon map after the sort, down to the bits: the same float32 cell
@@ -18,6 +20,8 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from raytracer_tpu_torch.ops import vec
 
 
 class PhotonGrid(NamedTuple):
@@ -37,15 +41,21 @@ class QueryResult(NamedTuple):
     count_cap: torch.Tensor  # (N,)
 
 
-def cell_ids(pos, bmin, inv_cell, res: Tuple[int, int, int]):
-    """Linear cell id (N,) int32 of each (N, 3) position, clamped into the
-    grid. The float product is rounded as in the JAX package; values are
-    clamped before the integer cast, which changes nothing for finite
-    positions and keeps out-of-range ones defined."""
+def cell_coords(pos, bmin, inv_cell, res: Tuple[int, int, int]):
+    """Integer cell coordinates (N, 3) int32 of each (N, 3) position,
+    clamped into the grid. The float product is rounded as in the JAX
+    package; values are clamped before the integer cast, which changes
+    nothing for finite positions and keeps out-of-range ones defined."""
     hi = torch.tensor(res, dtype=torch.float32, device=pos.device)
     x = torch.nan_to_num((pos - bmin) * inv_cell, nan=0.0)
     ci = torch.minimum(torch.clamp(torch.floor(x), min=0.0), hi - 1.0)
-    ci = ci.to(torch.int32)
+    return ci.to(torch.int32)
+
+
+def cell_ids(pos, bmin, inv_cell, res: Tuple[int, int, int]):
+    """Linear cell id (N,) int32 of each (N, 3) position (``cell_coords``
+    linearised)."""
+    ci = cell_coords(pos, bmin, inv_cell, res)
     return (ci[..., 0] * res[1] + ci[..., 1]) * res[2] + ci[..., 2]
 
 
@@ -78,6 +88,70 @@ def build_grid(pos, power, norm, valid, bmin, bmax,
         pos=pos[order].to(torch.float32), power=power[order].to(payload),
         norm=norm[order].to(payload), cell_start=cell_start, bmin=bmin,
         inv_cell=inv_cell, n_valid=valid.sum().to(torch.int32))
+
+
+# the 27 neighbour cells' offsets, x slowest (JAX's order)
+_OFFSETS = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+            for dz in (-1, 0, 1)]
+
+
+def query_grid(grid: PhotonGrid, res: Tuple[int, int, int], points, radius,
+               cap_radius, k_per_cell: int) -> QueryResult:
+    """Dual fixed-radius gather around each point (N, 3): up to
+    ``k_per_cell`` photons from each of the 27 cells around the point's
+    own. ``radius`` (N,) is clamped by the caller to at most
+    ``cap_radius`` (a scalar or (N,)), which must be at most one cell.
+    Each photon within a radius adds power x (1 - |n . unit(p_ph - p)|)
+    (the disk factor, photon_mapper.rs:77-79) to that radius's flux and 1
+    to its count."""
+    n = points.shape[0]
+    dev = points.device
+    n_cells = res[0] * res[1] * res[2]
+    p_total = grid.pos.shape[0]
+    ci = cell_coords(points, grid.bmin, grid.inv_cell, res)
+    r2 = radius * radius
+    cap2 = torch.as_tensor(cap_radius, dtype=torch.float32,
+                           device=dev).expand(n) ** 2
+    offs = torch.tensor(_OFFSETS, dtype=torch.int32, device=dev)
+    cc = ci[:, None, :] + offs[None]                              # (N, 27, 3)
+    res_t = torch.tensor(res, dtype=torch.int32, device=dev)
+    in_grid = ((cc >= 0) & (cc < res_t)).all(-1)                 # (N, 27)
+    cid = (cc[..., 0] * res[1] + cc[..., 1]) * res[2] + cc[..., 2]
+    cid = cid.clamp(0, n_cells - 1).long()
+    start = grid.cell_start[cid].long()
+    end = grid.cell_start[cid + 1].long()
+    k_ar = torch.arange(k_per_cell, device=dev)
+    idx = start[..., None] + k_ar                                 # (N,27,K)
+    m = ((idx < end[..., None]) & in_grid[..., None]).reshape(n, -1)
+    # masked lanes fetch row 0 (one hot line instead of junk rows)
+    idx = torch.where(m, idx.reshape(n, -1).clamp(0, p_total - 1), 0)
+
+    ppos = grid.pos[idx]                                          # (N,27K,3)
+    ppow = grid.power[idx].float()
+    pnrm = grid.norm[idx].float()
+    delta = ppos - points[:, None, :]
+    d2 = (delta * delta).sum(-1)
+    disk = (pnrm * vec.unit(delta)).sum(-1).abs()
+    w = (1.0 - disk)[..., None] * ppow
+    in_r = m & (d2 <= r2[:, None])
+    in_cap = m & (d2 <= cap2[:, None])
+    return QueryResult(torch.where(in_r[..., None], w, 0.0).sum(1),
+                       in_r.sum(1).to(torch.float32),
+                       torch.where(in_cap[..., None], w, 0.0).sum(1),
+                       in_cap.sum(1).to(torch.float32))
+
+
+def query_grid_chunked(grid: PhotonGrid, res, points, radius, cap_radius,
+                       k_per_cell: int, chunk: int = 2048) -> QueryResult:
+    """``query_grid`` over chunks of ``chunk`` points, which bounds the
+    (chunk, 27 k_per_cell) gather's memory."""
+    n = points.shape[0]
+    cap = torch.as_tensor(cap_radius, dtype=torch.float32,
+                          device=points.device).expand(n)
+    parts = [query_grid(grid, res, points[i:i + chunk], radius[i:i + chunk],
+                        cap[i:i + chunk], k_per_cell)
+             for i in range(0, n, chunk)]
+    return QueryResult(*(torch.cat(xs) for xs in zip(*parts)))
 
 
 def choose_grid_resolution(bounds_min, bounds_max, n_photons: int,

@@ -243,10 +243,11 @@ def test_unfused_bounce_matches_fused(name):
 
 
 # "leaf" is ported: without leaf tables it raises ValueError, as JAX
-# pallas_bvh._run does; "bruteforce" is ported: it runs and finds the
-# kernel route's winners (the cases keep their ids)
+# pallas_bvh._run does; "bvh" likewise without a BVH, with JAX's message;
+# "bruteforce" is ported: it runs and finds the kernel route's winners (the
+# cases keep their ids)
 @pytest.mark.parametrize("method,error,item", [
-    ("bvh", NotImplementedError, "A10"),
+    ("bvh", ValueError, "scene has no BVH; build it with ops.bvh.build_bvh"),
     pytest.param("leaf", ValueError, "no leaf tables", id="leaf-B4"),
     ("bruteforce", None, None)],
     ids=["bvh-A10", "leaf-B4", "bruteforce-A3"])

@@ -524,13 +524,13 @@ def test_one_kernel_step_equals_loop_with_time(n, monkeypatch):
 def test_resolve_rules_for_moving_scenes():
     """JAX ``_resolve``'s rules: a moving scene takes the kernel route even
     for "leaf" (no leaf tables are built), which renders; "bruteforce"
-    stays itself; the unported "bvh" still raises."""
+    stays itself; "bvh" takes the kernel route too (JAX ``_resolve``)."""
     assert dispatch.resolve("auto", True) == "pallas"
     assert dispatch.resolve("pallas", True) == "pallas"
     assert dispatch.resolve("leaf", True) == "pallas"
     assert dispatch.resolve("leaf", False) == "leaf"
-    with pytest.raises(NotImplementedError, match="A10"):
-        dispatch.resolve("bvh", True)
+    assert dispatch.resolve("bvh", True) == "pallas"
+    assert dispatch.resolve("bvh", False) == "bvh"
     assert dispatch.resolve("bruteforce", True) == "bruteforce"
     scene = tbuiltin.motion_field(10, 4.0 / 3.0)
     img, rays = tpt.render_fn(scene, torch.Generator(), width=8, height=6,

@@ -23,7 +23,8 @@ from raytracer_tpu_torch.models import path_tracer  # noqa: E402
 from raytracer_tpu_torch.models import wavefront_soa as twf  # noqa: E402
 from raytracer_tpu_torch.scene import builtin as tbuiltin  # noqa: E402
 from raytracer_tpu_torch.scene.loader import load_scene as tload  # noqa: E402
-from raytracer_tpu_torch.utils.config import RenderConfig  # noqa: E402
+from raytracer_tpu_torch.utils.config import (  # noqa: E402
+    RenderConfig, SPPMConfig)
 from test_golden import check_against  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -102,11 +103,13 @@ def test_camera_rays_match_jax(name):
                                rtol=1e-6, atol=1e-6)
 
 
-# "leaf" is ported: a scene without leaf tables raises ValueError (the
-# case keeps its id)
+# "leaf" and "bvh" are ported: a scene without leaf tables, or without a
+# BVH, raises ValueError, as in JAX (the cases keep their ids)
 @pytest.mark.parametrize("kw,error,item", [
     (dict(nee=True, mis=True), ValueError, "mutually exclusive"),
-    (dict(intersector="bvh"), NotImplementedError, "A10"),
+    pytest.param(dict(intersector="bvh"), ValueError,
+                 "scene has no BVH; build it with ops.bvh.build_bvh",
+                 id="kw1-NotImplementedError-A10"),
     pytest.param(dict(intersector="leaf"), ValueError, "no leaf tables",
                  id="kw2-NotImplementedError-A10")])
 def test_render_fn_refuses_unported_options(kw, error, item):
@@ -117,8 +120,9 @@ def test_render_fn_refuses_unported_options(kw, error, item):
         path_tracer.render_fn(scene, torch.Generator(), **{**base, **kw})
 
 
-# media are ported: ``render_fn`` renders cornell_smoke, and what stays
-# refused on it is SPPM, naming A11 (the case keeps its id)
+# media are ported: ``render_fn`` renders cornell_smoke, and since SPPM's
+# (N, 3) loops are ported (A11) so does ``sppm.render`` (the case keeps its
+# id)
 @pytest.mark.parametrize("make,item", [
     pytest.param(lambda: tbuiltin.cornell_smoke(), "A11", id="<lambda>-A7")])
 def test_render_fn_refuses_ineligible_scenes(make, item):
@@ -127,10 +131,12 @@ def test_render_fn_refuses_ineligible_scenes(make, item):
         make(), torch.Generator(), width=4, height=4, spp=1, spp_chunk=1,
         max_depth=2, t_min=1e-3, spawn_eps_rel=1e-5, device="cpu")
     assert torch.isfinite(img).all() and rays >= 16
-    with pytest.raises(NotImplementedError, match=item):
-        sppm.render(make(), RenderConfig(width=4, height=4,
-                                         samples_per_pixel=1), 0,
-                    device="cpu")
+    cfg = RenderConfig(width=4, height=4, samples_per_pixel=1,
+                       sppm=SPPMConfig(n_iterations=1, photons_per_iter=500,
+                                       max_photon_bounces=3))
+    img, rays, state = sppm.render(make(), cfg, 0, device="cpu")
+    assert torch.isfinite(img).all() and rays >= 16
+    assert state.iteration == 1
 
 
 def test_render_fn_takes_its_device_explicitly():
@@ -162,32 +168,60 @@ def test_cli_renders_png(tmp_path):
     assert "rays" in res.stdout
 
 
-@pytest.mark.parametrize("args", [["--preset", "ci"], ["--nee", "--mis"],
-                                  ["--sharded"]])
-def test_cli_refuses_unported(args):
-    """Unported flags exit non-zero naming their ROADMAP item; --nee with
-    --mis exits non-zero with the JAX package's message."""
-    res = _cli(*args, "--device", "cpu")
+EMPTY_SCENE = ('{"objects": [], "camera": {"look_from": {"x": 0, "y": 0, '
+               '"z": 1}, "look_at": {"x": 0, "y": 0, "z": 0}, "vup": {"x": 0,'
+               ' "y": 1, "z": 0}, "vfov": 40}}')
+
+
+# ``--preset ci`` is ported (A13): it renders at the JAX preset's 200x200
+# (on an empty scene, which keeps the 16 spp cheap on the CPU; the case
+# keeps its id)
+@pytest.mark.parametrize("args", [
+    pytest.param(["--preset", "ci", "--scene", "EMPTY"], id="args0"),
+    ["--nee", "--mis"], ["--sharded"]])
+def test_cli_refuses_unported(args, tmp_path):
+    """``--sharded`` exits non-zero naming its ROADMAP item; --nee with
+    --mis exits non-zero with the JAX package's message; ``--preset ci``
+    renders the preset's size."""
+    out = tmp_path / "ci.png"
+    empty = tmp_path / "empty.json"
+    empty.write_text(EMPTY_SCENE)
+    args = [str(empty) if a == "EMPTY" else a for a in args]
+    res = _cli(*args, "--device", "cpu", "--out", str(out))
+    if "--preset" in args:
+        assert res.returncode == 0, res.stderr
+        head = out.read_bytes()[:24]            # PNG signature and IHDR
+        assert head[12:16] == b"IHDR"
+        assert (int.from_bytes(head[16:20], "big"),
+                int.from_bytes(head[20:24], "big")) == (200, 200)
+        return
     assert res.returncode != 0
     assert ("mutually exclusive" if "--mis" in args else "ROADMAP") \
         in res.stderr
 
 
-# ``--scene smoke`` renders since media are ported; SPPM on it exits 2
-# naming A11 (the case keeps its id)
+# SPPM on smoke (A11), ``--profile-dir`` and ``--debug-nans`` (A13) are
+# ported: each renders (the cases keep their ids)
 @pytest.mark.parametrize("args,item", [
-    pytest.param(["--scene", "smoke", "--integrator", "sppm"], "ROADMAP A11",
-                 id="args0-ROADMAP A7"),
-    (["--profile-dir", "output/prof"], "ROADMAP A13"),
-    (["--debug-nans"], "ROADMAP A13")])
-def test_cli_names_the_item_that_ports(args, item):
+    pytest.param(["--scene", "smoke", "--integrator", "sppm",
+                  "--sppm-iters", "1", "--sppm-photons", "1000"],
+                 "rays in the final gather", id="args0-ROADMAP A7"),
+    pytest.param(["--profile-dir", "PROF"], "wrote",
+                 id="args1-ROADMAP A13"),
+    pytest.param(["--debug-nans"], "wrote", id="args2-ROADMAP A13")])
+def test_cli_names_the_item_that_ports(args, item, tmp_path):
     """SPPM on the JAX CLI's smoke scene and its profiling and
-    NaN-debugging flags are accepted by name and exit 2 naming the ROADMAP
-    item that ports them."""
+    NaN-debugging flags render on the CPU; ``--profile-dir`` leaves its
+    trace in the directory."""
+    prof = tmp_path / "prof"
+    args = [str(prof) if a == "PROF" else a for a in args]
     res = _cli(*args, "--width", "8", "--height", "8", "--spp", "1",
-               "--device", "cpu", "--out", os.devnull)
-    assert res.returncode == 2, res.stderr
-    assert item in res.stderr
+               "--max-depth", "4", "--device", "cpu", "--out",
+               str(tmp_path / "out.png"))
+    assert res.returncode == 0, res.stderr
+    assert item in res.stdout
+    if "--profile-dir" in args:
+        assert (prof / "trace.json").stat().st_size > 0
 
 
 @pytest.mark.parametrize("args", [

@@ -285,15 +285,20 @@ def no_light_scene():
     return b.compile()
 
 
-# SPPM on media stays refused; it names A11 (the JAX package's (N, 3)
-# loops) now that media are ported (A7) for the path tracer (the case
-# keeps its id)
+# SPPM on media renders since its (N, 3) loops are ported (A11): the case
+# keeps its id and checks the render instead of the refusal
 @pytest.mark.parametrize("make,err,match", [
     (no_light_scene, ValueError, "at least one light"),
     (lambda: tbuiltin.motion_field(8), ValueError, "motion blur"),
-    pytest.param(tbuiltin.cornell_smoke, NotImplementedError, "A11",
+    pytest.param(tbuiltin.cornell_smoke, None, None,
                  id="cornell_smoke-NotImplementedError-A7")])
 def test_render_refuses(make, err, match):
+    if err is None:
+        img, rays, state = sppm.render(make(), tiny_config(1), 0,
+                                       device="cpu")
+        assert torch.isfinite(img).all() and float(img.mean()) > 0
+        assert rays >= 24 * 24 * 4 and state.iteration == 1
+        return
     with pytest.raises(err, match=match):
         sppm.render(make(), tiny_config(1), 0, device="cpu")
 
