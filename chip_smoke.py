@@ -120,7 +120,21 @@ Phases, each of which raises on failure (exit code non-zero):
    traversal), the winners of its first traversal (the 480,000 camera
    rays) against the ordered and flat closest-hit kernels, scene_500
    through it at 1 spp, depth 16, each mean against the kernel route's;
-   and ``--preset ci --profile-dir --debug-nans`` in one CLI command.
+   and ``--preset ci --profile-dir --debug-nans`` in one CLI command;
+18. the multi-device layer (``raytracer_tpu_torch/parallel``): on a
+   one-rank NCCL group, ``parallel.render`` at phase 6's settings (rays and
+   image mean within ``SHARD_TOL`` of phase 6's) and at ``SHARD_SPP`` spp
+   (plain and NEE); then two spawned ranks sharing the card on a gloo group
+   (NCCL refuses two ranks on one device; gloo stages the tensors through
+   host memory) run (2, 1) and (1, 2) meshes at ``SHARD_SPP`` spp and a
+   (2, 1) mesh with NEE, each mean within ``SHARD_TOL`` of the one-rank
+   run's; sharded SPPM on Cornell with its mesh at 800x800, 500,000
+   photons x 2 and a 4-spp gather at depth 50 on the one-rank group and on
+   the two ranks, each mean within ``SPPM_ROUTE_BAND`` of ``sppm.render``'s
+   and the two ranks' photon grids hashing equal; ``render --sharded`` in
+   one CLI command on the card; and the dryrun twin
+   (``parallel/dryrun.py``) on 2 gloo ranks on the CPU. Each with its
+   seconds and kernel launches.
 
 It imports no JAX. The line before the last is a JSON object with the
 kernels' launches, errors, times and bounds; the last line is
@@ -129,10 +143,12 @@ kernels' launches, errors, times and bounds; the last line is
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -236,6 +252,13 @@ SPPM_ROUTE_BAND = 0.03
 # traversal of 480,000 rays pops ~53,700 nodes in ~60 s on the card
 BVH_SPP, BVH_FIELD_DEPTH = 1, 2
 BVH_BAND = 0.03
+# Phase 18: the one-rank sharded render against phase 6's (other streams;
+# at 800x600 x 8 spp one render's mean spreads by 0.05% and its rays by
+# 0.03% from seed to seed: 0.18% and 0.12% at 200x150 on the CPU, six
+# seeds, scaled by 1/4), and the multi-rank ones against the one-rank's
+SHARD_TOL = 0.005
+SHARD_SPP = 8
+SHARD_SPPM = dict(iters=2, spp=4)
 # A winner flip is excused only where the ray's float64 distance from the
 # winner's silhouette is within EDGE_ULPS and within EDGE_R2 of r^2, so
 # that no band covers a whole sphere: at field64k distances (|o - c|^2 up
@@ -1011,7 +1034,7 @@ def main_path() -> tuple:
     path_tracer.render(scene, cfg(1, True), 0, device=DEV)     # warm
     torch.cuda.synchronize()
     zero_counts()
-    means = {}
+    means, runs = {}, {}
     for rr in (False, True):
         before = regen.LAUNCHES
         t0 = time.perf_counter()
@@ -1032,7 +1055,8 @@ def main_path() -> tuple:
         save_render(os.path.join(ROOT, "output", f"chip_smoke_{tag}.png"),
                     host)
         means[rr] = float(host.mean())
-    return regen.LAUNCHES, means[False]
+        runs[rr] = (rays, dt)
+    return regen.LAUNCHES, means[False], runs[False]
 
 
 # ------------------------------------------------------------------ phase 7
@@ -3049,6 +3073,207 @@ def aos_bvh_cli() -> dict:
             "query_err": sm["query_err"], "leaf_err": rt["leaf_err"]}
 
 
+# ----------------------------------------------------------------- phase 18
+
+def shard_pt(tag, mesh, spp, seed, nee=False) -> dict:
+    """scene_500 at 800x600, ``spp`` spp, depth 16, RR off through
+    ``parallel.render``, every kernel count set to 0 just before and read
+    just after (after a 1-spp warm render on this mesh). Returns the
+    image mean, rays, seconds and launches."""
+    from raytracer_tpu_torch.parallel import render as prender
+    from raytracer_tpu_torch.utils.config import RenderConfig
+    scene = load("scene_500", WIDTH / HEIGHT)
+
+    def cfg(n):
+        return RenderConfig(width=WIDTH, height=HEIGHT, samples_per_pixel=n,
+                            spp_chunk=1, max_depth=DEPTH, t_min=T_MIN,
+                            spawn_eps_rel=EPS_REL, russian_roulette=False,
+                            nee=nee)
+
+    prender.render(scene, cfg(1), seed, mesh)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    img, rays = prender.render(scene, cfg(spp), seed, mesh)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in counts().items() if v}
+    host = img.cpu().numpy()
+    if not (np.isfinite(host).all() and host.mean() > 0 and rays > 0):
+        raise AssertionError(f"sharded {tag}: image not finite and positive")
+    return {"mean": float(host.mean()), "rays": rays, "s": dt,
+            "launches": launches}
+
+
+def shard_sppm(tag, mesh, seed=0) -> dict:
+    """Cornell with its mesh at 800x800, 500,000 photons x 2, a 4-spp
+    gather at depth 50 through ``parallel.sppm.render_sppm``, counts set
+    to 0 just before and read just after, per-iteration seconds by stage;
+    and the sha256 of this rank's photon grids of the first iteration.
+    Returns the image mean, gather rays, seconds, launches, iteration
+    splits and grid hash."""
+    from raytracer_tpu_torch.models import sppm
+    from raytracer_tpu_torch.ops import dispatch
+    from raytracer_tpu_torch.parallel import sppm as psppm
+    scene = load("cornell_mesh", SPPM_W / SPPM_H).to(mesh.device)
+    cfg = sppm_config(SHARD_SPPM["spp"], n_iterations=SHARD_SPPM["iters"])
+    times, per_iter = {}, []
+
+    def split(state):
+        done = dict(times)
+        prev = per_iter[-1][1] if per_iter else {}
+        per_iter.append(({k: v - prev.get(k, 0.0) for k, v in done.items()},
+                         done))
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    img, rays, state = psppm.render_sppm(scene, cfg, seed, mesh,
+                                         checkpoint_cb=split, times=times)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in counts().items() if v}
+    host = img.cpu().numpy()
+    if not (np.isfinite(host).all() and host.mean() > 0 and rays > 0
+            and state.iteration == SHARD_SPPM["iters"]):
+        raise AssertionError(f"sharded sppm {tag}: image not finite")
+    kw = sppm.iteration_kwargs(scene, cfg)
+    grids = psppm.photon_maps_sharded(
+        scene, dispatch.route_tables(scene, "auto"), seed, 0, mesh=mesh,
+        n_photons=SPPM_PHOTONS, max_photon_bounces=16,
+        grid_res=kw["grid_res"], spawn_eps=cfg.spawn_eps_rel * scene.scale)
+    h = hashlib.sha256()
+    for g in grids:
+        for x in g:
+            h.update(x.reshape(-1).contiguous().cpu().view(torch.uint8)
+                     .numpy().tobytes())
+    return {"mean": float(host.mean()), "rays": rays, "s": dt,
+            "launches": launches, "gather_s": times["gather"],
+            "iterations": [sp for sp, _ in per_iter], "grids": h.hexdigest()}
+
+
+def shard_rank(out_dir: str):
+    """One of two spawned ranks sharing the card on a gloo group: the
+    (2, 1) and (1, 2) renders, the (2, 1) NEE render and the (2, 1)
+    sharded SPPM; writes its results to out_dir/rank{r}.json."""
+    import torch.distributed as dist
+    from raytracer_tpu_torch.parallel import render as prender
+    dev = "cuda:0"
+    torch.cuda.set_device(0)
+    res = {}
+    for tag, shape, nee in (("2x1", (2, 1), False), ("1x2", (1, 2), False),
+                            ("2x1_nee", (2, 1), True)):
+        mesh = prender.make_mesh(*shape, device=dev)
+        res[tag] = shard_pt(tag, mesh, SHARD_SPP, 3, nee)
+    res["sppm"] = shard_sppm("2x1", prender.make_mesh(2, 1, device=dev))
+    with open(os.path.join(out_dir, f"rank{dist.get_rank()}.json"),
+              "w") as f:
+        json.dump(res, f)
+
+
+def log_shard(tag, r, ref=None, tol=SHARD_TOL):
+    """Log one sharded run; hold its mean to ``ref``'s within ``tol``."""
+    line = (f"sharded {tag}: {r['rays']} rays in {r['s']:.4f} s = "
+            f"{r['rays'] / r['s'] / 1e6:.4f} Mrays/s; launches "
+            f"{r['launches']}; image mean {r['mean']:.6f}")
+    if ref is not None:
+        d = r["mean"] / ref["mean"] - 1
+        line += (f" ({d * 100:+.4f}% against {ref['mean']:.6f}, rays "
+                 f"{(r['rays'] / ref['rays'] - 1) * 100:+.4f}%)")
+        if abs(d) > tol:
+            raise AssertionError(f"sharded {tag}: mean off by {d:.4%}")
+    for i, sp in enumerate(r.get("iterations", ())):
+        line += (f"; iteration {i}: {sum(sp.values()):.4f} s = "
+                 + ", ".join(f"{k} {v:.4f}" for k, v in sp.items()))
+    if "gather_s" in r:
+        line += f"; gather {r['gather_s']:.4f} s"
+    log(line)
+
+
+def add_launches(total: dict, launches: dict):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def sharded(pt_mean: float, pt_run: tuple) -> dict:
+    """Phase 18. Returns the summed launches of its main-path runs."""
+    import torch.distributed as dist
+    from raytracer_tpu_torch.parallel import render as prender
+    from raytracer_tpu_torch.parallel.dryrun import spawn
+    total = {}
+    one = {}
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/store",
+                                world_size=1, rank=0)
+        try:
+            mesh = prender.make_mesh()
+            log(f"sharded: one-rank {dist.get_backend()} group on "
+                f"{mesh.device}")
+            a = shard_pt("1x1", mesh, SPP, 1)
+            log_shard(f"1x1 scene_500 {WIDTH}x{HEIGHT} {SPP} spp (phase 6: "
+                      f"{pt_run[0]} rays in {pt_run[1]:.4f} s)", a,
+                      {"mean": pt_mean, "rays": pt_run[0]})
+            if abs(a["rays"] / pt_run[0] - 1) > SHARD_TOL:
+                raise AssertionError("sharded 1x1: rays off phase 6's")
+            if not a["launches"].get("regen"):
+                raise AssertionError("sharded 1x1 ran no regen kernel")
+            add_launches(total, a["launches"])
+            for tag, nee in (("plain", False), ("nee", True)):
+                one[tag] = shard_pt(f"1x1 {tag}", mesh, SHARD_SPP, 3, nee)
+                log_shard(f"1x1 {tag} {SHARD_SPP} spp", one[tag])
+                add_launches(total, one[tag]["launches"])
+            one["sppm"] = shard_sppm("1x1", mesh)
+            add_launches(total, one["sppm"]["launches"])
+        finally:
+            dist.destroy_process_group()
+    host, rays, _, _, _, _ = timed_sppm(
+        "shard_ref", load("cornell_mesh", SPPM_W / SPPM_H),
+        sppm_config(SHARD_SPPM["spp"], n_iterations=SHARD_SPPM["iters"]),
+        DEV)
+    ref = {"mean": float(host.mean()), "rays": rays}
+    log_shard("sppm 1x1", one["sppm"], ref, SPPM_ROUTE_BAND)
+
+    out = os.path.join(ROOT, "output", "chip_smoke_shard")
+    os.makedirs(out, exist_ok=True)
+    t0 = time.perf_counter()
+    spawn(shard_rank, 2, out)
+    log(f"sharded: two ranks sharing the card (gloo) in "
+        f"{time.perf_counter() - t0:.2f} s of process")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for tag, base in (("2x1", "plain"), ("1x2", "plain"),
+                      ("2x1_nee", "nee")):
+        for r, res in enumerate(ranks):
+            log_shard(f"{tag} rank {r}", res[tag], one[base])
+            add_launches(total, res[tag]["launches"])
+    for r, res in enumerate(ranks):
+        log_shard(f"sppm 2x1 rank {r}", res["sppm"], ref, SPPM_ROUTE_BAND)
+        add_launches(total, res["sppm"]["launches"])
+    if ranks[0]["sppm"]["grids"] != ranks[1]["sppm"]["grids"]:
+        raise AssertionError("the two ranks built different photon grids")
+    log(f"sharded sppm: both ranks' grids hash {ranks[0]['sppm']['grids']}")
+
+    for cmd in ([sys.executable, "-m", "raytracer_tpu_torch", "render",
+                 "--sharded", "--scene", "cornell", "--integrator", "sppm",
+                 "--preset", "ci", "--device", DEV, "--checkpoint",
+                 os.path.join(out, "cli.npz"), "--out",
+                 os.path.join(ROOT, "output", "chip_smoke_cli_sharded.png")],
+                [sys.executable, "-m", "raytracer_tpu_torch.parallel.dryrun",
+                 "2"]):
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=600)
+        log(f"sharded cli {' '.join(cmd[2:])}: rc {res.returncode} in "
+            f"{time.perf_counter() - t0:.2f} s; "
+            + " | ".join(res.stdout.strip().splitlines()))
+        if res.returncode != 0:
+            raise AssertionError(f"the command failed: {res.stderr[-2000:]}")
+    return {"launches": total}
+
+
 def main() -> int:
     device = card()
     sys.path.insert(0, ROOT)
@@ -3057,7 +3282,7 @@ def main() -> int:
     q_stats = check_query()
     check_golden()
     check_golden_sppm()
-    pt_regen, pt_mean = main_path()
+    pt_regen, pt_mean, pt_run = main_path()
     sppm_launches = sppm_path()
     c_stats = check_closest()
     check_golden_nee_mis()
@@ -3079,6 +3304,7 @@ def main() -> int:
     c_stats["max_abs_err"] = max(c_stats["max_abs_err"], ab["closest_err"])
     q_stats["max_abs_err"] = max(q_stats["max_abs_err"], ab["query_err"])
     l_row["max_abs_err"] = max(l_row["max_abs_err"], ab["leaf_err"])
+    p18 = sharded(pt_mean, pt_run)["launches"]
 
     def row(d):
         return {k: v for k, v in d.items()
@@ -3090,18 +3316,20 @@ def main() -> int:
          "source": "raytracer_tpu_torch/csrc/bounce.cu",
          "replaces": "raytracer_tpu/ops/pallas_intersect.py:1731",
          "launches": sppm_launches["bounce"] + nm["nee"]["bounce"]
-         + nm["mis"]["bounce"] + p17.get("bounce", 0), **stats},
+         + nm["mis"]["bounce"] + p17.get("bounce", 0)
+         + p18.get("bounce", 0), **stats},
         {"name": "photon_query", "route": "cuda",
          "source": "raytracer_tpu_torch/csrc/photon_query.cu",
          "replaces": "raytracer_tpu/ops/pallas_photon.py:82",
          "launches": sppm_launches["photon_query"]
-         + p16.get("photon_query", 0) + p17.get("photon_query", 0),
-         **q_stats},
+         + p16.get("photon_query", 0) + p17.get("photon_query", 0)
+         + p18.get("photon_query", 0), **q_stats},
         {"name": "closest", "route": "cuda",
          "source": "raytracer_tpu_torch/csrc/closest.cu",
          "replaces": "raytracer_tpu/ops/pallas_intersect.py:1054",
          "launches": nm["nee"]["closest"] + nm["mis"]["closest"]
-         + p16.get("closest", 0) + p17.get("closest", 0), **c_stats},
+         + p16.get("closest", 0) + p17.get("closest", 0)
+         + p18.get("closest", 0), **c_stats},
         {"name": "closest_ordered", "route": "cuda",
          "source": "raytracer_tpu_torch/csrc/closest_ordered.cu",
          "replaces": "raytracer_tpu/ops/pallas_intersect.py:1068",
@@ -3122,7 +3350,7 @@ def main() -> int:
          "source": "raytracer_tpu_torch/csrc/regen.cu",
          "replaces": "raytracer_tpu/ops/pallas_intersect.py:1873",
          "launches": pt_regen + sl.get("regen", 0) + rl.get("regen", 0)
-         + p17.get("regen", 0),
+         + p17.get("regen", 0) + p18.get("regen", 0),
          **row(r_rows["regen"])},
         {"name": "regen_ordered", "route": "cuda",
          "source": "raytracer_tpu_torch/csrc/regen_ordered.cu",

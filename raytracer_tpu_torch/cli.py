@@ -20,23 +20,24 @@ Usage:
         --width 800 --height 600 --spp 1 --max-depth 16 --device cuda
     python -m raytracer_tpu_torch render --scene smoke --integrator sppm \
         --preset ci --device cpu --profile-dir output/prof
+    torchrun --standalone --nproc-per-node 2 -m raytracer_tpu_torch \
+        render --sharded --scene cornell --integrator sppm --device cpu
 
-``--sharded`` is accepted by name so that a command written for the JAX
-CLI fails with a message naming the ROADMAP item that ports it, instead of
-an argparse error; ``--jax-cache`` is accepted and does nothing (the port
-compiles no XLA programs). ``--debug-nans`` checks every wavefront step's
-outputs for NaN (``utils/nans.py``).
+``--sharded`` renders across the ranks of a ``torch.distributed`` group
+(``parallel/``): those ``torchrun`` starts (``WORLD_SIZE`` set, ``env://``),
+else a group of one rank on a file store in a temporary directory; NCCL on
+CUDA, gloo on the CPU. Rank 0 alone writes the PNG, the checkpoint and the
+summary. ``--jax-cache`` is accepted and does nothing (the port compiles
+no XLA programs). ``--debug-nans`` checks every wavefront step's outputs
+for NaN (``utils/nans.py``).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
-
-# flag -> ROADMAP item that ports it (queue A of ROADMAP.md)
-UNPORTED = {
-    "sharded": "A12 (multi-device)",
-}
+import tempfile
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -76,7 +77,10 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--bvh", action="store_true",
                    help="build a BVH for the scene")
     r.add_argument("--sharded", action="store_true",
-                   help=f"not ported yet (ROADMAP {UNPORTED['sharded']})")
+                   help="render across the ranks of a torch.distributed "
+                        "group: those torchrun starts, else one rank "
+                        "(pixels sharded, samples summed; SPPM photons "
+                        "all-gathered)")
     r.add_argument("--preset", choices=["ci"], default=None,
                    help="small CI workload (RenderConfig.ci_preset)")
     r.add_argument("--profile-dir", default=None,
@@ -132,12 +136,44 @@ def load_scene_arg(name: str, aspect: float):
     return load_scene(name, aspect_ratio=aspect)
 
 
+def init_group(device: str):
+    """Initialise the default process group of ``--sharded``: from
+    ``torchrun``'s environment (``WORLD_SIZE`` set; each rank on card
+    ``LOCAL_RANK``), else one rank on a file store in a temporary
+    directory, which the caller removes after the group
+    (``TemporaryDirectory``; None under torchrun). NCCL for a CUDA
+    ``device``, gloo for the CPU."""
+    import torch
+    import torch.distributed as dist
+    cuda = torch.device(device).type == "cuda"
+    backend = "nccl" if cuda else "gloo"
+    if "WORLD_SIZE" in os.environ:
+        if cuda:
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0))
+                                  % torch.cuda.device_count())
+        dist.init_process_group(backend, init_method="env://")
+        return None
+    store = tempfile.TemporaryDirectory()
+    dist.init_process_group(
+        backend, init_method="file://" + os.path.join(store.name, "store"),
+        world_size=1, rank=0)
+    return store
+
+
 def cmd_render(args) -> int:
-    for flag, item in UNPORTED.items():
-        if getattr(args, flag):
-            print(f"raytracer_tpu_torch: --{flag.replace('_', '-')} is not "
-                  f"ported yet (ROADMAP {item})", file=sys.stderr)
-            return 2
+    if not args.sharded:
+        return _render(args)
+    import torch.distributed as dist
+    store = init_group(args.device)
+    try:
+        return _render(args)
+    finally:
+        dist.destroy_process_group()
+        if store is not None:
+            store.cleanup()
+
+
+def _render(args) -> int:
     if args.jax_cache is not None:
         print("raytracer_tpu_torch: --jax-cache has no effect: the port has "
               "no XLA compilation cache", file=sys.stderr)
@@ -168,7 +204,15 @@ def cmd_render(args) -> int:
                           samples_per_pixel=ci.samples_per_pixel,
                           max_depth=ci.max_depth, sppm=ci.sppm)
     stats = {}
+    writer = True           # the rank that writes: rank 0 under --sharded
     try:
+        mesh = None
+        if args.sharded:
+            from raytracer_tpu_torch.parallel import render as prender
+            from raytracer_tpu_torch.parallel import sppm as psppm
+            mesh = prender.make_mesh(
+                device=None if args.device == "cuda" else args.device)
+            writer = mesh.rank == 0
         with timer.stage("Scene build"):
             scene = load_scene_arg(args.scene, cfg.width / cfg.height)
             if args.bvh or args.intersector == "bvh":
@@ -180,7 +224,9 @@ def cmd_render(args) -> int:
             if args.intersector == "leaf" and not moving(scene):
                 from raytracer_tpu_torch.ops.leaf import build_leaf_tables
                 scene = scene._replace(leaf=build_leaf_tables(scene))
-        with maybe_profile(args.profile_dir, args.device), \
+        # one trace file: rank 0's
+        with maybe_profile(args.profile_dir if writer else None,
+                           args.device), \
                 nans.debug_nans(args.debug_nans):
             if args.integrator == "sppm":
                 state = None
@@ -195,39 +241,57 @@ def cmd_render(args) -> int:
                         print(f"warning: --seed {args.seed} != checkpoint "
                               f"seed {stored_seed}; resumed render will not "
                               "match the original", file=sys.stderr)
-                    print(f"resumed from {args.resume} at iteration "
-                          f"{state.iteration}")
+                    if writer:
+                        print(f"resumed from {args.resume} at iteration "
+                              f"{state.iteration}")
                 cb = None
                 if args.checkpoint:
+                    # every rank calls it (the sharded render all-gathers
+                    # the state for it); one writes
                     def cb(s):
-                        ckpt.save_state(args.checkpoint, s, cfg.seed)
+                        if writer:
+                            ckpt.save_state(args.checkpoint, s, cfg.seed)
                 with timer.stage("SPPM"):
-                    img, rays, _ = sppm.render(
-                        scene, cfg, cfg.seed, state=state, checkpoint_cb=cb,
-                        device=args.device)
+                    if mesh is not None:
+                        img, rays, _ = psppm.render_sppm(
+                            scene, cfg, cfg.seed, mesh=mesh, state=state,
+                            checkpoint_cb=cb)
+                    else:
+                        img, rays, _ = sppm.render(
+                            scene, cfg, cfg.seed, state=state,
+                            checkpoint_cb=cb, device=args.device)
                     if img.is_cuda:
                         torch.cuda.synchronize(img.device)
             else:
                 with timer.stage("RT"):
-                    img, rays = path_tracer.render(
-                        scene, cfg, cfg.seed, device=args.device,
-                        stats=stats)
+                    if mesh is not None:
+                        img, rays = prender.render(scene, cfg, cfg.seed,
+                                                   mesh, stats=stats)
+                    else:
+                        img, rays = path_tracer.render(
+                            scene, cfg, cfg.seed, device=args.device,
+                            stats=stats)
                     if img.is_cuda:
                         torch.cuda.synchronize(img.device)
     except (NotImplementedError, ValueError) as e:
         print(f"raytracer_tpu_torch: {e}", file=sys.stderr)
         return 2
+    if not writer:
+        return 0
     timer.count("traced_rays", rays)
     with timer.stage("Save"):
         save_render(cfg.output, img)
     build_s = timer.stages["Scene build"]
     render_s = timer.stages.get("SPPM", timer.stages.get("RT"))
+    where = args.device if mesh is None else (
+        f"{args.device}, {mesh.size} rank(s), mesh ({mesh.n_px}, "
+        f"{mesh.n_spp})")
     if args.integrator == "sppm":
         print(f"scene build {build_s:.3f} s; render {render_s:.3f} s on "
-              f"{args.device}; {rays} rays in the final gather")
+              f"{where}; {rays} rays in the final gather")
     else:
         print(f"scene build {build_s:.3f} s; render {render_s:.3f} s on "
-              f"{args.device}; {rays} rays ({rays / render_s / 1e6:.2f} "
+              f"{where}; {rays} rays ({rays / render_s / 1e6:.2f} "
               "Mrays/s)")
         if args.nee:
             print(f"{stats['shadow_lanes']} NEE shadow rays (not counted "

@@ -33,7 +33,6 @@ from raytracer_tpu_torch.models.wavefront_soa import (
 from raytracer_tpu_torch.ops import dispatch, intersect, materials, media, vec
 from raytracer_tpu_torch.ops import mis as mis_ops
 from raytracer_tpu_torch.ops import nee as nee_ops
-from raytracer_tpu_torch.ops.fused_bounce import moving, pack_tables
 from raytracer_tpu_torch.scene.types import INTER_ABSORB, INTER_DIFFUSE, Scene
 from raytracer_tpu_torch.utils import nans
 from raytracer_tpu_torch.utils.config import RenderConfig
@@ -45,18 +44,18 @@ class TraceResult(NamedTuple):
     rays_traced: int
 
 
-def _resolve(scene: Scene, intersector: str, nee: bool, mis: bool) -> str:
-    """The route of a render: the kernel route ("pallas") for "auto" and
-    "pallas", "leaf" for the leaf kernel (``ValueError`` when the scene has
-    no leaf tables), "bruteforce" and "bvh" for the (N, 3) route (the BVH
-    route raises ``ValueError`` when the scene has none); a moving scene
-    takes the kernel route for "leaf" and "bvh", as in JAX. ``nee`` and
-    ``mis`` together raise ``ValueError``, as in the JAX package."""
+def resolve_route(scene: Scene, intersector: str, nee: bool, mis: bool) -> str:
+    """The route of a render: the kernel route ("pallas") for "pallas",
+    and for "auto" while the scene's tables fit the kernels' cap (past it
+    "bvh" or "bruteforce": ``dispatch.auto_route``), "leaf" for the leaf
+    kernel (``ValueError`` when the scene has no leaf tables), "bruteforce"
+    and "bvh" for the (N, 3) route (the BVH route raises ``ValueError``
+    when the scene has none); a moving scene takes the kernel route for
+    "leaf" and "bvh", as in JAX. ``nee`` and ``mis`` together raise
+    ``ValueError``, as in the JAX package."""
     if mis and nee:
         raise ValueError("--mis and --nee are mutually exclusive")
-    method = dispatch.resolve(intersector, moving(scene))
-    dispatch.check_route(scene, method)
-    return method
+    return dispatch.route(scene, intersector)
 
 
 def spawn_origin(p, normal, new_dir, eps):
@@ -175,27 +174,28 @@ def trace_radiance(scene: Scene, o, d, generator: torch.Generator, *,
                    intersector: str = "auto",
                    russian_roulette: bool = True, nee: bool = False,
                    mis: bool = False, tables=None,
-                   time=None) -> TraceResult:
+                   time=None, stats: dict = None) -> TraceResult:
     """Trace rays ``o``/``d`` (N, 3) to completion (at most ``max_depth``
     bounces) on their device; returns per-ray radiance (N, 3) and the rays
     traced. The kernel routes take the JAX package's SoA loop
     (``trace_radiance_soa``), "bruteforce" and "bvh" its (N, 3) loop
     (``trace_radiance_bruteforce``). ``time`` (N,): each ray's shutter
-    time (motion blur; without it a moving scene stands at t = 0)."""
-    method = _resolve(scene, intersector, nee, mis)
+    time (motion blur; without it a moving scene stands at t = 0).
+    ``stats``: as for ``render_fn``."""
+    method = resolve_route(scene, intersector, nee, mis)
     scene = scene.to(o.device)
     if method in dispatch.AOS_ROUTES:
         return trace_radiance_bruteforce(
             scene, o, d, generator, max_depth=max_depth, t_min=t_min,
             spawn_eps=spawn_eps, russian_roulette=russian_roulette,
-            nee=nee, mis=mis, time=time, intersector=method)
+            nee=nee, mis=mis, time=time, stats=stats, intersector=method)
     if tables is None:
-        tables = pack_tables(scene)
+        tables = dispatch.route_tables(scene, method)
     rad, rays = trace_radiance_soa(
         scene, tables, o.T.contiguous(), d.T.contiguous(), generator,
         max_depth=max_depth, t_min=t_min, spawn_eps=spawn_eps,
         intersector=method, russian_roulette=russian_roulette, nee=nee,
-        mis=mis, time=time)
+        mis=mis, time=time, stats=stats)
     return TraceResult(rad.T, rays)
 
 
@@ -213,7 +213,7 @@ def render_fn(scene: Scene, generator: torch.Generator, *, width: int,
     loop's ``steps``.
     Returns ((H, W, 3) linear image on the device, rays traced as an
     int)."""
-    method = _resolve(scene, intersector, nee, mis)
+    method = resolve_route(scene, intersector, nee, mis)
     device = torch.device(device)
     if generator.device.type != device.type:
         raise ValueError(f"generator on {generator.device}, render on "
@@ -222,16 +222,16 @@ def render_fn(scene: Scene, generator: torch.Generator, *, width: int,
     n_chunks = -(-spp // spp_chunk)
     spawn_eps = spawn_eps_rel * scene.scale      # float32, as in JAX
     if method in dispatch.AOS_ROUTES:
-        accum, rays = _render_bruteforce(
-            scene, generator, width=width, height=height,
-            spp_chunk=spp_chunk, n_chunks=n_chunks, max_depth=max_depth,
-            t_min=t_min, spawn_eps=spawn_eps,
-            russian_roulette=russian_roulette, nee=nee, mis=mis,
-            stats=stats, intersector=method)
+        accum, rays = render_chunks(
+            scene, generator, torch.arange(width * height, device=device),
+            width=width, height=height, spp_chunk=spp_chunk,
+            n_chunks=n_chunks, max_depth=max_depth, t_min=t_min,
+            spawn_eps=spawn_eps, russian_roulette=russian_roulette, nee=nee,
+            mis=mis, stats=stats, intersector=method)
         img = accum / (n_chunks * spp_chunk)
         return img.reshape(height, width, 3), rays
     if tables is None:
-        tables = pack_tables(scene)
+        tables = dispatch.route_tables(scene, method)
     accum, rays, _steps = render_regen_soa(
         scene, tables, generator, width=width, height=height,
         lanes_per_pixel=spp_chunk, samples_per_lane=n_chunks,
@@ -242,34 +242,39 @@ def render_fn(scene: Scene, generator: torch.Generator, *, width: int,
     return img.reshape(height, width, 3), rays
 
 
-def _render_bruteforce(scene: Scene, gen: torch.Generator, *, width: int,
-                       height: int, spp_chunk: int, n_chunks: int,
-                       max_depth: int, t_min: float, spawn_eps,
-                       russian_roulette: bool, nee: bool, mis: bool,
-                       stats: dict = None, intersector: str = "bruteforce"):
-    """The JAX ``render_fn``'s loop over chunks of samples: each chunk is
-    ``spp_chunk`` camera rays per pixel (pixel-major within a sample, as
-    JAX lays them out), with a shutter time each on a moving scene, traced
-    to completion on ``intersector``'s (N, 3) route. Returns ((npix, 3)
+def render_chunks(scene: Scene, gen: torch.Generator, pixel_ids, *,
+                  width: int, height: int, spp_chunk: int, n_chunks: int,
+                  max_depth: int, t_min: float, spawn_eps,
+                  russian_roulette: bool, nee: bool, mis: bool,
+                  stats: dict = None, intersector: str = "bruteforce",
+                  tables=None):
+    """The JAX ``render_fn``'s loop over chunks of samples (its (N, 3)
+    route, and the sharded render's loop for media and the (N, 3) routes):
+    each chunk is ``spp_chunk`` camera rays of every pixel of
+    ``pixel_ids`` (P,) (pixel-major within a sample, as JAX lays them
+    out), with a shutter time each on a moving scene, traced to completion
+    by ``trace_radiance`` on the resolved ``intersector``'s route
+    (``tables``: those of a kernel route, if packed). Returns ((P, 3)
     radiance sum, rays as an int)."""
     dev = scene.camera.origin.device
     cam = scene.camera
-    npix = width * height
-    pixel_ids = torch.arange(npix, device=dev).repeat(spp_chunk)
-    accum = torch.zeros((npix, 3), device=dev)
+    n = pixel_ids.shape[0]
+    ids = pixel_ids.repeat(spp_chunk)
+    accum = torch.zeros((n, 3), device=dev)
     rays = 0
     for _ in range(n_chunks):
-        o, d = camera_rays(cam, gen, pixel_ids, width, height)
+        o, d = camera_rays(cam, gen, ids, width, height)
         time = None
         if scene.spheres.motion_marker.shape[0]:
             time = cam.time0 + torch.rand(
                 (o.shape[0],), generator=gen, device=dev) * (cam.time1
                                                              - cam.time0)
-        res = trace_radiance_bruteforce(
+        res = trace_radiance(
             scene, o, d, gen, max_depth=max_depth, t_min=t_min,
-            spawn_eps=spawn_eps, russian_roulette=russian_roulette, nee=nee,
-            mis=mis, time=time, stats=stats, intersector=intersector)
-        accum += res.radiance.reshape(spp_chunk, npix, 3).sum(0)
+            spawn_eps=spawn_eps, intersector=intersector,
+            russian_roulette=russian_roulette, nee=nee, mis=mis,
+            tables=tables, time=time, stats=stats)
+        accum += res.radiance.reshape(spp_chunk, n, 3).sum(0)
         rays += res.rays_traced
     return accum, rays
 
@@ -283,7 +288,8 @@ def render(scene: Scene, config: RenderConfig, seed: int, *,
     A ``Progress`` line ticks per batch on a TTY."""
     device = torch.device(device)
     scene = scene.to(device)
-    tables = pack_tables(scene)
+    tables = dispatch.route_tables(scene, resolve_route(
+        scene, config.intersector, config.nee, config.mis))
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     total = config.samples_per_pixel

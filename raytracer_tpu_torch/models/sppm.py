@@ -42,7 +42,7 @@ from raytracer_tpu_torch.models.camera import camera_rays
 from raytracer_tpu_torch.models.path_tracer import hit_and_attrs, spawn_origin
 from raytracer_tpu_torch.ops import dispatch, materials
 from raytracer_tpu_torch.ops import photon_grid as pg
-from raytracer_tpu_torch.ops.fused_bounce import has_media, pack_tables
+from raytracer_tpu_torch.ops.fused_bounce import has_media
 from raytracer_tpu_torch.ops.photon_query import query_photons
 from raytracer_tpu_torch.scene.types import INTER_ABSORB, INTER_DIFFUSE, Scene
 from raytracer_tpu_torch.utils import nans
@@ -51,8 +51,8 @@ from raytracer_tpu_torch.utils.timing import Progress, sync_for
 
 PI = 3.141592653589793
 PHOTON_T_MIN = 1e-4         # photon_mapper.rs:242
-# stream tags of ``_generator``
-_PHOTONS, _MEASURE, _GATHER = 1, 2, 3
+# stream tags of ``stream_generator``
+PHOTON_STREAM, MEASURE_STREAM, GATHER_STREAM = 1, 2, 3
 
 
 class SPPMHalf(NamedTuple):
@@ -84,16 +84,17 @@ def state_to(state: SPPMState, device) -> SPPMState:
                      int(state.iteration))
 
 
-def _generator(device, seed: int, stream: int, index: int) -> torch.Generator:
-    """A generator on ``device`` seeded from (seed, stream, index)."""
+def stream_generator(device, seed: int, *words: int) -> torch.Generator:
+    """A generator on ``device`` seeded from (seed, *words): (stream,
+    index) here, plus the rank's mesh coordinates in ``parallel/``."""
     words = np.random.SeedSequence(
-        [int(seed) % 2 ** 64, stream, index]).generate_state(2, np.uint32)
+        [int(seed) % 2 ** 64, *words]).generate_state(2, np.uint32)
     gen = torch.Generator(device=device)
     gen.manual_seed((int(words[0]) << 31) ^ int(words[1]))
     return gen
 
 
-class _Stages:
+class Stages:
     """Per-stage host-clock seconds of one iteration, taken after a device
     sync, when ``times`` is a dict; a no-op otherwise."""
 
@@ -115,16 +116,10 @@ class _Stages:
 
 def soa_eligible(scene: Scene, intersector: str) -> bool:
     """Whether SPPM takes the SoA passes (JAX ``_soa_eligible``): the
-    "pallas" or "leaf" route on a scene without media."""
-    return (dispatch.resolve(intersector) in ("pallas", "leaf")
-            and not has_media(scene))
-
-
-def _route(scene: Scene, intersector: str) -> str:
-    """The resolved route, checked against the scene's tables."""
-    method = dispatch.resolve(intersector)
-    dispatch.check_route(scene, method)
-    return method
+    "pallas" or "leaf" route on a scene without media ("auto" resolved
+    for the scene, ``dispatch.auto_route``)."""
+    method = dispatch.resolve(intersector, auto=dispatch.auto_route(scene))
+    return method in ("pallas", "leaf") and not has_media(scene)
 
 
 def _media_u(scene: Scene, U, start: int):
@@ -149,7 +144,7 @@ def trace_photon_deposits(scene: Scene, tables, gen, n_photons: int,
     scatter_photon``) and one free-flight row per medium. Returns
     ``wf.Deposits`` of ``max_bounces * n_photons`` slots, step-major."""
     n = int(n_photons)
-    dev = tables.sph.device
+    dev = scene.bounds_min.device
     k_rows = wf.U_TRACE_ROWS + wf.media_rows(scene)
     o, d, w = (x.T.contiguous() for x in wf.emit_photons_soa(
         scene.lights, gen, n))
@@ -191,34 +186,36 @@ def trace_photon_deposits(scene: Scene, tables, gen, n_photons: int,
 
 # ------------------------------------------------------------ photon maps
 
-def photon_maps(scene: Scene, tables, gen, *, n_photons: int,
-                max_photon_bounces: int, grid_res, spawn_eps,
-                intersector: str = "pallas", stage=None):
-    """Photon pass + both maps (``_photon_maps`` of the JAX package). The
-    SoA route regenerates (``trace_photon_deposits_regen_soa``); the
-    (N, 3) route scans ``trace_photon_deposits``. The global map sorts
-    every deposit slot; a path deposits into the caustic set at most once,
-    so the caustic map keeps at most ``n_photons``
-    (photon_mapper.rs:249-251)."""
-    method = _route(scene, intersector)
+def trace_deposits(scene: Scene, tables, gen, *, n_photons: int,
+                   max_photon_bounces: int, spawn_eps,
+                   intersector: str = "pallas") -> wf.Deposits:
+    """The photon pass of ``_photon_maps`` of the JAX package. The SoA
+    route regenerates (``trace_photon_deposits_regen_soa``); the (N, 3)
+    route scans ``trace_photon_deposits``. Every call of a route with
+    the same ``n_photons`` returns the same number of slots."""
+    method = dispatch.route(scene, intersector)
     if soa_eligible(scene, method):
         dep, _spawned = wf.trace_photon_deposits_regen_soa(
             scene, tables, gen, n_photons, max_photon_bounces, PHOTON_T_MIN,
             spawn_eps, intersector=method)
-    else:
-        dep = trace_photon_deposits(scene, tables, gen, n_photons,
-                                    max_photon_bounces, PHOTON_T_MIN,
-                                    spawn_eps, method)
-    if stage:
-        stage("photon pass")
+        return dep
+    return trace_photon_deposits(scene, tables, gen, n_photons,
+                                 max_photon_bounces, PHOTON_T_MIN, spawn_eps,
+                                 method)
+
+
+def build_maps(scene: Scene, dep: wf.Deposits, grid_res, max_valid: int):
+    """Both photon maps of deposits ``dep`` (the grids of ``_photon_maps``
+    of the JAX package, compact): the global map sorts every deposit
+    slot; a path deposits into the caustic set at most once, so the
+    caustic map keeps at most ``max_valid``, the photons traced
+    (photon_mapper.rs:249-251). Returns (global grid, caustic grid)."""
     pos, power, norm = dep.pos.T, dep.power.T, dep.norm.T
     g = pg.build_grid(pos, power, norm, dep.valid, scene.bounds_min,
                       scene.bounds_max, grid_res, compact=True)
     c = pg.build_grid(pos, power, norm, dep.valid & dep.caustic,
                       scene.bounds_min, scene.bounds_max, grid_res,
-                      compact=True, max_valid=n_photons)
-    if stage:
-        stage("grid build")
+                      compact=True, max_valid=max_valid)
     return g, c
 
 
@@ -226,26 +223,34 @@ def photon_maps(scene: Scene, tables, gen, *, n_photons: int,
 
 def measurement_pass(scene: Scene, tables, gen, width: int, height: int,
                      max_depth: int, t_min: float, spawn_eps,
-                     intersector: str = "pallas") -> wf.MeasurePoints:
+                     intersector: str = "pallas",
+                     pixel_ids=None) -> wf.MeasurePoints:
     """One jittered camera ray per pixel, in pixel order, walked to its
     first diffuse hit: ``wf.measurement_soa`` on the SoA route, else the
-    (N, 3) walk of ``_measurement_aos``."""
-    method = _route(scene, intersector)
-    dev = tables.sph.device
-    pix = torch.arange(width * height, device=dev)
+    (N, 3) walk of ``_measurement_aos``. ``pixel_ids`` (P,): the pixels
+    to serve, the whole image by default (a pixel shard: JAX's
+    ``ids_shard``); an id past the image gives an invalid point."""
+    method = dispatch.route(scene, intersector)
+    dev = scene.bounds_min.device
+    pix = (torch.arange(width * height, device=dev) if pixel_ids is None
+           else pixel_ids)
     px = (pix % width).to(torch.float32)
     py = (pix // width).to(torch.float32)
     o, d = wf.camera_rays_soa(
         scene.camera, px, py, width, height,
         torch.rand((4, pix.shape[0]), generator=gen, device=dev))
     if soa_eligible(scene, method):
-        return wf.measurement_soa(scene, tables, gen, o, d,
-                                  max_depth=max_depth, t_min=t_min,
-                                  spawn_eps=spawn_eps, intersector=method)
-    return _measurement_aos(scene, tables, gen, o.T.contiguous(),
-                            d.T.contiguous(), max_depth=max_depth,
-                            t_min=t_min, spawn_eps=spawn_eps,
-                            intersector=method)
+        pts = wf.measurement_soa(scene, tables, gen, o, d,
+                                 max_depth=max_depth, t_min=t_min,
+                                 spawn_eps=spawn_eps, intersector=method)
+    else:
+        pts = _measurement_aos(scene, tables, gen, o.T.contiguous(),
+                               d.T.contiguous(), max_depth=max_depth,
+                               t_min=t_min, spawn_eps=spawn_eps,
+                               intersector=method)
+    if pixel_ids is None:
+        return pts
+    return pts._replace(valid=pts.valid & (pix < width * height))
 
 
 def _measurement_aos(scene: Scene, tables, gen, o, d, *, max_depth: int,
@@ -409,18 +414,43 @@ def sppm_iteration(scene: Scene, tables, state: SPPMState, seed: int, *,
     """One SPPM iteration over the whole image, on ``intersector``'s
     route, the queries by ``query_impl``. ``times``: a dict that receives
     per-stage seconds (each stage ends in a device sync)."""
-    dev = tables.sph.device
+    dev = scene.bounds_min.device
     it = int(state.iteration)
     spawn_eps = spawn_eps_rel * scene.scale
-    stage = _Stages(times, dev)
-    g_grid, c_grid = photon_maps(
-        scene, tables, _generator(dev, seed, _PHOTONS, it),
-        n_photons=n_photons, max_photon_bounces=max_photon_bounces,
-        grid_res=grid_res, spawn_eps=spawn_eps, intersector=intersector,
-        stage=stage)
-    pts = measurement_pass(scene, tables, _generator(dev, seed, _MEASURE, it),
-                           width, height, max_camera_bounces, t_min,
-                           spawn_eps, intersector)
+    stage = Stages(times, dev)
+    dep = trace_deposits(scene, tables,
+                         stream_generator(dev, seed, PHOTON_STREAM, it),
+                         n_photons=n_photons,
+                         max_photon_bounces=max_photon_bounces,
+                         spawn_eps=spawn_eps, intersector=intersector)
+    stage("photon pass")
+    g_grid, c_grid = build_maps(scene, dep, grid_res, n_photons)
+    stage("grid build")
+    return measure_and_update(
+        scene, tables, state, g_grid, c_grid,
+        stream_generator(dev, seed, MEASURE_STREAM, it), width=width,
+        height=height, max_camera_bounces=max_camera_bounces,
+        grid_res=grid_res,
+        alpha=alpha, k_global=k_global, k_caustic=k_caustic, t_min=t_min,
+        spawn_eps=spawn_eps, intersector=intersector, query_impl=query_impl,
+        k_per_cell=k_per_cell, stage=stage)
+
+
+def measure_and_update(scene: Scene, tables, state: SPPMState, g_grid,
+                       c_grid, gen, *, width: int, height: int,
+                       max_camera_bounces: int, grid_res, alpha: float,
+                       k_global: float, k_caustic: float, t_min: float,
+                       spawn_eps, intersector: str = "pallas",
+                       query_impl: str = "dense", k_per_cell: int = 64,
+                       pixel_ids=None, stage=None) -> SPPMState:
+    """The rest of an iteration once both maps are built: the measurement
+    pass of ``pixel_ids`` (the whole image by default) drawn from ``gen``,
+    both queries and the update of ``state``, whose rows are those
+    pixels'. Returns the updated state, one iteration further."""
+    stage = stage or Stages(None, scene.bounds_min.device)
+    pts = measurement_pass(scene, tables, gen, width, height,
+                           max_camera_bounces, t_min, spawn_eps, intersector,
+                           pixel_ids)
     stage("measurement")
     cap = cap_radius(scene, grid_res)
     rg, cap_g = query_radii(state.glob, cap)
@@ -435,7 +465,7 @@ def sppm_iteration(scene: Scene, tables, state: SPPMState, seed: int, *,
         nans.check(f"the {name} stat update", flux=half.flux,
                    radius2=half.radius2, photons=half.photons)
     stage("update")
-    return SPPMState(glob, caus, it + 1)
+    return SPPMState(glob, caus, int(state.iteration) + 1)
 
 
 # ----------------------------------------------------------- final gather
@@ -463,7 +493,7 @@ def gather_walk(scene: Scene, tables, o, d, est, gen, *, max_depth: int,
     draw the three scatter rows and one free-flight row per medium each
     step. Returns ((N, 3) radiance, rays as an int: alive lanes summed over
     steps)."""
-    method = _route(scene, intersector)
+    method = dispatch.route(scene, intersector)
     if soa_eligible(scene, method):
         rad, rays = wf.gather_walk_soa(
             scene, tables, o.T.contiguous(), d.T.contiguous(),
@@ -512,7 +542,7 @@ def gather_fn(scene: Scene, tables, state: SPPMState, gen, *, width: int,
     else the JAX chunk loop: ceil(spp / spp_chunk) chunks of ``spp_chunk``
     camera rays per pixel, each traced by ``gather_walk``. Returns
     ((H, W, 3) image on the device, rays as an int)."""
-    method = _route(scene, intersector)
+    method = dispatch.route(scene, intersector)
     est = density_estimates(state, n_total_photons)
     n_chunks = -(-spp // spp_chunk)
     spawn_eps = spawn_eps_rel * scene.scale
@@ -523,21 +553,39 @@ def gather_fn(scene: Scene, tables, state: SPPMState, gen, *, width: int,
             max_depth=max_depth, t_min=t_min, spawn_eps=spawn_eps,
             intersector=method)
     else:
-        npix = width * height
-        dev = est.device
-        pixel_ids = torch.arange(npix, device=dev).repeat(spp_chunk)
-        est_rep = est.repeat(spp_chunk, 1)
-        accum = torch.zeros((npix, 3), device=dev)
-        rays = 0
-        for _ in range(n_chunks):
-            o, d = camera_rays(scene.camera, gen, pixel_ids, width, height)
-            rad, r = gather_walk(scene, tables, o, d, est_rep, gen,
-                                 max_depth=max_depth, t_min=t_min,
-                                 spawn_eps=spawn_eps, intersector=method)
-            accum += rad.reshape(spp_chunk, npix, 3).sum(0)
-            rays += r
+        accum, rays = gather_chunks(
+            scene, tables, est, gen,
+            torch.arange(width * height, device=est.device), width=width,
+            height=height, spp_chunk=spp_chunk, n_chunks=n_chunks,
+            max_depth=max_depth, t_min=t_min, spawn_eps=spawn_eps,
+            intersector=method)
     img = accum / (n_chunks * spp_chunk)
     return img.reshape(height, width, 3), rays
+
+
+def gather_chunks(scene: Scene, tables, est, gen, pixel_ids, *, width: int,
+                  height: int, spp_chunk: int, n_chunks: int,
+                  max_depth: int, t_min: float, spawn_eps,
+                  intersector: str):
+    """The JAX gather's loop over chunks of samples (``gather_fn`` off the
+    SoA route, and the sharded gather's): ``n_chunks`` chunks of
+    ``spp_chunk`` camera rays of every pixel of ``pixel_ids`` (P,)
+    (pixel-major within a sample), each traced by ``gather_walk`` with the
+    pixels' estimates ``est`` (P, 3). Returns ((P, 3) radiance sum, rays
+    as an int)."""
+    n = pixel_ids.shape[0]
+    ids = pixel_ids.repeat(spp_chunk)
+    est_rep = est.repeat(spp_chunk, 1)
+    accum = torch.zeros((n, 3), device=est.device)
+    rays = 0
+    for _ in range(n_chunks):
+        o, d = camera_rays(scene.camera, gen, ids, width, height)
+        rad, r = gather_walk(scene, tables, o, d, est_rep, gen,
+                             max_depth=max_depth, t_min=t_min,
+                             spawn_eps=spawn_eps, intersector=intersector)
+        accum += rad.reshape(spp_chunk, n, 3).sum(0)
+        rays += r
+    return accum, rays
 
 
 # -------------------------------------------------------------- top level
@@ -587,11 +635,10 @@ def render(scene: Scene, config: RenderConfig, seed: int, *,
     linear image on the device, rays of the gather as an int, the final
     state)."""
     check_scene(scene)
-    _route(scene, config.intersector)
     sp: SPPMConfig = config.sppm
     device = torch.device(device)
     scene = scene.to(device)
-    tables = pack_tables(scene)
+    tables = dispatch.route_tables(scene, config.intersector)
     npix = config.width * config.height
     state = init_state(npix, device) if state is None else \
         state_to(state, device)
@@ -620,7 +667,8 @@ def render(scene: Scene, config: RenderConfig, seed: int, *,
     while done < total:
         spp = min(batch, total - done)
         img, r = gather_fn(
-            scene, tables, state, _generator(device, seed, _GATHER, b),
+            scene, tables, state,
+            stream_generator(device, seed, GATHER_STREAM, b),
             width=config.width, height=config.height, spp=spp,
             spp_chunk=min(chunk, spp), max_depth=config.max_depth,
             t_min=config.t_min, spawn_eps_rel=config.spawn_eps_rel,

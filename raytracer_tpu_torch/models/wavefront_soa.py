@@ -405,11 +405,13 @@ def trace_radiance_soa(scene: Scene, tables: BounceTables, o, d,
                        gen: torch.Generator, *, max_depth: int,
                        t_min: float, spawn_eps, intersector: str = "pallas",
                        russian_roulette: bool = True, nee: bool = False,
-                       mis: bool = False, time=None):
+                       mis: bool = False, time=None, stats: dict = None):
     """Trace a wavefront of rays ``o``/``d`` (3, N) to completion, at most
     ``max_depth`` bounces, with no regeneration (the loop of the JAX NEE and
     MIS oracles). ``time`` (N,): each ray's shutter time, kept through its
     bounces (motion blur). One host sync per step for the loop condition.
+    ``stats``, if given, gets the NEE shadow rays cast added to
+    ``shadow_lanes`` and the steps to ``steps``.
     Returns ((3, N) radiance, rays traced as an int: alive lanes summed
     over steps)."""
     n = o.shape[1]
@@ -423,6 +425,7 @@ def trace_radiance_soa(scene: Scene, tables: BounceTables, o, d,
     prev_diff = torch.zeros_like(alive)
     rays = 0
     step = 0
+    shadow = torch.zeros((), dtype=torch.int64, device=dev)
     while step < max_depth:
         n_alive = int(alive.sum())
         if n_alive == 0:
@@ -433,7 +436,7 @@ def trace_radiance_soa(scene: Scene, tables: BounceTables, o, d,
                         spawn_eps=spawn_eps, fused=fused, scene=scene,
                         intersector=intersector, time=time,
                         media_u=_media_u(U, base, k_med))
-        b, rad, diffuse_now, _ = _shade(
+        b, rad, diffuse_now, cast = _shade(
             scene, tables, U, U_TRACE_ROWS, b, alive, tput, rad, prev_diff,
             nee=nee, mis=mis, spawn_eps=spawn_eps, intersector=intersector,
             time=time)
@@ -448,10 +451,14 @@ def trace_radiance_soa(scene: Scene, tables: BounceTables, o, d,
         d = torch.where(cont, b.nd, d)
         if nee:
             prev_diff = diffuse_now
+            shadow += cast.sum()
         alive = cont
         step += 1
         nans.check("a path-tracer step", radiance=rad, throughput=tput,
                    origin=o, direction=d)
+    if stats is not None:
+        stats["shadow_lanes"] = stats.get("shadow_lanes", 0) + int(shadow)
+        stats["steps"] = stats.get("steps", 0) + step
     return rad, rays
 
 
@@ -521,14 +528,19 @@ def render_regen_soa(scene, tables: BounceTables, gen: torch.Generator, *,
                      samples_per_lane: int, max_depth: int, t_min: float,
                      spawn_eps, intersector: str = "pallas",
                      russian_roulette: bool = True, nee: bool = False,
-                     mis: bool = False, est=None, stats: dict = None):
+                     mis: bool = False, est=None, stats: dict = None,
+                     pixel_slots=None):
     """Path-regeneration wavefront renderer. When a lane's sample retires
     (miss, absorb, RR kill or depth cap) the lane spawns its pixel's next
-    sample at once. Lane l serves pixel slot l % npix for
+    sample at once. Lane l serves pixel slot l % n_out for
     ``samples_per_lane`` samples, so per-pixel spp = lanes_per_pixel *
     samples_per_lane. Stragglers drain through the compaction cascade of
-    ``_drain_sizes``. ``est`` (npix, 3), pixel-ordered: the SPPM density
-    estimates of ``gather_regen_soa``. ``nee``/``mis`` add next-event
+    ``_drain_sizes``. The slots are the whole image in ``block_order``,
+    or ``pixel_slots`` (n_out,), the pixel ids of a shard
+    (``parallel/render.py`` passes its block-permuted slice; an id may
+    repeat). ``est`` (npix, 3), pixel-ordered, or (n_out, 3) in slot order
+    with ``pixel_slots``: the SPPM density estimates of
+    ``gather_regen_soa``. ``nee``/``mis`` add next-event
     estimation or the mixture resample at diffuse vertices. ``stats``, if
     given, gets ``shadow_lanes``: the NEE shadow rays cast, which are not
     counted as rays, and ``steps``. On the fused route without NEE, MIS
@@ -538,12 +550,17 @@ def render_regen_soa(scene, tables: BounceTables, gen: torch.Generator, *,
     ``_step``. Moving tables (``tables.sph_vel``) give every sample a
     shutter time (module docstring).
 
-    Returns ((npix, 3) radiance sum over all samples in pixel order, rays
-    traced (alive lanes summed over steps, an int), loop steps)."""
+    Returns ((npix, 3) radiance sum over all samples in pixel order, or
+    (n_out, 3) in slot order with ``pixel_slots``, rays traced (alive
+    lanes summed over steps, an int), loop steps)."""
     dev = tables.sph.device
     cam = scene.camera
-    perm, inv = block_order(width, height)
-    slots = torch.as_tensor(perm, device=dev).long()
+    if pixel_slots is None:
+        perm, inv = block_order(width, height)
+        slots = torch.as_tensor(perm, device=dev).long()
+    else:
+        inv = None
+        slots = torch.as_tensor(pixel_slots, device=dev).long()
     n_out = slots.shape[0]
     n = n_out * lanes_per_pixel
     slot_id = torch.arange(n, device=dev) % n_out
@@ -558,7 +575,9 @@ def render_regen_soa(scene, tables: BounceTables, gen: torch.Generator, *,
     ones = torch.ones((3, n), device=dev)
     zeros = torch.zeros((3, n), device=dev)
     izero = torch.zeros((n,), dtype=torch.int32, device=dev)
-    lane_est = None if est is None else est[slots][slot_id].T.contiguous()
+    if est is not None and pixel_slots is None:
+        est = est[slots]                       # slot order
+    lane_est = None if est is None else est[slot_id].T.contiguous()
     alive0 = torch.ones((n,), dtype=torch.bool, device=dev)
     s = _Lanes(o0, d0, ones, zeros, zeros.clone(), alive0, izero,
                izero.clone(), px, py, slot_id, ~alive0, lane_est, times)
@@ -614,24 +633,30 @@ def render_regen_soa(scene, tables: BounceTables, gen: torch.Generator, *,
     if stats is not None:
         stats["shadow_lanes"] = stats.get("shadow_lanes", 0) + int(shadow)
         stats["steps"] = stats.get("steps", 0) + steps
+    if inv is None:
+        return accum.T, rays, steps
     return accum.T[torch.as_tensor(inv, device=dev).long()], rays, steps
 
 
 def gather_regen_soa(scene, tables: BounceTables, est, gen: torch.Generator,
                      *, width: int, height: int, lanes_per_pixel: int,
                      samples_per_lane: int, max_depth: int, t_min: float,
-                     spawn_eps, intersector: str = "pallas"):
+                     spawn_eps, intersector: str = "pallas",
+                     pixel_slots=None):
     """The SPPM final gather (sample_ray, photon_mapper.rs:326-365 with the
     depth cap) on the regeneration loop of ``render_regen_soa``: Le at
-    every hit, the pixel's density estimate ``est`` (npix, 3) at the first
-    diffuse hit, specular chains multiply the throughput, no Russian
-    roulette, on ``intersector``'s route ("pallas" or "leaf"). Returns
-    ((npix, 3) radiance sum in pixel order, rays, steps)."""
+    every hit, the pixel's density estimate ``est`` at the first diffuse
+    hit, specular chains multiply the throughput, no Russian roulette, on
+    ``intersector``'s route ("pallas" or "leaf"). ``est`` (npix, 3) in
+    pixel order, or with ``pixel_slots`` (n_out,) (a pixel shard) (n_out,
+    3) in slot order. Returns ((npix, 3) radiance sum in pixel order, or
+    (n_out, 3) in slot order with ``pixel_slots``, rays, steps)."""
     return render_regen_soa(
         scene, tables, gen, width=width, height=height,
         lanes_per_pixel=lanes_per_pixel, samples_per_lane=samples_per_lane,
         max_depth=max_depth, t_min=t_min, spawn_eps=spawn_eps,
-        intersector=intersector, russian_roulette=False, est=est)
+        intersector=intersector, russian_roulette=False, est=est,
+        pixel_slots=pixel_slots)
 
 
 def gather_walk_soa(scene: Scene, tables: BounceTables, o, d, est,

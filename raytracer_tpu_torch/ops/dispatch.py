@@ -1,12 +1,17 @@
 """Intersection dispatch: the counterpart of
 ``raytracer_tpu/ops/dispatch.py``.
 
-``method`` "pallas" (and "auto", which resolves to it: the CUDA kernels
-read any table size from global memory, so the JAX package's VMEM caps and
-slab chain have no counterpart) runs the closest-hit kernel
-(``ops/closest_hit.py``), the ordered one when ``pack_tables`` attached an
-ordered stage. "leaf" runs the leaf kernel (``ops/leaf.py``) and needs the
-scene's leaf tables (``ValueError`` without, as JAX ``pallas_bvh._run``).
+``method`` "pallas" runs the closest-hit kernel (``ops/closest_hit.py``),
+the ordered one when ``pack_tables`` attached an ordered stage. "auto"
+resolves from the scene, as JAX ``_resolve`` does past its kernel caps
+(``auto_route``): "pallas" while the sphere and triangle tables fit the
+port's own cap (``ordered.MAX_SUPERS`` superchunks; the CUDA kernels read
+any smaller table from global memory, so the JAX package's VMEM caps and
+slab chain have no counterpart), past it "bvh" on a scene with a BVH
+whose spheres stand still, else "bruteforce" (``route``; the tables
+each route reads: ``route_tables``). "leaf" runs the leaf kernel
+(``ops/leaf.py``) and needs the scene's leaf tables (``ValueError``
+without, as JAX ``pallas_bvh._run``).
 The (N, 3) routes have no kernel (their JAX functions are XLA):
 "bruteforce" runs the chunked scan of ``ops/intersect.py``, "bvh" the
 flat BVH's traversal of ``ops/bvh.py`` (``ValueError`` without a BVH, as
@@ -26,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from raytracer_tpu_torch.ops import bvh, closest_hit, intersect, leaf
+from raytracer_tpu_torch.ops import ordered
 from raytracer_tpu_torch.ops.fused_bounce import (
     BounceTables, moving, pack_tables,
 )
@@ -36,15 +42,48 @@ NO_BVH = bvh.NO_BVH
 AOS_ROUTES = ("bruteforce", "bvh")
 
 
-def resolve(method: str, moves: bool = False) -> str:
-    """"auto" and "pallas" resolve to "pallas"; "leaf" and "bvh" to
-    themselves, or to "pallas" for a scene whose spheres move (``moves``);
-    "bruteforce" to itself."""
+def auto_route(scene: Scene) -> str:
+    """The route "auto" takes on ``scene``: "pallas" unless its sphere or
+    triangle table is past ``ordered.MAX_SUPERS`` superchunks; past it
+    "bvh" where the scene has a BVH and its spheres stand still, else
+    "bruteforce" (JAX ``_resolve`` past its caps, a moving scene
+    included)."""
+    if not (ordered.past_cap(scene.spheres.radius.shape[0], ordered.SPH_CHUNK)
+            or ordered.past_cap(scene.triangles.mat_id.shape[0],
+                                ordered.TRI_CHUNK)):
+        return "pallas"
+    return "bvh" if scene.bvh is not None and not moving(scene) \
+        else "bruteforce"
+
+
+def resolve(method: str, moves: bool = False, auto: str = "pallas") -> str:
+    """"auto" resolves to ``auto`` (``auto_route`` of the scene);
+    "pallas" and "bruteforce" to themselves; "leaf" and "bvh" to
+    themselves, or to "pallas" for a scene whose spheres move
+    (``moves``)."""
     if method in ("auto", "pallas", "bruteforce"):
-        return "pallas" if method == "auto" else method
+        return auto if method == "auto" else method
     if method in ("leaf", "bvh"):
         return "pallas" if moves else method
     raise ValueError(f"unknown intersector {method!r}")
+
+
+def route(scene: Scene, method: str) -> str:
+    """``method`` resolved for ``scene`` and checked against its tables
+    (``check_route``)."""
+    method = resolve(method, moving(scene), auto_route(scene))
+    check_route(scene, method)
+    return method
+
+
+def route_tables(scene: Scene, method: str):
+    """The tables ``method``'s route (``route``) reads: none on the
+    (N, 3) routes, ``pack_tables`` with the ordered stages on "pallas",
+    and without them on "leaf", whose kernel never walks them."""
+    method = route(scene, method)
+    if method in AOS_ROUTES:
+        return None
+    return pack_tables(scene, order=method == "pallas")
 
 
 def check_route(scene: Scene, method: str):
@@ -103,13 +142,12 @@ def aos_closest(scene: Scene, o, d, t_min, t_max, method: str, alive=None,
 
 
 def _closest(scene, o, d, t_min, t_max, method, alive, tables, time):
-    method = resolve(method, moving(scene))
+    method = route(scene, method)
     if method in AOS_ROUTES:
         return tables, aos_closest(scene, o, d, t_min, t_max, method, alive,
                                    time)
-    check_route(scene, method)
     if tables is None:
-        tables = pack_tables(scene)
+        tables = route_tables(scene, method)
     if alive is None:
         alive = o.new_ones(o.shape[1], dtype=bool)
     if method == "leaf":

@@ -14,7 +14,8 @@ and at least ``ORDER_MIN_CHUNKS`` chunks once the chunk count is padded to a
 triangles: chunks of 512, so more than 4096 triangles). The TPU's SMEM
 budget and its 8-bit superchunk ids have no counterpart; the port's own cap
 is ``MAX_SUPERS`` superchunks per stage (the kernel sorts their keys in
-shared memory), and a larger table raises.
+shared memory), and a larger table raises; "auto" routes such a scene off
+the kernels (``ops/dispatch.py::auto_route``).
 
 The walk, per group of ``GROUP`` rays (a warp of the kernels; every
 decision below is the group's own, so a group runs only the chunks its own
@@ -113,10 +114,22 @@ def padded_chunks(n: int, chunk: int) -> int:
     return -(-(-(-n // chunk)) // SUPER) * SUPER
 
 
+def _orders(n: int, chunk: int) -> bool:
+    return n > chunk and padded_chunks(n, chunk) >= ORDER_MIN_CHUNKS
+
+
+def past_cap(n: int, full: int) -> bool:
+    """Would an n-row table of chunk width ``full`` (``SPH_CHUNK`` or
+    ``TRI_CHUNK``) take the walk with more than ``MAX_SUPERS``
+    superchunks, which ``wants_order`` refuses?"""
+    chunk = eff_chunk(n, full)
+    return _orders(n, chunk) and padded_chunks(n, chunk) // SUPER > MAX_SUPERS
+
+
 def wants_order(n: int, chunk: int) -> bool:
     """The JAX ``_wants_order`` without its TPU cap on superchunks. A
     table past the port's own cap (``MAX_SUPERS``) raises ValueError."""
-    if not (n > chunk and padded_chunks(n, chunk) >= ORDER_MIN_CHUNKS):
+    if not _orders(n, chunk):
         return False
     k_sup = padded_chunks(n, chunk) // SUPER
     if k_sup > MAX_SUPERS:

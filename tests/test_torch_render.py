@@ -173,20 +173,28 @@ EMPTY_SCENE = ('{"objects": [], "camera": {"look_from": {"x": 0, "y": 0, '
                ' "y": 1, "z": 0}, "vfov": 40}}')
 
 
-# ``--preset ci`` is ported (A13): it renders at the JAX preset's 200x200
-# (on an empty scene, which keeps the 16 spp cheap on the CPU; the case
+# ``--preset ci`` (A13) and ``--sharded`` (A12) are ported: the first
+# renders at the JAX preset's 200x200 (on an empty scene, which keeps the
+# 16 spp cheap on the CPU), the second on a group of one rank (each case
 # keeps its id)
 @pytest.mark.parametrize("args", [
     pytest.param(["--preset", "ci", "--scene", "EMPTY"], id="args0"),
     ["--nee", "--mis"], ["--sharded"]])
 def test_cli_refuses_unported(args, tmp_path):
-    """``--sharded`` exits non-zero naming its ROADMAP item; --nee with
-    --mis exits non-zero with the JAX package's message; ``--preset ci``
-    renders the preset's size."""
+    """--nee with --mis exits non-zero with the JAX package's message;
+    ``--preset ci`` renders the preset's size; ``--sharded`` renders on a
+    one-rank group and writes the PNG."""
     out = tmp_path / "ci.png"
     empty = tmp_path / "empty.json"
     empty.write_text(EMPTY_SCENE)
     args = [str(empty) if a == "EMPTY" else a for a in args]
+    if "--sharded" in args:
+        res = _cli(*args, "--width", "16", "--height", "12", "--spp", "2",
+                   "--max-depth", "4", "--device", "cpu", "--out", str(out))
+        assert res.returncode == 0, res.stderr
+        assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+        assert "1 rank(s), mesh (1, 1)" in res.stdout
+        return
     res = _cli(*args, "--device", "cpu", "--out", str(out))
     if "--preset" in args:
         assert res.returncode == 0, res.stderr
@@ -196,8 +204,35 @@ def test_cli_refuses_unported(args, tmp_path):
                 int.from_bytes(head[20:24], "big")) == (200, 200)
         return
     assert res.returncode != 0
-    assert ("mutually exclusive" if "--mis" in args else "ROADMAP") \
-        in res.stderr
+    assert "mutually exclusive" in res.stderr
+
+
+@pytest.mark.parametrize("integrator", ["pt", "sppm"])
+def test_cli_sharded_under_torchrun(integrator, tmp_path):
+    """``--sharded`` under ``torch.distributed.run`` with 2 processes on
+    the CPU: the render is split over the ranks, and rank 0 alone writes
+    the PNG, the summary and (SPPM) the checkpoint, which ``--resume``
+    without ``--sharded`` continues."""
+    out, ck = tmp_path / "out.png", tmp_path / "ck.npz"
+    small = ["--scene", "cornell", "--width", "16", "--height", "12",
+             "--spp", "2", "--max-depth", "4", "--device", "cpu"]
+    sppm_args = ["--integrator", "sppm", "--sppm-photons", "2000"]
+    args = small + (sppm_args + ["--sppm-iters", "2", "--checkpoint",
+                                 str(ck)] if integrator == "sppm" else [])
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "raytracer_tpu_torch", "render",
+         "--sharded", *args, "--out", str(out)],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.count("wrote ") == 1
+    assert "2 rank(s), mesh (2, 1)" in res.stdout
+    assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    if integrator == "sppm":
+        res = _cli(*small, *sppm_args, "--sppm-iters", "3", "--resume",
+                   str(ck), "--out", str(tmp_path / "resumed.png"))
+        assert res.returncode == 0, res.stderr
+        assert "at iteration 2" in res.stdout
 
 
 # SPPM on smoke (A11), ``--profile-dir`` and ``--debug-nans`` (A13) are
