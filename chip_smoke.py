@@ -131,10 +131,14 @@ Phases, each of which raises on failure (exit code non-zero):
    run's; sharded SPPM on Cornell with its mesh at 800x800, 500,000
    photons x 2 and a 4-spp gather at depth 50 on the one-rank group and on
    the two ranks, each mean within ``SPPM_ROUTE_BAND`` of ``sppm.render``'s
-   and the two ranks' photon grids hashing equal; ``render --sharded`` in
-   one CLI command on the card; and the dryrun twin
-   (``parallel/dryrun.py``) on 2 gloo ranks on the CPU. Each with its
-   seconds and kernel launches.
+   and the two ranks' photon grids (as the render built them) hashing
+   equal; on each (2, 1) rank the regen kernel held against
+   ``regen_step_plain`` on a captured step of its 240,000-lane shard and
+   the photon-query kernel against ``query_photons_plain`` on its
+   measurement shard's global-map query; ``render --sharded`` in one CLI
+   command on the card; and the dryrun twin (``parallel/dryrun.py``) on
+   the card, on 2 spawned gloo ranks and under ``torchrun`` on a one-rank
+   NCCL group. Each with its seconds and kernel launches.
 
 It imports no JAX. The line before the last is a JSON object with the
 kernels' launches, errors, times and bounds; the last line is
@@ -1909,29 +1913,37 @@ def regen_capture(scene, dev):
     cloned: by then lanes respawn, lanes have used up their quota and
     lanes are at depth >= 3."""
     from raytracer_tpu_torch.models import path_tracer
+    return capture_step(lambda: path_tracer.render_fn(
+        scene, torch.Generator(device=dev).manual_seed(9), width=WIDTH,
+        height=HEIGHT, spp=REGEN_SPP, spp_chunk=1, max_depth=DEPTH,
+        t_min=T_MIN, spawn_eps_rel=EPS_REL, device=dev))
+
+
+def capture_step(run, ready=None):
+    """The arguments of regen step REGEN_STEP of ``run()``, a render, the
+    lanes cloned; with ``ready(lanes, kw)``, of the first step from
+    REGEN_STEP on whose input it holds."""
     from raytracer_tpu_torch.ops import regen
     captured = []
+    step = [0]
     real = regen.regen_step_tables
 
     def capture(tab, cam, U, eps, lanes, **kw):
-        if len(captured) == REGEN_STEP:
+        if (not captured and step[0] >= REGEN_STEP
+                and (ready is None or ready(lanes, kw))):
             captured.append((tab, cam, U.clone(), eps, clone_lanes(lanes), kw))
-        elif len(captured) < REGEN_STEP:
-            captured.append(None)
+        step[0] += 1
         return real(tab, cam, U, eps, lanes, **kw)
 
     regen.regen_step_tables = capture
     try:
-        path_tracer.render_fn(
-            scene, torch.Generator(device=dev).manual_seed(9), width=WIDTH,
-            height=HEIGHT, spp=REGEN_SPP, spp_chunk=1, max_depth=DEPTH,
-            t_min=T_MIN, spawn_eps_rel=EPS_REL, device=dev)
+        run()
     finally:
         regen.regen_step_tables = real
     torch.cuda.synchronize()
-    if len(captured) <= REGEN_STEP:
+    if not captured:
         raise AssertionError("the render ended before the captured step")
-    return captured[REGEN_STEP]
+    return captured[0]
 
 
 def kernel_ms(tab, cam, U, eps, lanes, kw, reps: int = 10) -> float:
@@ -3111,13 +3123,20 @@ def shard_sppm(tag, mesh, seed=0) -> dict:
     to 0 just before and read just after, per-iteration seconds by stage;
     and the sha256 of this rank's photon grids of the first iteration.
     Returns the image mean, gather rays, seconds, launches, iteration
-    splits and grid hash."""
+    splits and grid hash (of the grids the render built: ``build_maps``'s
+    first result, kept by reference, hashed after the run)."""
     from raytracer_tpu_torch.models import sppm
-    from raytracer_tpu_torch.ops import dispatch
     from raytracer_tpu_torch.parallel import sppm as psppm
     scene = load("cornell_mesh", SPPM_W / SPPM_H).to(mesh.device)
     cfg = sppm_config(SHARD_SPPM["spp"], n_iterations=SHARD_SPPM["iters"])
-    times, per_iter = {}, []
+    times, per_iter, built = {}, [], []
+    real = sppm.build_maps
+
+    def keep(*args, **kw):
+        maps = real(*args, **kw)
+        if not built:
+            built.append(maps)
+        return maps
 
     def split(state):
         done = dict(times)
@@ -3126,24 +3145,23 @@ def shard_sppm(tag, mesh, seed=0) -> dict:
                          done))
 
     torch.cuda.synchronize()
-    zero_counts()
-    t0 = time.perf_counter()
-    img, rays, state = psppm.render_sppm(scene, cfg, seed, mesh,
-                                         checkpoint_cb=split, times=times)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    sppm.build_maps = keep
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        img, rays, state = psppm.render_sppm(scene, cfg, seed, mesh,
+                                             checkpoint_cb=split, times=times)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        sppm.build_maps = real
     launches = {k: v for k, v in counts().items() if v}
     host = img.cpu().numpy()
     if not (np.isfinite(host).all() and host.mean() > 0 and rays > 0
             and state.iteration == SHARD_SPPM["iters"]):
         raise AssertionError(f"sharded sppm {tag}: image not finite")
-    kw = sppm.iteration_kwargs(scene, cfg)
-    grids = psppm.photon_maps_sharded(
-        scene, dispatch.route_tables(scene, "auto"), seed, 0, mesh=mesh,
-        n_photons=SPPM_PHOTONS, max_photon_bounces=16,
-        grid_res=kw["grid_res"], spawn_eps=cfg.spawn_eps_rel * scene.scale)
     h = hashlib.sha256()
-    for g in grids:
+    for g in built[0]:
         for x in g:
             h.update(x.reshape(-1).contiguous().cpu().view(torch.uint8)
                      .numpy().tobytes())
@@ -3152,10 +3170,90 @@ def shard_sppm(tag, mesh, seed=0) -> dict:
             "iterations": [sp for sp, _ in per_iter], "grids": h.hexdigest()}
 
 
+def shard_kernels(mesh) -> dict:
+    """On a (2, 1) rank, the kernels on this path's own inputs: the regen
+    kernel against ``regen_step_plain`` (``compare_regen``, phase 13's
+    tolerances) on the first step from REGEN_STEP on whose lanes hold
+    every case it checks, of this rank's 240,000-lane shard of a
+    REGEN_SPP-sample scene_500 render (``pixel_slots`` on, RR on; the
+    lanes at that step, after any compaction of the drain cascade); the
+    photon-query kernel against ``query_photons_plain``
+    (``compare_query``, phase 4's) on the global-map query of this rank's
+    measurement shard in the first sharded iteration of Cornell at
+    800x800 / 500,000 photons. Returns the largest errors."""
+    from raytracer_tpu_torch.models import sppm
+    from raytracer_tpu_torch.models import wavefront_soa as wf
+    from raytracer_tpu_torch.ops import dispatch
+    from raytracer_tpu_torch.ops import photon_query as pq
+    from raytracer_tpu_torch.parallel import render as prender
+    from raytracer_tpu_torch.parallel import sppm as psppm
+    from raytracer_tpu_torch.utils.config import RenderConfig
+    rank = mesh.rank
+    scene = load("scene_500", WIDTH / HEIGHT).to(mesh.device)
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT,
+                       samples_per_pixel=REGEN_SPP, spp_chunk=1,
+                       max_depth=DEPTH, t_min=T_MIN, spawn_eps_rel=EPS_REL)
+    at = []
+
+    def ready(lanes, kw):
+        # the cases compare_regen needs: lanes past their quota and alive
+        # lanes at depth >= 3 (a half image holds them later than the
+        # whole one: rank 1's lanes are all alive at step 3, rank 0's
+        # mostly retired and compacted)
+        at.append(lanes.o.shape[1])
+        return bool((lanes.done >= kw["quota"]).any()
+                    and (lanes.alive & (lanes.depth >= 3)).any())
+
+    tab, cam, U, eps, lanes, kw = capture_step(
+        lambda: prender.render(scene, cfg, 9, mesh), ready)
+    n = lanes.o.shape[1]
+    widths = wf._drain_sizes(WIDTH * HEIGHT // mesh.n_px)
+    if n not in widths or tab.ordered:
+        raise AssertionError(f"rank {rank}: captured {n} lanes")
+    regen_err = compare_regen(
+        f"regen, rank {rank} of (2, 1), step {REGEN_STEP + len(at) - 1} of "
+        f"its {widths[0]}-lane shard ({n} lanes at that step)",
+        scene, tab, cam, U, eps, lanes, kw, 1.0 - INTER_AGREE)
+
+    sc = load("cornell_mesh", 1.0).to(mesh.device)
+    npix = SPPM_W * SPPM_H
+    caught = []
+    real = pq.query_planes
+
+    def capture(planes, points, r2, cap2):
+        caught.append((planes, points, r2, cap2))
+        return real(planes, points, r2, cap2)
+
+    pq.query_planes = capture
+    try:
+        psppm.sppm_iteration_sharded(
+            sc, dispatch.route_tables(sc, "auto"),
+            psppm.shard_state(sppm.init_state(npix, mesh.device), npix,
+                              mesh), 0, mesh=mesh,
+            **sppm.iteration_kwargs(sc, sppm_config(SHARD_SPPM["spp"])))
+    finally:
+        pq.query_planes = real
+    if len(caught) != 2:
+        raise AssertionError(f"one iteration made {len(caught)} queries")
+    planes, pts, r2, cap2 = caught[0]
+    if pts.shape[0] != npix // mesh.n_px:
+        raise AssertionError(f"rank {rank}: {pts.shape[0]} query points")
+    out = pq.query_planes(planes, pts, r2, cap2)
+    ref = pq.query_photons_plain(planes, pts, r2, cap2)
+    torch.cuda.synchronize()
+    query_err = compare_query(f"photon query, rank {rank} of (2, 1), its "
+                              "measurement shard, global map", out, ref)
+    log(f"  rank {rank}: {pts.shape[0]} points, counts r "
+        f"{int(ref.count_r.sum())} cap {int(ref.count_cap.sum())}, "
+        "bit-equal")
+    return {"regen_err": regen_err, "query_err": query_err}
+
+
 def shard_rank(out_dir: str):
     """One of two spawned ranks sharing the card on a gloo group: the
-    (2, 1) and (1, 2) renders, the (2, 1) NEE render and the (2, 1)
-    sharded SPPM; writes its results to out_dir/rank{r}.json."""
+    (2, 1) and (1, 2) renders, the (2, 1) NEE render, the (2, 1) sharded
+    SPPM and the kernels on the (2, 1) shards' inputs (``shard_kernels``);
+    writes its results to out_dir/rank{r}.json."""
     import torch.distributed as dist
     from raytracer_tpu_torch.parallel import render as prender
     dev = "cuda:0"
@@ -3165,7 +3263,9 @@ def shard_rank(out_dir: str):
                             ("2x1_nee", (2, 1), True)):
         mesh = prender.make_mesh(*shape, device=dev)
         res[tag] = shard_pt(tag, mesh, SHARD_SPP, 3, nee)
-    res["sppm"] = shard_sppm("2x1", prender.make_mesh(2, 1, device=dev))
+    mesh = prender.make_mesh(2, 1, device=dev)
+    res["sppm"] = shard_sppm("2x1", mesh)
+    res["kernels"] = shard_kernels(mesh)
     with open(os.path.join(out_dir, f"rank{dist.get_rank()}.json"),
               "w") as f:
         json.dump(res, f)
@@ -3254,15 +3354,22 @@ def sharded(pt_mean: float, pt_run: tuple) -> dict:
         add_launches(total, res["sppm"]["launches"])
     if ranks[0]["sppm"]["grids"] != ranks[1]["sppm"]["grids"]:
         raise AssertionError("the two ranks built different photon grids")
-    log(f"sharded sppm: both ranks' grids hash {ranks[0]['sppm']['grids']}")
+    log(f"sharded sppm: both ranks' grids of iteration 0, as the render "
+        f"built them, hash {ranks[0]['sppm']['grids']}")
 
-    for cmd in ([sys.executable, "-m", "raytracer_tpu_torch", "render",
-                 "--sharded", "--scene", "cornell", "--integrator", "sppm",
-                 "--preset", "ci", "--device", DEV, "--checkpoint",
-                 os.path.join(out, "cli.npz"), "--out",
-                 os.path.join(ROOT, "output", "chip_smoke_cli_sharded.png")],
-                [sys.executable, "-m", "raytracer_tpu_torch.parallel.dryrun",
-                 "2"]):
+    dry = [sys.executable, "-m", "raytracer_tpu_torch.parallel.dryrun"]
+    for cmd, want in (
+            ([sys.executable, "-m", "raytracer_tpu_torch", "render",
+              "--sharded", "--scene", "cornell", "--integrator", "sppm",
+              "--preset", "ci", "--device", DEV, "--checkpoint",
+              os.path.join(out, "cli.npz"), "--out",
+              os.path.join(ROOT, "output", "chip_smoke_cli_sharded.png")],
+             "1 rank(s)"),
+            (dry + ["2"], "gloo on cuda:0, mesh=(1, 2)"),
+            ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+              "--nproc-per-node", "1", "-m",
+              "raytracer_tpu_torch.parallel.dryrun"],
+             "nccl on cuda:0, mesh=(1, 1)")):
         t0 = time.perf_counter()
         res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
                              timeout=600)
@@ -3271,7 +3378,11 @@ def sharded(pt_mean: float, pt_run: tuple) -> dict:
             + " | ".join(res.stdout.strip().splitlines()))
         if res.returncode != 0:
             raise AssertionError(f"the command failed: {res.stderr[-2000:]}")
-    return {"launches": total}
+        if want not in res.stdout:
+            raise AssertionError(f"the command did not print {want!r}")
+    return {"launches": total,
+            **{k: max(r["kernels"][k] for r in ranks)
+               for k in ("regen_err", "query_err")}}
 
 
 def main() -> int:
@@ -3304,7 +3415,11 @@ def main() -> int:
     c_stats["max_abs_err"] = max(c_stats["max_abs_err"], ab["closest_err"])
     q_stats["max_abs_err"] = max(q_stats["max_abs_err"], ab["query_err"])
     l_row["max_abs_err"] = max(l_row["max_abs_err"], ab["leaf_err"])
-    p18 = sharded(pt_mean, pt_run)["launches"]
+    sh = sharded(pt_mean, pt_run)
+    p18 = sh["launches"]
+    q_stats["max_abs_err"] = max(q_stats["max_abs_err"], sh["query_err"])
+    r_rows["regen"]["max_abs_err"] = max(r_rows["regen"]["max_abs_err"],
+                                         sh["regen_err"])
 
     def row(d):
         return {k: v for k, v in d.items()

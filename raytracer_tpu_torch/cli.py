@@ -35,9 +35,7 @@ for NaN (``utils/nans.py``).
 from __future__ import annotations
 
 import argparse
-import os
 import sys
-import tempfile
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -136,34 +134,11 @@ def load_scene_arg(name: str, aspect: float):
     return load_scene(name, aspect_ratio=aspect)
 
 
-def init_group(device: str):
-    """Initialise the default process group of ``--sharded``: from
-    ``torchrun``'s environment (``WORLD_SIZE`` set; each rank on card
-    ``LOCAL_RANK``), else one rank on a file store in a temporary
-    directory, which the caller removes after the group
-    (``TemporaryDirectory``; None under torchrun). NCCL for a CUDA
-    ``device``, gloo for the CPU."""
-    import torch
-    import torch.distributed as dist
-    cuda = torch.device(device).type == "cuda"
-    backend = "nccl" if cuda else "gloo"
-    if "WORLD_SIZE" in os.environ:
-        if cuda:
-            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0))
-                                  % torch.cuda.device_count())
-        dist.init_process_group(backend, init_method="env://")
-        return None
-    store = tempfile.TemporaryDirectory()
-    dist.init_process_group(
-        backend, init_method="file://" + os.path.join(store.name, "store"),
-        world_size=1, rank=0)
-    return store
-
-
 def cmd_render(args) -> int:
     if not args.sharded:
         return _render(args)
     import torch.distributed as dist
+    from raytracer_tpu_torch.parallel.render import init_group
     store = init_group(args.device)
     try:
         return _render(args)

@@ -34,7 +34,6 @@ from __future__ import annotations
 import time
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from raytracer_tpu_torch.models import wavefront_soa as wf
@@ -47,6 +46,7 @@ from raytracer_tpu_torch.ops.photon_query import query_photons
 from raytracer_tpu_torch.scene.types import INTER_ABSORB, INTER_DIFFUSE, Scene
 from raytracer_tpu_torch.utils import nans
 from raytracer_tpu_torch.utils.config import RenderConfig, SPPMConfig
+from raytracer_tpu_torch.utils.rng import stream_generator
 from raytracer_tpu_torch.utils.timing import Progress, sync_for
 
 PI = 3.141592653589793
@@ -84,16 +84,6 @@ def state_to(state: SPPMState, device) -> SPPMState:
                      int(state.iteration))
 
 
-def stream_generator(device, seed: int, *words: int) -> torch.Generator:
-    """A generator on ``device`` seeded from (seed, *words): (stream,
-    index) here, plus the rank's mesh coordinates in ``parallel/``."""
-    words = np.random.SeedSequence(
-        [int(seed) % 2 ** 64, *words]).generate_state(2, np.uint32)
-    gen = torch.Generator(device=device)
-    gen.manual_seed((int(words[0]) << 31) ^ int(words[1]))
-    return gen
-
-
 class Stages:
     """Per-stage host-clock seconds of one iteration, taken after a device
     sync, when ``times`` is a dict; a no-op otherwise."""
@@ -114,11 +104,10 @@ class Stages:
 
 # ----------------------------------------------------------------- routes
 
-def soa_eligible(scene: Scene, intersector: str) -> bool:
+def soa_eligible(scene: Scene, method: str) -> bool:
     """Whether SPPM takes the SoA passes (JAX ``_soa_eligible``): the
-    "pallas" or "leaf" route on a scene without media ("auto" resolved
-    for the scene, ``dispatch.auto_route``)."""
-    method = dispatch.resolve(intersector, auto=dispatch.auto_route(scene))
+    resolved route ``method`` (``dispatch.route``) is "pallas" or "leaf"
+    and the scene has no media."""
     return method in ("pallas", "leaf") and not has_media(scene)
 
 

@@ -56,22 +56,23 @@ def auto_route(scene: Scene) -> str:
         else "bruteforce"
 
 
-def resolve(method: str, moves: bool = False, auto: str = "pallas") -> str:
-    """"auto" resolves to ``auto`` (``auto_route`` of the scene);
-    "pallas" and "bruteforce" to themselves; "leaf" and "bvh" to
-    themselves, or to "pallas" for a scene whose spheres move
-    (``moves``)."""
-    if method in ("auto", "pallas", "bruteforce"):
-        return auto if method == "auto" else method
+def resolve(method: str, moves: bool = False) -> str:
+    """An intersector other than "auto" resolved: "pallas" and
+    "bruteforce" to themselves; "leaf" and "bvh" to themselves, or to
+    "pallas" for a scene whose spheres move (``moves``). "auto" depends on
+    the scene: ``route``."""
+    if method in ("pallas", "bruteforce"):
+        return method
     if method in ("leaf", "bvh"):
         return "pallas" if moves else method
     raise ValueError(f"unknown intersector {method!r}")
 
 
 def route(scene: Scene, method: str) -> str:
-    """``method`` resolved for ``scene`` and checked against its tables
-    (``check_route``)."""
-    method = resolve(method, moving(scene), auto_route(scene))
+    """``method`` resolved for ``scene`` ("auto": ``auto_route``; else
+    ``resolve``) and checked against its tables (``check_route``)."""
+    method = (auto_route(scene) if method == "auto"
+              else resolve(method, moving(scene)))
     check_route(scene, method)
     return method
 

@@ -1,10 +1,13 @@
 """One sharded step of each kind on n ranks: the twin of
 ``__graft_entry__.dryrun_multichip``.
 
-    python -m raytracer_tpu_torch.parallel.dryrun [N]
+    python -m raytracer_tpu_torch.parallel.dryrun [N] [--device cuda|cpu]
 
-spawns N processes (default 8) of a gloo group on the CPU; under
-``torchrun`` (``WORLD_SIZE`` set) the ranks join the group it describes.
+runs on the card by default: it spawns N ranks (default 8) of a gloo
+group, rank r on card r % device_count (ranks past the cards share them:
+NCCL refuses two ranks on one device); under ``torchrun`` (``WORLD_SIZE``
+set) the ranks join the NCCL group it describes, each on card
+``LOCAL_RANK``. ``--device cpu`` runs every rank on the CPU over gloo.
 Each runs, as the JAX dryrun does: a path-traced Cornell (with its mesh)
 at 32x24, 4 spp, on an (n/2, 2) mesh (n, 1 for an odd n); one SPPM
 iteration of 4,096 photons on an (n, 1) mesh; the sharded gather of its
@@ -14,8 +17,8 @@ checked, and rank 0 prints one line.
 
 from __future__ import annotations
 
+import argparse
 import os
-import sys
 import tempfile
 
 import numpy as np
@@ -35,21 +38,24 @@ from raytracer_tpu_torch.utils.config import RenderConfig
 W, H = 32, 24
 
 
-def spawn(fn, n: int, *args, store_dir=None):
+def spawn(fn, n: int, *args, store_dir=None, threads=None):
     """Run ``fn(*args)`` on each of ``n`` spawned processes, ranks of one
     gloo group initialised through a file store in a fresh temporary
-    directory (under ``store_dir`` if given); each process destroys the
-    group when ``fn`` returns. ``fn`` must be importable by name (the
+    directory (under ``store_dir`` if given), each with ``threads`` CPU
+    threads (by default an n-th of this process's); each process destroys
+    the group when ``fn`` returns. ``fn`` must be importable by name (the
     processes start from a fresh interpreter). Raises if any process
     fails."""
+    if threads is None:
+        threads = max(1, torch.get_num_threads() // n)
     with tempfile.TemporaryDirectory(dir=store_dir) as d:
         init = "file://" + os.path.join(d, "store")
-        mp.start_processes(_entry, args=(n, init, fn, args), nprocs=n,
-                           join=True, start_method="spawn")
+        mp.start_processes(_entry, args=(n, init, threads, fn, args),
+                           nprocs=n, join=True, start_method="spawn")
 
 
-def _entry(rank: int, n: int, init: str, fn, args):
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+def _entry(rank: int, n: int, init: str, threads: int, fn, args):
+    torch.set_num_threads(threads)
     dist.init_process_group("gloo", init_method=init, world_size=n,
                             rank=rank)
     try:
@@ -64,14 +70,14 @@ def _check(ok: bool, what: str):
 
 
 def dryrun(device=None) -> str:
-    """The dryrun on the initialised default group, on ``device`` (the
-    CPU on a gloo group, else each rank's card). Returns the line rank 0
-    prints."""
-    if device is None and dist.get_backend() == "gloo":
-        device = "cpu"
+    """The dryrun on the initialised default group, on ``device``: "cpu",
+    or by default each rank's card (``make_mesh``). Returns the line rank
+    0 prints."""
     world = dist.get_world_size()
     n_spp = 2 if world % 2 == 0 else 1
     mesh = prender.make_mesh(world // n_spp, n_spp, device=device)
+    if mesh.device.type == "cuda":
+        torch.cuda.set_device(mesh.device)
     scene = cornell_box(with_mesh=True).to(mesh.device)
     cfg = RenderConfig(width=W, height=H, samples_per_pixel=4, spp_chunk=2,
                        max_depth=4)
@@ -112,7 +118,8 @@ def dryrun(device=None) -> str:
     _check(mimg.shape == (H, W, 3) and np.isfinite(mimg).all(),
            "motion image")
     _check(mrays > 0, "motion rays")
-    line = (f"dryrun_multichip ok: mesh=({mesh.n_px}, {mesh.n_spp}) "
+    line = (f"dryrun_multichip ok: {dist.get_backend()} on {mesh.device}, "
+            f"mesh=({mesh.n_px}, {mesh.n_spp}) "
             f"img={img.shape} rays={rays}; sppm step on mesh=({world}, 1) "
             f"touched={touched:.2f}; sharded gather mean={simg.mean():.4f};"
             f" motion mean={mimg.mean():.4f}")
@@ -121,21 +128,34 @@ def dryrun(device=None) -> str:
     return line
 
 
-def dryrun_multichip(n: int):
+def dryrun_multichip(n: int, device: str = "cuda"):
     """The dryrun on the initialised default group, or on ``n`` spawned
-    gloo processes on the CPU when there is none."""
+    ranks of a gloo group when there is none; on the CPU for ``device``
+    "cpu", else on the cards (``dryrun``)."""
+    on = "cpu" if torch.device(device).type == "cpu" else None
     if dist.is_initialized():
-        dryrun()
+        dryrun(on)
     else:
-        spawn(dryrun, n, "cpu")
+        spawn(dryrun, n, on)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(
+        prog="python -m raytracer_tpu_torch.parallel.dryrun",
+        description="one sharded step of each kind on N ranks")
+    p.add_argument("n", nargs="?", type=int, default=8,
+                   help="ranks to spawn (ignored under torchrun)")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    args = p.parse_args(argv)
+    if "WORLD_SIZE" not in os.environ:
+        dryrun_multichip(args.n, args.device)
+        return
+    prender.init_group(args.device)
+    try:
+        dryrun_multichip(args.n, args.device)
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":
-    if "WORLD_SIZE" in os.environ:
-        dist.init_process_group("gloo", init_method="env://")
-        try:
-            dryrun("cpu")
-        finally:
-            dist.destroy_process_group()
-    else:
-        dryrun_multichip(int(sys.argv[1]) if len(sys.argv) > 1 else 8)
+    main()

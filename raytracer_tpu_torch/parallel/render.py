@@ -5,7 +5,8 @@ The JAX package shards a render over a ("px", "spp") device mesh with
 ``shard_map``. Here the mesh is a view of the initialised default process
 group (``make_mesh``): rank = px_i * n_spp + spp_i, as JAX's
 ``reshape(n_px, n_spp)``, with one subgroup per px row for the spp-axis
-sum. Every rank holds the whole scene and:
+sum and one per spp column for the px-axis gather. Every rank holds the
+whole scene and:
 
 - renders the pixels of its px shard: the flat pixel axis is padded to a
   multiple of n_px; on the kernel and leaf routes without media the shard
@@ -16,7 +17,8 @@ sum. Every rank holds the whole scene and:
 - takes ceil(spp / n_spp) samples per pixel, in ``chunk`` x ``n_chunks``,
   from a generator seeded from (seed, px_i, spp_i);
 - sums its radiance over its px row and the rays (int64) over the world,
-  then all-gathers the px shards, so every rank returns the whole image.
+  then all-gathers the px shards over its spp column (one copy of each
+  shard travels to each rank), so every rank returns the whole image.
 
 ``nee``, ``mis`` and ``russian_roulette`` reach every rank (JAX's
 ``render`` passes only ``nee``). A collective on a gloo group stages a
@@ -27,6 +29,7 @@ two ranks share one card, which NCCL refuses.
 from __future__ import annotations
 
 import os
+import tempfile
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -34,7 +37,6 @@ import torch
 import torch.distributed as dist
 
 from raytracer_tpu_torch.models import path_tracer
-from raytracer_tpu_torch.models.sppm import stream_generator
 from raytracer_tpu_torch.models.wavefront_soa import (
     block_order, render_regen_soa,
 )
@@ -42,18 +44,21 @@ from raytracer_tpu_torch.ops import dispatch
 from raytracer_tpu_torch.ops.fused_bounce import has_media
 from raytracer_tpu_torch.scene.types import Scene
 from raytracer_tpu_torch.utils.config import RenderConfig
+from raytracer_tpu_torch.utils.rng import stream_generator
 
 
 class Mesh(NamedTuple):
     """An (n_px, n_spp) view of the default process group: this rank's
-    coordinates, its device, and the subgroup of its px row (None when
-    n_spp is 1: nothing to sum)."""
+    coordinates, its device, the subgroup of its px row (None when n_spp
+    is 1: nothing to sum) and the subgroup of its spp column (None: the
+    whole group, when n_spp is 1)."""
     n_px: int
     n_spp: int
     px_i: int
     spp_i: int
     device: torch.device
     spp_group: Optional[dist.ProcessGroup]
+    px_group: Optional[dist.ProcessGroup] = None
 
     @property
     def size(self) -> int:
@@ -68,7 +73,8 @@ def make_mesh(n_px: Optional[int] = None, n_spp: int = 1,
               device=None) -> Mesh:
     """An (n_px, n_spp) mesh of the initialised default process group (all
     ranks on the px axis by default). Every rank must call it, in the same
-    order as its other collectives: it creates each px row's subgroup.
+    order as its other collectives: it creates each px row's and each spp
+    column's subgroup.
     ``device``: this rank's device, by default ``cuda:(LOCAL_RANK %
     device_count)``. Raises ``RuntimeError`` when no group is initialised
     or, without ``device``, when there is no CUDA device."""
@@ -81,18 +87,44 @@ def make_mesh(n_px: Optional[int] = None, n_spp: int = 1,
     if n_px < 1 or n_spp < 1 or n_px * n_spp != world:
         raise ValueError(f"mesh {n_px}x{n_spp} != {world} ranks")
     px_i, spp_i = divmod(dist.get_rank(), n_spp)
-    spp_group = None
+    spp_group = px_group = None
     if n_spp > 1:
         rows = [dist.new_group(list(range(p * n_spp, (p + 1) * n_spp)))
                 for p in range(n_px)]
-        spp_group = rows[px_i]
+        cols = [dist.new_group(list(range(s, world, n_spp)))
+                for s in range(n_spp)]
+        spp_group, px_group = rows[px_i], cols[spp_i]
     if device is None:
         if not torch.cuda.device_count():
             raise RuntimeError("no CUDA device: pass device='cpu' to render "
                                "on the CPU")
         local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
         device = f"cuda:{local % torch.cuda.device_count()}"
-    return Mesh(n_px, n_spp, px_i, spp_i, torch.device(device), spp_group)
+    return Mesh(n_px, n_spp, px_i, spp_i, torch.device(device), spp_group,
+                px_group)
+
+
+def init_group(device):
+    """Initialise the default process group for ``device``: NCCL on CUDA,
+    gloo on the CPU; from ``torchrun``'s environment (``WORLD_SIZE`` set;
+    each rank on card ``LOCAL_RANK``), else one rank on a file store in a
+    temporary directory. Returns that directory, which the caller removes
+    after the group (None under torchrun)."""
+    cuda = torch.device(device).type == "cuda"
+    if cuda and not torch.cuda.device_count():
+        raise RuntimeError("no CUDA device: pass --device cpu")
+    backend = "nccl" if cuda else "gloo"
+    if "WORLD_SIZE" in os.environ:
+        if cuda:
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0))
+                                  % torch.cuda.device_count())
+        dist.init_process_group(backend, init_method="env://")
+        return None
+    store = tempfile.TemporaryDirectory()
+    dist.init_process_group(
+        backend, init_method="file://" + os.path.join(store.name, "store"),
+        world_size=1, rank=0)
+    return store
 
 
 # ------------------------------------------------------------ collectives
@@ -159,14 +191,13 @@ def samples(spp: int, spp_chunk: int, n_spp: int) -> tuple:
 
 def combine(accum: torch.Tensor, rays: int, mesh: Mesh, npix: int,
             inv=None) -> tuple:
-    """A px shard's radiance sum (n_local, 3), identical along its px row
-    once summed over it, all-gathered into the whole (npix, 3) image sum:
+    """A px shard's radiance sum (n_local, 3), summed over its px row and
+    all-gathered over its spp column into the whole (npix, 3) image sum:
     unpermuted by ``inv`` (block order) or cut at npix (contiguous ids).
     Returns (that sum, rays summed over the world)."""
     if mesh.spp_group is not None:
         accum = all_reduce_sum(accum, mesh.spp_group)
-    full = all_gather_cat(accum)
-    full = full.reshape(mesh.n_px, mesh.n_spp, -1, 3)[:, 0].reshape(-1, 3)
+    full = all_gather_cat(accum, mesh.px_group)
     if inv is None:
         full = full[:npix]
     else:

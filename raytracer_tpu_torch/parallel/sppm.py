@@ -27,7 +27,6 @@ from raytracer_tpu_torch.models import sppm
 from raytracer_tpu_torch.models import wavefront_soa as wf
 from raytracer_tpu_torch.models.sppm import (
     GATHER_STREAM, MEASURE_STREAM, PHOTON_STREAM, SPPMHalf, SPPMState,
-    stream_generator,
 )
 from raytracer_tpu_torch.ops import dispatch
 from raytracer_tpu_torch.parallel.render import (
@@ -36,6 +35,7 @@ from raytracer_tpu_torch.parallel.render import (
 )
 from raytracer_tpu_torch.scene.types import Scene
 from raytracer_tpu_torch.utils.config import RenderConfig
+from raytracer_tpu_torch.utils.rng import stream_generator
 
 # the gather's per-batch lane budgets of one px rank (JAX render_sppm)
 GATHER_LANES = 16_000_000

@@ -251,8 +251,8 @@ def test_resolve_bvh():
     "pallas"; without a BVH the route raises JAX's ``ValueError``."""
     assert dispatch.resolve("bvh") == "bvh"
     assert dispatch.resolve("bvh", True) == "pallas"
-    assert dispatch.resolve("auto") == "pallas"
     scene = tbuiltin.three_spheres(1.0)
+    assert dispatch.route(scene, "auto") == "pallas"
     o = torch.zeros((3, 4))
     d = torch.ones((3, 4))
     with pytest.raises(ValueError, match="scene has no BVH; build it with "

@@ -525,14 +525,14 @@ def test_resolve_rules_for_moving_scenes():
     """JAX ``_resolve``'s rules: a moving scene takes the kernel route even
     for "leaf" (no leaf tables are built), which renders; "bruteforce"
     stays itself; "bvh" takes the kernel route too (JAX ``_resolve``)."""
-    assert dispatch.resolve("auto", True) == "pallas"
+    scene = tbuiltin.motion_field(10, 4.0 / 3.0)
+    assert dispatch.route(scene, "auto") == "pallas"
     assert dispatch.resolve("pallas", True) == "pallas"
     assert dispatch.resolve("leaf", True) == "pallas"
     assert dispatch.resolve("leaf", False) == "leaf"
     assert dispatch.resolve("bvh", True) == "pallas"
     assert dispatch.resolve("bvh", False) == "bvh"
     assert dispatch.resolve("bruteforce", True) == "bruteforce"
-    scene = tbuiltin.motion_field(10, 4.0 / 3.0)
     img, rays = tpt.render_fn(scene, torch.Generator(), width=8, height=6,
                               spp=1, spp_chunk=1, max_depth=2, t_min=T_MIN,
                               spawn_eps_rel=1e-5, intersector="leaf",

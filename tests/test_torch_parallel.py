@@ -4,9 +4,10 @@ render and JAX's ``parallel.render.render`` on a (2, 1) mesh of its CPU
 devices: the cases of the JAX package's slow-tier ``tests/test_parallel.py``,
 small.
 
-Each mesh shape is spawned once (a module fixture); every rank renders a
-list of cases and saves them, and the tests read rank 0's (every rank must
-hold the same image). Exact checks rebuild a sharded image in this process
+Each group size is spawned once, its mesh shapes made in turn in the same
+processes (the (2, 1) and (1, 2) meshes share a module fixture); every
+rank renders a list of cases on each mesh and saves them, and the tests
+read rank 0's (every rank must hold the same image). Exact checks rebuild a sharded image in this process
 from each rank's shard rendered alone with that rank's generator; images
 from other streams are held to 4 standard errors of the mean per-pixel
 difference of seed-pooled renders (pixels are independent samples), plus
@@ -29,13 +30,13 @@ import torch.distributed as dist
 
 from raytracer_tpu_torch.models import path_tracer
 from raytracer_tpu_torch.models import wavefront_soa as twf
-from raytracer_tpu_torch.models.sppm import stream_generator
 from raytracer_tpu_torch.ops import dispatch
 from raytracer_tpu_torch.ops.fused_bounce import has_media
 from raytracer_tpu_torch.parallel import render as prender
 from raytracer_tpu_torch.parallel.dryrun import spawn
 from raytracer_tpu_torch.scene import builtin as tbuiltin
 from raytracer_tpu_torch.utils.config import RenderConfig
+from raytracer_tpu_torch.utils.rng import stream_generator
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 W, H = 16, 12
@@ -45,6 +46,18 @@ PT = dict(width=W, height=H, samples_per_pixel=256, spp_chunk=64,
 SMALL = dict(width=24, height=12, samples_per_pixel=16, spp_chunk=4,
              max_depth=6)
 SEEDS = range(4)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread in this process while the module runs, as in its
+    spawned ranks: under xdist the workers already fill the cores, and a
+    thread pool whose threads are descheduled waits on them at every
+    operation (a 1 s check took 100 s so on 6 workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def scene(name: str, kw: dict):
@@ -65,26 +78,32 @@ def scene(name: str, kw: dict):
 
 # -------------------------------------------------------- the spawned ranks
 
-def render_cases(out_dir: str, n_px: int, n_spp: int, cases: dict):
-    """On each rank: every case {name: (scene, config kwargs, seed)}
-    through ``parallel.render.render``; rank r saves {name: (image, rays,
-    shadow rays)} to out_dir/rank{r}.pt."""
-    mesh = prender.make_mesh(n_px, n_spp, device="cpu")
+def render_cases(out_dir: str, meshes: dict):
+    """On each rank: for each mesh {(n_px, n_spp): cases}, in turn, every
+    case {name: (scene, config kwargs, seed)} through
+    ``parallel.render.render``; rank r saves {name: (image, rays, shadow
+    rays)} to out_dir/rank{r}.pt."""
     out = {}
-    for name, (scene_name, kw, seed) in cases.items():
-        stats = {}
-        img, rays = prender.render(scene(scene_name, kw), RenderConfig(**kw),
-                                   seed, mesh, stats=stats)
-        out[name] = (img, rays, stats["shadow_lanes"])
+    for (n_px, n_spp), cases in meshes.items():
+        mesh = prender.make_mesh(n_px, n_spp, device="cpu")
+        for name, (scene_name, kw, seed) in cases.items():
+            stats = {}
+            img, rays = prender.render(scene(scene_name, kw),
+                                       RenderConfig(**kw), seed, mesh,
+                                       stats=stats)
+            out[name] = (img, rays, stats["shadow_lanes"])
     torch.save(out, os.path.join(out_dir, f"rank{dist.get_rank()}.pt"))
 
 
-def run_mesh(tmp_path_factory, n_px: int, n_spp: int, cases: dict) -> dict:
-    """Spawn an (n_px, n_spp) gloo group that renders ``cases``; returns
-    rank 0's results after checking that every rank holds the same."""
-    d = tmp_path_factory.mktemp(f"mesh{n_px}x{n_spp}")
+def run_mesh(tmp_path_factory, meshes: dict) -> dict:
+    """Spawn one gloo group (one thread a rank) that renders each mesh's
+    cases ({(n_px, n_spp): cases}, every mesh of the group's size);
+    returns rank 0's results after checking that every rank holds the
+    same."""
+    n_px, n_spp = next(iter(meshes))
     n = n_px * n_spp
-    spawn(render_cases, n, str(d), n_px, n_spp, cases, store_dir=str(d))
+    d = tmp_path_factory.mktemp(f"ranks{n}")
+    spawn(render_cases, n, str(d), meshes, store_dir=str(d), threads=1)
     ranks = [torch.load(d / f"rank{r}.pt") for r in range(n)]
     for other in ranks[1:]:
         for name, (img, rays, shadow) in ranks[0].items():
@@ -200,6 +219,7 @@ def test_pixel_slots_of_the_whole_permutation_change_nothing():
     assert torch.equal(a, b[inv]) and ra == rb
 
 
+MESH12 = {"spp_axis": ("cornell", SMALL, 9)}
 MESH21 = {
     **{f"cornell{s}": ("cornell", PT, s) for s in SEEDS},
     "motion": ("motion", SMALL, 5),
@@ -215,7 +235,8 @@ MESH21 = {
 
 @pytest.fixture(scope="module")
 def mesh21(tmp_path_factory):
-    return run_mesh(tmp_path_factory, 2, 1, MESH21)
+    """Two ranks: the (2, 1) cases, then the (1, 2) ones."""
+    return run_mesh(tmp_path_factory, {(2, 1): MESH21, (1, 2): MESH12})
 
 
 def test_mesh21_matches_one_device_render(mesh21, tmp_path):
@@ -276,15 +297,11 @@ def test_mesh21_chunk_loop_rebuilds(mesh21, name):
     check_rebuilt(mesh21[name], MESH21[name], 2, 1)
 
 
-MESH12 = {"cornell": ("cornell", SMALL, 9)}
-
-
-def test_mesh12_sums_the_spp_axis(tmp_path_factory):
-    """(1, 2): the image is the mean of the two ranks' partials (every
-    pixel, half the samples each) rendered alone with the same
-    generators, and the rays their sum."""
-    res = run_mesh(tmp_path_factory, 1, 2, MESH12)
-    check_rebuilt(res["cornell"], MESH12["cornell"], 1, 2)
+def test_mesh12_sums_the_spp_axis(mesh21):
+    """(1, 2), on the two ranks of the (2, 1) cases: the image is the mean
+    of the two ranks' partials (every pixel, half the samples each)
+    rendered alone with the same generators, and the rays their sum."""
+    check_rebuilt(mesh21["spp_axis"], MESH12["spp_axis"], 1, 2)
 
 
 def test_three_ranks_pad_pixels_that_do_not_divide(tmp_path_factory):
@@ -295,7 +312,7 @@ def test_three_ranks_pad_pixels_that_do_not_divide(tmp_path_factory):
                          10),
              "bruteforce": ("spheres", {**SMALL, "width": 17, "height": 11,
                                         "intersector": "bruteforce"}, 11)}
-    res = run_mesh(tmp_path_factory, 3, 1, cases)
+    res = run_mesh(tmp_path_factory, {(3, 1): cases})
     for name, case in cases.items():
         assert res[name][0].shape == (11, 17, 3)
         check_rebuilt(res[name], case, 3, 1)
@@ -304,7 +321,7 @@ def test_three_ranks_pad_pixels_that_do_not_divide(tmp_path_factory):
 def test_mesh22_rebuilds(tmp_path_factory):
     """A (2, 2) mesh: two px shards, each summed over two spp ranks."""
     cases = {"spheres": ("spheres", SMALL, 12)}
-    res = run_mesh(tmp_path_factory, 2, 2, cases)
+    res = run_mesh(tmp_path_factory, {(2, 2): cases})
     assert torch.isfinite(res["spheres"][0]).all()
     check_rebuilt(res["spheres"], cases["spheres"], 2, 2)
 
@@ -314,9 +331,21 @@ def test_make_mesh_needs_a_process_group():
         prender.make_mesh(device="cpu")
 
 
+def test_init_group_refuses_cuda_without_a_card(monkeypatch):
+    """``--device cuda`` with no card fails before any group starts: no
+    fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prender.init_group("cuda")
+    assert not dist.is_initialized()
+
+
 def test_dryrun_twin_on_two_ranks():
+    """``--device cpu`` runs every rank on the CPU (the default is the
+    card); one thread a rank."""
     res = subprocess.run(
-        [sys.executable, "-m", "raytracer_tpu_torch.parallel.dryrun", "2"],
-        cwd=ROOT, capture_output=True, text=True, timeout=300)
+        [sys.executable, "-m", "raytracer_tpu_torch.parallel.dryrun", "2",
+         "--device", "cpu"], cwd=ROOT, capture_output=True, text=True,
+        timeout=300, env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert res.returncode == 0, res.stderr
-    assert "dryrun_multichip ok: mesh=(1, 2)" in res.stdout
+    assert "dryrun_multichip ok: gloo on cpu, mesh=(1, 2)" in res.stdout

@@ -208,11 +208,11 @@ def test_cli_refuses_unported(args, tmp_path):
 
 
 @pytest.mark.parametrize("integrator", ["pt", "sppm"])
-def test_cli_sharded_under_torchrun(integrator, tmp_path):
+def test_cli_sharded_under_torchrun(integrator, tmp_path, capsys):
     """``--sharded`` under ``torch.distributed.run`` with 2 processes on
     the CPU: the render is split over the ranks, and rank 0 alone writes
     the PNG, the summary and (SPPM) the checkpoint, which ``--resume``
-    without ``--sharded`` continues."""
+    without ``--sharded`` continues (in this process)."""
     out, ck = tmp_path / "out.png", tmp_path / "ck.npz"
     small = ["--scene", "cornell", "--width", "16", "--height", "12",
              "--spp", "2", "--max-depth", "4", "--device", "cpu"]
@@ -229,10 +229,11 @@ def test_cli_sharded_under_torchrun(integrator, tmp_path):
     assert "2 rank(s), mesh (2, 1)" in res.stdout
     assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
     if integrator == "sppm":
-        res = _cli(*small, *sppm_args, "--sppm-iters", "3", "--resume",
-                   str(ck), "--out", str(tmp_path / "resumed.png"))
-        assert res.returncode == 0, res.stderr
-        assert "at iteration 2" in res.stdout
+        from raytracer_tpu_torch import cli
+        assert cli.main(["render", *small, *sppm_args, "--sppm-iters", "3",
+                         "--resume", str(ck), "--out",
+                         str(tmp_path / "resumed.png")]) == 0
+        assert "at iteration 2" in capsys.readouterr().out
 
 
 # SPPM on smoke (A11), ``--profile-dir`` and ``--debug-nans`` (A13) are

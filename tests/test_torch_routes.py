@@ -21,6 +21,7 @@ from raytracer_tpu_torch.ops.fused_bounce import pack_tables
 from raytracer_tpu_torch.ops.leaf import build_leaf_tables
 from raytracer_tpu_torch.scene import builtin
 from raytracer_tpu_torch.utils.config import RenderConfig, SPPMConfig
+from test_torch_parallel import one_thread  # noqa: F401
 
 N_FIELD = 2100
 CFG = RenderConfig(width=8, height=6, samples_per_pixel=2, spp_chunk=1,

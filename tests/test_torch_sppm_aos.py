@@ -60,6 +60,7 @@ from raytracer_tpu_torch.models import sppm  # noqa: E402
 from raytracer_tpu_torch.models import wavefront_soa as twf  # noqa: E402
 from raytracer_tpu_torch.models.camera import camera_rays  # noqa: E402
 from raytracer_tpu_torch.ops import bvh as tbvh  # noqa: E402
+from raytracer_tpu_torch.ops import dispatch  # noqa: E402
 from raytracer_tpu_torch.ops import intersect as tix  # noqa: E402
 from raytracer_tpu_torch.ops import materials as tmat  # noqa: E402
 from raytracer_tpu_torch.ops import nee as tnee  # noqa: E402
@@ -312,7 +313,8 @@ def test_routes_follow_jax(name, route, monkeypatch):
     ts = getattr(tbuiltin, name if name != "cornell" else "cornell_box")()
     if route == "bvh":
         ts = tbvh.build_bvh(ts)
-    soa = sppm.soa_eligible(ts, route)
+    soa = sppm.soa_eligible(ts, dispatch.auto_route(ts) if route == "auto"
+                            else dispatch.resolve(route))
     assert soa == jsppm._soa_eligible(js, route)
     cfg = RenderConfig(width=4, height=4, samples_per_pixel=1, max_depth=3,
                        intersector=route,
