@@ -138,7 +138,19 @@ Phases, each of which raises on failure (exit code non-zero):
    measurement shard's global-map query; ``render --sharded`` in one CLI
    command on the card; and the dryrun twin (``parallel/dryrun.py``) on
    the card, on 2 spawned gloo ranks and under ``torchrun`` on a one-rank
-   NCCL group. Each with its seconds and kernel launches.
+   NCCL group. Each with its seconds and kernel launches;
+19. the port's bench (``raytracer_tpu_torch/bench.py``): ``bench.run`` in
+   this process, its JSON line printed; every key of ``bench.py:252-290``
+   there, every number finite and > 0, ``numeric_ok`` true, the best
+   route "pallas" or "leaf"; the 1000-spp render's image mean within
+   ``BENCH_1000_TOL`` of phase 6's 32-spp mean (RR is unbiased) and the
+   reference workload's (50 iterations, a 256-spp gather) finite, with its
+   mean within ``BENCH_FULL_TOL`` of phase 7's 4-iteration mean; smoke's
+   and Cornell's seconds beside phase 16's; the bench's kernels on the
+   bench's new inputs: the photon query against its plain version on
+   the reference workload's 50th iteration (both maps, the radii left
+   after 50 iterations), and field160k's regen_ordered step against
+   ``regen_step_plain`` and its render against the forced flat route.
 
 It imports no JAX. The line before the last is a JSON object with the
 kernels' launches, errors, times and bounds; the last line is
@@ -263,6 +275,12 @@ BVH_BAND = 0.03
 SHARD_TOL = 0.005
 SHARD_SPP = 8
 SHARD_SPPM = dict(iters=2, spp=4)
+# Phase 19: the bench's 1000-spp scene_500 render (RR on) against phase
+# 6's 32-spp mean (RR off), and its 50-iteration Cornell SPPM render
+# against phase 7's 4 iterations: both pairs estimate the same radiance
+BENCH_1000_TOL = 0.01
+BENCH_FULL_TOL = 0.05
+FIELD160K_N = 163840    # bench.py:81's sphere_field, 80 superchunks
 # A winner flip is excused only where the ray's float64 distance from the
 # winner's silhouette is within EDGE_ULPS and within EDGE_R2 of r^2, so
 # that no band covers a whole sphere: at field64k distances (|o - c|^2 up
@@ -1065,10 +1083,11 @@ def main_path() -> tuple:
 
 # ------------------------------------------------------------------ phase 7
 
-def sppm_path() -> dict:
+def sppm_path() -> tuple:
     """Cornell with its mesh at 800x800, 500,000 photons per iteration,
     SPPM_ITERS iterations and a SPPM_SPP-spp gather at depth 50, through
-    ``sppm.render``. Returns both kernels' launches in that render."""
+    ``sppm.render``. Returns both kernels' launches in that render and its
+    image mean."""
     from raytracer_tpu_torch.models import sppm
     from raytracer_tpu_torch.ops import fused_bounce as fb
     from raytracer_tpu_torch.ops import photon_query as pq
@@ -1108,7 +1127,7 @@ def sppm_path() -> dict:
     if min(launches.values()) == 0:
         raise AssertionError(f"SPPM path missed a kernel: {launches}")
     save_render(os.path.join(ROOT, "output", "chip_smoke_sppm.png"), host)
-    return launches
+    return launches, float(host.mean())
 
 
 # ------------------------------------------------------------------ phase 8
@@ -1755,33 +1774,13 @@ def check_leaf() -> dict:
 # ----------------------------------------------------------------- phase 12
 
 def counts() -> dict:
-    from raytracer_tpu_torch.experiments import bf16_rate_bench as probe
-    from raytracer_tpu_torch.ops import closest_hit as ch
-    from raytracer_tpu_torch.ops import fused_bounce as fb
-    from raytracer_tpu_torch.ops import leaf
-    from raytracer_tpu_torch.ops import photon_query as pq
-    from raytracer_tpu_torch.ops import regen
-    out = {"leaf": leaf.LAUNCHES, "photon_query": pq.LAUNCHES,
-           "fma_rate": probe.LAUNCHES}
-    for name, mod in (("bounce", fb), ("closest", ch), ("regen", regen)):
-        out[name] = mod.LAUNCHES
-        out[f"{name}_ordered"] = mod.ORDERED_LAUNCHES
-        out[f"{name}_motion"] = mod.MOTION_LAUNCHES
-        out[f"{name}_ordered_motion"] = mod.ORDERED_MOTION_LAUNCHES
-    return out
+    from raytracer_tpu_torch.kernels import launch_counts
+    return launch_counts()
 
 
 def zero_counts():
-    from raytracer_tpu_torch.experiments import bf16_rate_bench as probe
-    from raytracer_tpu_torch.ops import closest_hit as ch
-    from raytracer_tpu_torch.ops import fused_bounce as fb
-    from raytracer_tpu_torch.ops import leaf
-    from raytracer_tpu_torch.ops import photon_query as pq
-    from raytracer_tpu_torch.ops import regen
-    leaf.LAUNCHES = pq.LAUNCHES = probe.LAUNCHES = 0
-    for mod in (fb, ch, regen):
-        mod.LAUNCHES = mod.ORDERED_LAUNCHES = 0
-        mod.MOTION_LAUNCHES = mod.ORDERED_MOTION_LAUNCHES = 0
+    from raytracer_tpu_torch.kernels import zero_launch_counts
+    zero_launch_counts()
 
 
 def timed_render(tag, scene, dev, *, spp, rr=True, seed=1, tables=None,
@@ -2591,8 +2590,9 @@ def textured_scene(aspect: float):
 
 
 def media_textures() -> dict:
-    """Phase 16. Returns the summed launches of its renders and the
-    closest kernel's max error on smoke's camera rays."""
+    """Phase 16. Returns the summed launches of its renders, the
+    closest kernel's max error on smoke's camera rays and the seconds of
+    smoke's and Cornell's turns."""
     from raytracer_tpu_torch.models import sppm
     from raytracer_tpu_torch.ops.leaf import build_leaf_tables
     from raytracer_tpu_torch.scene.builtin import cornell_box, cornell_smoke
@@ -2697,7 +2697,7 @@ def media_textures() -> dict:
     add(launches, "closest", "photon_query")
     if launches.get("bounce"):
         raise AssertionError("textured SPPM took the fused bounce")
-    return {"launches": total, "closest_err": err}
+    return {"launches": total, "closest_err": err, "seconds": times}
 
 
 # ----------------------------------------------------------------- phase 17
@@ -3385,6 +3385,149 @@ def sharded(pt_mean: float, pt_run: tuple) -> dict:
                for k in ("regen_err", "query_err")}}
 
 
+# ----------------------------------------------------------------- phase 19
+
+def bench_phase(pt_mean: float, sppm_mean: float, media_s: dict) -> dict:
+    """The port's bench in this process: its line, held to the checks of
+    phase 19, every kernel count set to 0 just before ``bench.run`` and
+    read just after. The reference workload's last two photon queries
+    (its 50th iteration's global and caustic maps, in the third render
+    of ``bench.sppm_full``, the stage split's, at the timed render's
+    settings and seed) are kept for ``bench_query``. Returns the bench
+    path's launches and the query and regen kernels' largest errors on
+    its inputs (``bench_query``, ``bench_field160k``)."""
+    from raytracer_tpu_torch import bench
+    from raytracer_tpu_torch.ops import photon_query as pq
+    queries = []
+    real_full, real_query = bench.sppm_full, pq.query_planes
+
+    def query(planes, points, r2, cap2):
+        queries[:] = queries[-1:] + [(planes, points, r2, cap2)]
+        return real_query(planes, points, r2, cap2)
+
+    def full(*args, **kw):
+        pq.query_planes = query
+        try:
+            return real_full(*args, **kw)
+        finally:
+            pq.query_planes = real_query
+
+    bench.sppm_full = full
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        result, ex = bench.run(DEV)
+    finally:
+        bench.sppm_full = real_full
+    launches = {k: v for k, v in counts().items() if v}
+    log(f"bench: {time.perf_counter() - t0:.2f} s in all; launches "
+        f"{launches}")
+    log(json.dumps(result))
+    if tuple(result) != bench.KEYS:
+        raise AssertionError(f"bench keys {list(result)}")
+    bad = [k for k, v in result.items()
+           if isinstance(v, (int, float)) and not isinstance(v, bool)
+           and not (np.isfinite(v) and v > 0)]
+    if bad:
+        raise AssertionError(f"bench numbers not finite and > 0: {bad}")
+    if not result["numeric_ok"] or result["numeric_failures"]:
+        raise AssertionError(f"bench numeric_ok: {result['numeric_failures']}")
+    if result["best_intersector"] not in ("pallas", "leaf"):
+        raise AssertionError(f"best route {result['best_intersector']}")
+    for key, ref, tol, what in (
+            ("spp1000", pt_mean, BENCH_1000_TOL, "phase 6's 32-spp mean"),
+            ("sppm_full_800", sppm_mean, BENCH_FULL_TOL,
+             "phase 7's 4-iteration mean")):
+        rec = ex[key]
+        rel = rec["mean"] / ref - 1
+        log(f"bench {key}: image mean {rec['mean']:.6f} against {what} "
+            f"{ref:.6f} ({rel * 100:+.4f}%, band {tol * 100:.0f}%)")
+        if not (rec["finite"] and abs(rel) <= tol):
+            raise AssertionError(f"bench {key}: image not finite or its "
+                                 f"mean off {what}")
+    for name in ("smoke", "cornell"):
+        s = ex["media"][name]["s"]
+        log(f"bench {name}: {s:.4f} s against phase 16's turns "
+            + ", ".join(f"{t:.4f}" for t in media_s[name])
+            + f" ({s / min(media_s[name]):.2f}x the faster)")
+    return {"launches": launches,
+            "query_err": bench_query(queries, ex["sppm_full_800"]),
+            "regen_err": bench_field160k(ex["field160k"])}
+
+
+def bench_query(queries: list, rec: dict) -> float:
+    """The photon-query kernel against ``query_photons_plain``
+    (``compare_query``, phase 4's tolerances) on the reference workload's
+    last iteration: both maps' queries at the radii left after its 50
+    iterations. Returns the largest flux error."""
+    from raytracer_tpu_torch.ops import photon_query as pq
+    from raytracer_tpu_torch.utils.config import RenderConfig
+    iters = RenderConfig().sppm.n_iterations
+    if len(queries) != 2 or rec["iterations"] != iters:
+        raise AssertionError(f"the reference workload ran "
+                             f"{rec['iterations']} iterations, "
+                             f"{len(queries)} queries kept")
+    log(f"photon query on the reference workload's iteration {iters}:")
+    err = 0.0
+    for name, (planes, pts, r2, cap2) in zip(("global", "caustic"),
+                                             queries):
+        out = pq.query_planes(planes, pts, r2, cap2)
+        ref = pq.query_photons_plain(planes, pts, r2, cap2)
+        torch.cuda.synchronize()
+        q = torch.quantile(r2.sqrt().float(),
+                           torch.tensor([0.05, 0.5, 0.95], device=r2.device))
+        log(f"  {name} map: {pts.shape[0]} points, radius quantiles "
+            "(5%, 50%, 95%) " + ", ".join(f"{float(v):.4g}" for v in q)
+            + f"; counts r {int(ref.count_r.sum())} cap "
+            f"{int(ref.count_cap.sum())}")
+        err = max(err, compare_query(
+            f"photon query, iteration {iters}, {name} map", out, ref))
+    return err
+
+
+def bench_field160k(rec: dict) -> float:
+    """field160k (``sphere_field(163840)``, the bench's), new to the card
+    in phase 19: the ordered regen kernel against ``regen_step_plain`` on
+    a captured step (``regen_row``, phase 13's tolerances), and the
+    bench's render (8 spp, RR on, the walk) against the forced flat
+    route at its seed and settings: image means and rays within
+    ROUTE_TOL, as phase 12 holds field64k. Returns the kernel's largest
+    error."""
+    from raytracer_tpu_torch import bench
+    from raytracer_tpu_torch.ops import fused_bounce as fb
+    from raytracer_tpu_torch.ops import ordered as ordered_ops
+    from raytracer_tpu_torch.scene import builtin
+    dev = torch.device(DEV)
+    t0 = time.perf_counter()
+    field = builtin.sphere_field(FIELD160K_N, WIDTH / HEIGHT).to(dev)
+    chunk = ordered_ops.eff_chunk(FIELD160K_N, ordered_ops.SPH_CHUNK)
+    supers = (ordered_ops.padded_chunks(FIELD160K_N, chunk)
+              // ordered_ops.SUPER)
+    log(f"field160k: {FIELD160K_N} spheres built in "
+        f"{time.perf_counter() - t0:.3f} s; {supers} superchunks (cap "
+        f"{ordered_ops.MAX_SUPERS}); regen_ordered against "
+        "regen_step_plain:")
+    err = regen_row("regen_ordered", field, PLAIN_EDGE, True)["max_abs_err"]
+    if not rec["launches"].get("regen_ordered"):
+        raise AssertionError(f"the bench's field160k took no walk: "
+                             f"{rec['launches']}")
+    img_f, rays_f, _, l_f = timed_render(
+        "field160k_route_flat", field, dev, spp=LARGE_SPP, seed=bench.SEED,
+        tables=fb.pack_tables(field, order=False))
+    if l_f.get("regen_ordered") or not l_f.get("regen"):
+        raise AssertionError("the forced flat route did not run flat")
+    dm = abs(rec["mean"] / img_f.mean() - 1)
+    dr = abs(rec["rays"] / rays_f - 1)
+    log(f"route check field160k {LARGE_SPP} spp: image means "
+        f"{rec['mean']:.6f} (the bench's, ordered) vs {img_f.mean():.6f} "
+        f"(flat), {dm * 100:.4f}%; rays {rec['rays']} vs {rays_f}, "
+        f"{dr * 100:.4f}%")
+    if not (dm <= ROUTE_TOL and dr <= ROUTE_TOL):
+        raise AssertionError("field160k: ordered and flat routes disagree")
+    return err
+
+
 def main() -> int:
     device = card()
     sys.path.insert(0, ROOT)
@@ -3394,7 +3537,7 @@ def main() -> int:
     check_golden()
     check_golden_sppm()
     pt_regen, pt_mean, pt_run = main_path()
-    sppm_launches = sppm_path()
+    sppm_launches, sppm_mean = sppm_path()
     c_stats = check_closest()
     check_golden_nee_mis()
     check_oracle()
@@ -3420,6 +3563,10 @@ def main() -> int:
     q_stats["max_abs_err"] = max(q_stats["max_abs_err"], sh["query_err"])
     r_rows["regen"]["max_abs_err"] = max(r_rows["regen"]["max_abs_err"],
                                          sh["regen_err"])
+    b19 = bench_phase(pt_mean, sppm_mean, mt["seconds"])
+    q_stats["max_abs_err"] = max(q_stats["max_abs_err"], b19["query_err"])
+    r_rows["regen_ordered"]["max_abs_err"] = max(
+        r_rows["regen_ordered"]["max_abs_err"], b19["regen_err"])
 
     def row(d):
         return {k: v for k, v in d.items()
@@ -3486,6 +3633,8 @@ def main() -> int:
              "source": f"raytracer_tpu_torch/csrc/{name}.cu",
              "replaces": f"raytracer_tpu/ops/pallas_intersect.py:{line}",
              "launches": ml.get(key, 0), **row(m_rows[key])})
+    for k in kernels:                   # phase 19's bench path
+        k["launches"] += b19["launches"].get(k["name"], 0)
     if min(k["launches"] for k in kernels) <= 0:
         raise AssertionError("a kernel was launched no time on its path")
     print(json.dumps({"kernels": kernels}))

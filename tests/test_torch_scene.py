@@ -39,6 +39,10 @@ SCENES = {
     "scene_10": _file("scene_10.json"),
     "scene_200_no_bvh": _file("scene_200_no_bvh.json"),
     "scene_500": _file("scene_500.json"),
+    "scene_10_yaml": _file("scene_10.yaml"),
+    "scene_200_no_bvh_yaml": _file("scene_200_no_bvh.yaml"),
+    "scene_500_yaml": _file("scene_500.yaml"),
+    "test_json": _file("test.json"),
 }
 
 
