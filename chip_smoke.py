@@ -150,7 +150,19 @@ Phases, each of which raises on failure (exit code non-zero):
    bench's new inputs: the photon query against its plain version on
    the reference workload's 50th iteration (both maps, the radii left
    after 50 iterations), and field160k's regen_ordered step against
-   ``regen_step_plain`` and its render against the forced flat route.
+   ``regen_step_plain`` and its render against the forced flat route;
+20. the SPPM photon pass and both maps as one CUDA graph replay
+   (``sppm.graphed_photon_pass``, the route every SoA SPPM iteration on
+   the fused bounce takes) on Cornell with its mesh at 800x800, 500,000
+   photons: against the eager pass on the same iteration's stream,
+   deposits, flags, spawn count and both maps bit-equal; the capture's
+   warm-up, capture and instantiate seconds and the memory it holds;
+   bounce launches an iteration equal both ways; ``GRAPH_TURNS`` turns of
+   the pass (with the maps) and of the iteration each way, and one
+   iteration each way under ``torch.profiler`` (busy share); phase 7's
+   render eagerly, through the graph, eagerly, the graphed state no
+   farther from the eager ones than they are apart; and the pass at
+   ``LANE_SWEEP`` lanes (steps, deposit slots, seconds).
 
 It imports no JAX. The line before the last is a JSON object with the
 kernels' launches, errors, times and bounds; the last line is
@@ -159,6 +171,7 @@ kernels' launches, errors, times and bounds; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -3528,6 +3541,258 @@ def bench_field160k(rec: dict) -> float:
     return err
 
 
+# ----------------------------------------------------------------- phase 20
+
+GRAPH_TURNS = 5          # pass and iteration timings, each way
+GRAPH_ITER = 3           # the photon stream of the compared pass
+LANE_SWEEP = (16384, 32768, 65536, 131072)
+
+
+@contextlib.contextmanager
+def eager_photons():
+    """The photon pass and the maps run eagerly on the card, the route the
+    graph replaced: ``sppm.photon_graph`` answers no."""
+    from raytracer_tpu_torch.models import sppm
+    real = sppm.photon_graph
+    sppm.photon_graph = lambda *a: False
+    try:
+        yield
+    finally:
+        sppm.photon_graph = real
+
+
+def host_s(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def busy_share(fn) -> tuple:
+    """One call of ``fn`` under ``torch.profiler``: (wall s, kernel
+    device s, busy share)."""
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=act, acc_events=True) as prof:
+        wall = host_s(fn)
+    dev_s = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    return wall, dev_s, dev_s / wall
+
+
+def state_diff(a, b) -> float:
+    """max |a - b| over the SPPM states' tensors (0.0: bit-equal)."""
+    return max(float((x - y).abs().max()) if not torch.equal(x, y) else 0.0
+               for h, k in zip(a[:2], b[:2]) for x, y in zip(h, k))
+
+
+def graph_passes(scene, cfg):
+    """The eager pass (and maps) and its graphed twin on one iteration's
+    stream (GRAPH_ITER), for ``scene`` at ``cfg``'s SPPM settings:
+    (eager_pass, graph_pass, iteration kwargs, tables)."""
+    from raytracer_tpu_torch.models import sppm
+    from raytracer_tpu_torch.models import wavefront_soa as wf
+    from raytracer_tpu_torch.ops import dispatch
+    from raytracer_tpu_torch.utils.rng import stream_generator
+    kw = sppm.iteration_kwargs(scene, cfg)
+    tables = dispatch.route_tables(scene, cfg.intersector)
+    method = dispatch.route(scene, cfg.intersector)
+    if not sppm.photon_graph(scene, method, scene.bounds_min.device):
+        raise AssertionError(f"route {method} takes no graph")
+    eps = cfg.spawn_eps_rel * scene.scale
+    bounces, res = kw["max_photon_bounces"], kw["grid_res"]
+    n = cfg.sppm.photons_per_iter
+
+    def gen():
+        return stream_generator(scene.bounds_min.device, 0,
+                                sppm.PHOTON_STREAM, GRAPH_ITER)
+
+    def eager_pass():
+        dep, spawned = wf.trace_photon_deposits_regen_soa(
+            scene, tables, gen(), n, bounces, sppm.PHOTON_T_MIN, eps,
+            intersector=method)
+        return dep, spawned, sppm.build_maps(scene, dep, res, n)
+
+    def graph_pass():
+        return sppm.graphed_photon_pass(
+            scene, tables, gen(), n_photons=n, max_photon_bounces=bounces,
+            spawn_eps=eps, grid_res=res, intersector=method)
+
+    return eager_pass, graph_pass, kw, tables
+
+
+def graph_bit_equal(tag, eager_pass, graph_pass):
+    """The graphed pass against the eager one, every tensor bit-equal."""
+    from raytracer_tpu_torch.ops.photon_grid import PhotonGrid
+    from raytracer_tpu_torch.utils import graphs
+    g = graph_pass()
+    torch.cuda.synchronize()
+    e = eager_pass()
+    torch.cuda.synchronize()
+    names = ["pos", "power", "norm", "valid", "caustic", "spawned"] + [
+        f"{m} {f}" for m in ("global", "caustic") for f in PhotonGrid._fields]
+    ta, tb = graphs.tensors(g), graphs.tensors(e)
+    bad = [n for n, x, y in zip(names, ta, tb) if not torch.equal(x, y)]
+    dep, spawned, (gg, cg) = g
+    log(f"photon graph against the eager pass, {tag}, iteration "
+        f"{GRAPH_ITER}'s stream: {len(ta)} tensors ({dep.pos.shape[1]} "
+        f"slots, {int(dep.valid.sum())} deposits, {int(dep.caustic.sum())} "
+        f"caustic, {int(spawned)} spawned; n_valid {int(gg.n_valid)}, "
+        f"{int(cg.n_valid)}); differing: {bad or 'none'}")
+    if bad or len(ta) != len(tb) or len(ta) != len(names):
+        raise AssertionError(f"graphed photon pass differs on {tag}: {bad}")
+
+
+def photon_graph_phase() -> dict:
+    """The SPPM photon pass and both maps as one CUDA graph replay
+    (``sppm.graphed_photon_pass``) on Cornell with its mesh, 800x800,
+    500,000 photons: bit-equal to the eager pass on one iteration's
+    stream (deposits, flags, spawn count, both maps), and on
+    sphere_field(65536), whose tables take the ordered bounce; the
+    capture's seconds and memory; bounce launches an iteration equal both
+    ways; GRAPH_TURNS turns of the pass and the iteration each way, and
+    one iteration each way under the profiler; phase 7's render through
+    the graph and eagerly; the lane sweep. Returns the bounce launches of
+    its graphed iterations."""
+    from raytracer_tpu_torch.models import sppm
+    from raytracer_tpu_torch.models import wavefront_soa as wf
+    scene = load("cornell_mesh", SPPM_W / SPPM_H).to(DEV)
+    cfg = sppm_config(SPPM_SPP)
+    eager_pass, graph_pass, kw, tables = graph_passes(scene, cfg)
+    bounces = kw["max_photon_bounces"]
+
+    # the capture, from an empty cache
+    sppm.PHOTON_GRAPHS.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem0, res0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    zero_counts()
+    first_s = host_s(graph_pass)
+    first = {k: v for k, v in counts().items() if v}
+    entry = next(reversed(sppm.PHOTON_GRAPHS.entries.values()))
+    mem = torch.cuda.memory_allocated() - mem0
+    pool = torch.cuda.memory_reserved() - res0
+    steps = wf.spawn_window(SPPM_PHOTONS, wf.PHOTON_LANES) + bounces
+    log(f"photon graph: first call {first_s:.4f} s = warm-up step "
+        f"{entry.info['warm_s']:.4f} s, capture {entry.info['capture_s']:.4f}"
+        f" s, instantiate {entry.info['instantiate_s']:.4f} s, and a replay;"
+        f" {steps} steps, launches captured a replay {entry.launches}, in "
+        f"the first call {first}; memory held {mem / 2**20:.1f} MiB "
+        f"allocated, {pool / 2**20:.1f} MiB reserved")
+    if entry.launches.get("bounce") != steps or first.get("bounce") != \
+            steps + 1:
+        raise AssertionError(f"graph launches {entry.launches}, {first}")
+    graph_bit_equal("Cornell", eager_pass, graph_pass)
+
+    # the ordered bounce in the graph: field64k's tables take the walk
+    field = large_scene("field64k").to(DEV)
+    f_eager, f_graph, _, f_tables = graph_passes(field, cfg)
+    if not f_tables.ordered:
+        raise AssertionError("field64k's tables take no walk")
+    zero_counts()
+    f_first = host_s(f_graph)
+    f_launches = {k: v for k, v in counts().items() if v}
+    graph_bit_equal("field64k (ordered bounce)", f_eager, f_graph)
+    log(f"photon graph field64k: capturing call {f_first:.4f} s, launches "
+        f"{f_launches}; eager pass {host_s(f_eager):.4f} s, graph pass "
+        f"{host_s(f_graph):.4f} s")
+    if not f_launches.get("bounce_ordered"):
+        raise AssertionError(f"field64k's graph: {f_launches}")
+    field = f_eager = f_graph = f_tables = None
+
+    # bounce launches an iteration, each way
+    def iteration(state=None):
+        return sppm.sppm_iteration(
+            scene, tables, state or sppm.init_state(SPPM_W * SPPM_H, DEV),
+            0, **kw)
+
+    launches = {}
+    for way in ("eager", "graph"):
+        with (eager_photons() if way == "eager" else contextlib.nullcontext()):
+            iteration()
+            torch.cuda.synchronize()
+            zero_counts()
+            iteration()
+            torch.cuda.synchronize()
+            launches[way] = {k: v for k, v in counts().items() if v}
+    log(f"photon graph: launches an iteration, eager {launches['eager']}, "
+        f"graph {launches['graph']}")
+    if launches["eager"] != launches["graph"]:
+        raise AssertionError(f"launches differ: {launches}")
+
+    # turns: the pass (and maps) and the iteration, each way
+    secs = {k: [] for k in ("eager pass", "graph pass", "eager iteration",
+                            "graph iteration")}
+    for turn in range(GRAPH_TURNS):
+        for way in (("eager", "graph") if turn % 2 == 0 else
+                    ("graph", "eager")):
+            fn = eager_pass if way == "eager" else graph_pass
+            ctx = eager_photons() if way == "eager" else \
+                contextlib.nullcontext()
+            with ctx:
+                secs[f"{way} pass"].append(host_s(fn))
+                secs[f"{way} iteration"].append(host_s(iteration))
+    for k, v in secs.items():
+        log(f"photon graph: {k} seconds {', '.join(f'{x:.4f}' for x in v)}"
+            f" (median {np.median(v):.4f})")
+    split = {}
+    for way in ("eager", "graph"):
+        t = {}
+        with (eager_photons() if way == "eager" else contextlib.nullcontext()):
+            sppm.sppm_iteration(scene, tables, sppm.init_state(
+                SPPM_W * SPPM_H, DEV), 0, times=t, **kw)
+            wall, dev_s, busy = busy_share(iteration)
+        split[way] = (wall, dev_s, busy)
+        log(f"photon graph: {way} iteration stages "
+            + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+            + f"; under the profiler wall {wall:.4f} s, kernels "
+            f"{dev_s:.4f} s, busy {busy:.4f}")
+
+    # phase 7's render through the graph and eagerly, in turns
+    renders = []
+    for way in ("eager", "graph", "eager"):
+        with (eager_photons() if way == "eager" else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img, rays, state = sppm.render(scene, cfg, 0, device=DEV)
+            torch.cuda.synchronize()
+            renders.append((way, time.perf_counter() - t0, img, rays, state))
+    ee = state_diff(renders[0][4], renders[2][4])
+    ge = max(state_diff(renders[1][4], r[4]) for r in (renders[0],
+                                                         renders[2]))
+    log("photon graph: phase 7's render " + "; ".join(
+        f"{w} {dt:.4f} s, mean {float(im.mean()):.6f}, {r} rays"
+        for w, dt, im, r, _ in renders)
+        + f"; state max |diff| eager-eager {ee:.6g}, graph-eager {ge:.6g}")
+    if ge > ee:
+        raise AssertionError("the graphed render's state is farther from "
+                             "the eager renders' than they are apart")
+
+    # the lane sweep (graph, pass and maps)
+    sweep, lanes0 = [], wf.PHOTON_LANES
+    try:
+        for lanes in LANE_SWEEP:
+            wf.PHOTON_LANES = lanes
+            sppm.PHOTON_GRAPHS.clear()
+            cap = host_s(graph_pass)
+            times = [host_s(graph_pass) for _ in range(GRAPH_TURNS)]
+            dep, spawned, _ = graph_pass()
+            torch.cuda.synchronize()
+            s_ = wf.spawn_window(SPPM_PHOTONS, lanes) + bounces
+            sweep.append((lanes, s_, dep.pos.shape[1], int(dep.valid.sum()),
+                          int(spawned), cap, float(np.median(times))))
+            log(f"photon graph lanes {lanes}: {s_} steps, "
+                f"{dep.pos.shape[1]} slots, {int(dep.valid.sum())} deposits, "
+                f"{int(spawned)} spawned; capturing call {cap:.4f} s, "
+                f"replays {', '.join(f'{x:.4f}' for x in times)} s")
+    finally:
+        wf.PHOTON_LANES = lanes0
+        sppm.PHOTON_GRAPHS.clear()
+    return {"launches": launches["graph"], "secs": secs, "split": split}
+
+
 def main() -> int:
     device = card()
     sys.path.insert(0, ROOT)
@@ -3567,6 +3832,7 @@ def main() -> int:
     q_stats["max_abs_err"] = max(q_stats["max_abs_err"], b19["query_err"])
     r_rows["regen_ordered"]["max_abs_err"] = max(
         r_rows["regen_ordered"]["max_abs_err"], b19["regen_err"])
+    p20 = photon_graph_phase()
 
     def row(d):
         return {k: v for k, v in d.items()
@@ -3633,8 +3899,9 @@ def main() -> int:
              "source": f"raytracer_tpu_torch/csrc/{name}.cu",
              "replaces": f"raytracer_tpu/ops/pallas_intersect.py:{line}",
              "launches": ml.get(key, 0), **row(m_rows[key])})
-    for k in kernels:                   # phase 19's bench path
-        k["launches"] += b19["launches"].get(k["name"], 0)
+    for k in kernels:                   # phase 19's bench path, phase 20
+        k["launches"] += (b19["launches"].get(k["name"], 0)
+                          + p20["launches"].get(k["name"], 0))
     if min(k["launches"] for k in kernels) <= 0:
         raise AssertionError("a kernel was launched no time on its path")
     print(json.dumps({"kernels": kernels}))

@@ -27,7 +27,10 @@ have no CPU fallback. Differences from ``bench.py``:
   ``host_spp_batch`` samples), in place of ``warm_render_programs``;
   ``sppm_full_800_compile_warmup_s`` is that warm-up's seconds, which
   include the nvcc build of a library only where no earlier program used
-  it (a stderr line says which libraries this process built);
+  it (a stderr line says which libraries this process built), and the
+  capture of the photon pass's CUDA graph where no earlier program
+  captured its key (``sppm.graphed_photon_pass``): every SPPM program's
+  warm call captures, its timed call replays;
 - the SPPM programs' timed calls run as ``bench.py``'s do, without stage
   timing; their stage split (``times``, each stage ending in a device
   synchronise) comes from one more call of the same program, logged to

@@ -18,14 +18,19 @@ _FORMS = (("", "LAUNCHES"), ("_ordered", "ORDERED_LAUNCHES"),
           ("_ordered_motion", "ORDERED_MOTION_LAUNCHES"))
 
 
-def launch_counts() -> dict:
-    """Every kernel wrapper's launch count, by library and form."""
+def _slots() -> dict:
+    """{launch_counts key: (wrapper module, count attribute)}."""
     single, forms = _counted()
-    out = {name: mod.LAUNCHES for name, mod in single}
+    out = {name: (mod, "LAUNCHES") for name, mod in single}
     for name, mod in forms:
         for suffix, attr in _FORMS:
-            out[name + suffix] = getattr(mod, attr)
+            out[name + suffix] = (mod, attr)
     return out
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count, by library and form."""
+    return {k: getattr(mod, attr) for k, (mod, attr) in _slots().items()}
 
 
 def launches_since(before: dict) -> dict:
@@ -35,11 +40,17 @@ def launches_since(before: dict) -> dict:
     return {k: now[k] - before[k] for k in now if now[k] != before[k]}
 
 
+def add_launches(counts: dict, times: int = 1):
+    """Add ``counts`` (``launch_counts`` keys) ``times`` times to the
+    wrappers' counts: a CUDA graph's replay launches what its capture
+    counted, though no wrapper runs (``utils/graphs.py``)."""
+    slots = _slots()
+    for k, v in counts.items():
+        mod, attr = slots[k]
+        setattr(mod, attr, getattr(mod, attr) + v * times)
+
+
 def zero_launch_counts():
     """Set every wrapper's launch counts to 0."""
-    single, forms = _counted()
-    for _, mod in single:
-        mod.LAUNCHES = 0
-    for _, mod in forms:
-        for _, attr in _FORMS:
-            setattr(mod, attr, 0)
+    for mod, attr in _slots().values():
+        setattr(mod, attr, 0)

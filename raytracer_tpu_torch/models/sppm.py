@@ -19,7 +19,10 @@ measurement walk, the regenerating gather); a scene with media, and the
 ``path_tracer.hit_and_attrs`` on the route asked for (the closest-hit or
 leaf kernel, the brute-force scan or the BVH) and then the media override.
 The queries are the dense kernel (``query_impl="dense"``) or the 27-cell
-gather of ``ops/photon_grid.py`` ("grid").
+gather of ``ops/photon_grid.py`` ("grid"). On a CUDA device the SoA
+photon pass on the fused bounce and both maps are one CUDA graph replay
+an iteration (``photon_graph``, ``graphed_photon_pass``: the JAX
+``photon_grids``, one device dispatch).
 
 The whole image is one iteration: the JAX package's pixel-blocked
 iteration exists because long TPU dispatches failed, and is not ported.
@@ -44,7 +47,7 @@ from raytracer_tpu_torch.ops import photon_grid as pg
 from raytracer_tpu_torch.ops.fused_bounce import has_media
 from raytracer_tpu_torch.ops.photon_query import query_photons
 from raytracer_tpu_torch.scene.types import INTER_ABSORB, INTER_DIFFUSE, Scene
-from raytracer_tpu_torch.utils import nans
+from raytracer_tpu_torch.utils import graphs, nans
 from raytracer_tpu_torch.utils.config import RenderConfig, SPPMConfig
 from raytracer_tpu_torch.utils.rng import stream_generator
 from raytracer_tpu_torch.utils.timing import Progress, sync_for
@@ -175,14 +178,39 @@ def trace_photon_deposits(scene: Scene, tables, gen, n_photons: int,
 
 # ------------------------------------------------------------ photon maps
 
+# the captured photon passes (``graphed_photon_pass``)
+PHOTON_GRAPHS = graphs.GraphCache()
+
+
+def photon_graph(scene: Scene, method: str, device) -> bool:
+    """Whether the photon pass runs as a captured CUDA graph
+    (``graphed_photon_pass``), from static facts only: on a CUDA device,
+    on the SoA route's fused bounce (``wf.use_fused``: the flat or the
+    ordered kernel), with ``--debug-nans`` off. The CPU, the "leaf" route
+    and the unfused stage (their wrappers compact lanes with ``nonzero``
+    and read ``any()``), the (N, 3) route and ``--debug-nans`` (each
+    check reads the device) run the pass eagerly."""
+    return (torch.device(device).type == "cuda"
+            and soa_eligible(scene, method) and wf.use_fused(scene, method)
+            and not nans.enabled())
+
+
 def trace_deposits(scene: Scene, tables, gen, *, n_photons: int,
                    max_photon_bounces: int, spawn_eps,
                    intersector: str = "pallas") -> wf.Deposits:
     """The photon pass of ``_photon_maps`` of the JAX package. The SoA
-    route regenerates (``trace_photon_deposits_regen_soa``); the (N, 3)
+    route regenerates (``trace_photon_deposits_regen_soa``, or its
+    captured graph where ``photon_graph`` says so: then the deposits are
+    the graph's buffers, which the next pass overwrites); the (N, 3)
     route scans ``trace_photon_deposits``. Every call of a route with
     the same ``n_photons`` returns the same number of slots."""
     method = dispatch.route(scene, intersector)
+    if photon_graph(scene, method, scene.bounds_min.device):
+        dep, _spawned, _maps = graphed_photon_pass(
+            scene, tables, gen, n_photons=n_photons,
+            max_photon_bounces=max_photon_bounces, spawn_eps=spawn_eps,
+            intersector=method)
+        return dep
     if soa_eligible(scene, method):
         dep, _spawned = wf.trace_photon_deposits_regen_soa(
             scene, tables, gen, n_photons, max_photon_bounces, PHOTON_T_MIN,
@@ -193,19 +221,100 @@ def trace_deposits(scene: Scene, tables, gen, *, n_photons: int,
                                  method)
 
 
+def _maps(bmin, bmax, dep: wf.Deposits, grid_res, max_valid: int):
+    pos, power, norm = dep.pos.T, dep.power.T, dep.norm.T
+    g = pg.build_grid(pos, power, norm, dep.valid, bmin, bmax, grid_res,
+                      compact=True)
+    c = pg.build_grid(pos, power, norm, dep.valid & dep.caustic, bmin, bmax,
+                      grid_res, compact=True, max_valid=max_valid)
+    return g, c
+
+
 def build_maps(scene: Scene, dep: wf.Deposits, grid_res, max_valid: int):
     """Both photon maps of deposits ``dep`` (the grids of ``_photon_maps``
     of the JAX package, compact): the global map sorts every deposit
     slot; a path deposits into the caustic set at most once, so the
     caustic map keeps at most ``max_valid``, the photons traced
     (photon_mapper.rs:249-251). Returns (global grid, caustic grid)."""
-    pos, power, norm = dep.pos.T, dep.power.T, dep.norm.T
-    g = pg.build_grid(pos, power, norm, dep.valid, scene.bounds_min,
-                      scene.bounds_max, grid_res, compact=True)
-    c = pg.build_grid(pos, power, norm, dep.valid & dep.caustic,
-                      scene.bounds_min, scene.bounds_max, grid_res,
-                      compact=True, max_valid=max_valid)
-    return g, c
+    return _maps(scene.bounds_min, scene.bounds_max, dep, grid_res,
+                 max_valid)
+
+
+def graphed_photon_pass(scene: Scene, tables, gen, *, n_photons: int,
+                        max_photon_bounces: int, spawn_eps, grid_res=None,
+                        intersector: str = "pallas",
+                        cache: graphs.GraphCache = None):
+    """The SoA photon pass (``wf.PhotonPass``), and both maps when
+    ``grid_res`` is given, as one replay of a graph captured at the first
+    call of its key (``utils/graphs.py``; the JAX ``photon_grids``, one
+    device dispatch). The key: the tables' layout, ``n_photons``, the
+    lanes, window, ``max_photon_bounces``, ``grid_res`` and the route.
+    The draws are ``gen``'s, as the eager pass's. Returns (``Deposits``,
+    photons spawned, (global grid, caustic grid) or None): the graph's
+    buffers, which its next replay overwrites."""
+    cache = PHOTON_GRAPHS if cache is None else cache
+    dev = scene.bounds_min.device
+    eps = torch.as_tensor(spawn_eps, dtype=torch.float32, device=dev)
+    inputs = (tables._replace(leaf=None), scene.lights, scene.bounds_min,
+              scene.bounds_max, eps.reshape(()))
+    lanes = min(int(n_photons), wf.PHOTON_LANES)
+    window = wf.spawn_window(int(n_photons), lanes)
+    grid_res = None if grid_res is None else tuple(grid_res)
+    key = ("photon pass", int(n_photons), lanes, window,
+           int(max_photon_bounces), PHOTON_T_MIN, grid_res, intersector)
+
+    def build(inp, g):
+        tab, lights, bmin, bmax, eps = inp
+        pas = wf.PhotonPass(scene, tab, n_photons, max_photon_bounces,
+                            PHOTON_T_MIN, eps, lanes=lanes, window=window,
+                            intersector=intersector, lights=lights)
+        # made before the capture, held while the graph reads it
+        res_t = None if grid_res is None else pg.res_tensor(grid_res, dev)
+
+        def program():
+            pas.run(g)
+            dep, spawned = pas.deposits()
+            maps = (None if grid_res is None else
+                    _maps(bmin, bmax, dep, grid_res, int(n_photons)))
+            return dep, spawned, maps
+
+        def warm():                # one step and the maps, eagerly
+            pas.start(g)
+            pas.step(g, 0)
+            pas.finish()
+            if grid_res is not None:
+                _maps(bmin, bmax, pas.deposits()[0], grid_res,
+                      int(n_photons))
+
+        return warm, program, (pas, res_t)
+
+    return cache.run(key, inputs, gen, build)
+
+
+def photon_maps(scene: Scene, tables, gen, *, n_photons: int,
+                max_photon_bounces: int, spawn_eps, grid_res,
+                intersector: str = "pallas", stage=None):
+    """The photon pass and both maps (the JAX ``photon_grids``). Where
+    ``photon_graph`` says so they are one graph replay
+    (``graphed_photon_pass``) and the stage "photon pass" covers both;
+    else the pass (stage "photon pass") and then the grid builds ("grid
+    build"). Returns (global grid, caustic grid)."""
+    stage = stage or Stages(None, scene.bounds_min.device)
+    method = dispatch.route(scene, intersector)
+    if photon_graph(scene, method, scene.bounds_min.device):
+        _dep, _spawned, maps = graphed_photon_pass(
+            scene, tables, gen, n_photons=n_photons,
+            max_photon_bounces=max_photon_bounces, spawn_eps=spawn_eps,
+            grid_res=grid_res, intersector=method)
+        stage("photon pass")
+        return maps
+    dep = trace_deposits(scene, tables, gen, n_photons=n_photons,
+                         max_photon_bounces=max_photon_bounces,
+                         spawn_eps=spawn_eps, intersector=method)
+    stage("photon pass")
+    maps = build_maps(scene, dep, grid_res, n_photons)
+    stage("grid build")
+    return maps
 
 
 # ------------------------------------------------------- measurement pass
@@ -313,8 +422,7 @@ def _sorted_dual_query(g_grid, c_grid, grid_res, pts_p, rg, cap_g, rc,
     the unsorted query."""
     n = pts_p.shape[0]
     extent = torch.clamp(bounds_max - bounds_min, min=1e-6)
-    inv_cell = torch.tensor(grid_res, dtype=torch.float32,
-                            device=pts_p.device) / extent
+    inv_cell = pg.res_tensor(tuple(grid_res), pts_p.device) / extent
     order = torch.argsort(pg.cell_ids(pts_p, bounds_min, inv_cell, grid_res),
                           stable=True)
     inv = torch.empty_like(order)
@@ -338,8 +446,7 @@ def _sorted_dual_query(g_grid, c_grid, grid_res, pts_p, rg, cap_g, rc,
 def cap_radius(scene: Scene, grid_res):
     """The query radius cap: one grid cell, a 0-d tensor."""
     extent = torch.clamp(scene.bounds_max - scene.bounds_min, min=1e-6)
-    return (extent / torch.tensor(grid_res, dtype=torch.float32,
-                                  device=extent.device)).min()
+    return (extent / pg.res_tensor(tuple(grid_res), extent.device)).min()
 
 
 def query_radii(half: SPPMHalf, cap):
@@ -402,19 +509,17 @@ def sppm_iteration(scene: Scene, tables, state: SPPMState, seed: int, *,
                    times: Optional[dict] = None) -> SPPMState:
     """One SPPM iteration over the whole image, on ``intersector``'s
     route, the queries by ``query_impl``. ``times``: a dict that receives
-    per-stage seconds (each stage ends in a device sync)."""
+    per-stage seconds (each stage ends in a device sync; on the photon
+    graph, "photon pass" covers the grid builds, ``photon_maps``)."""
     dev = scene.bounds_min.device
     it = int(state.iteration)
     spawn_eps = spawn_eps_rel * scene.scale
     stage = Stages(times, dev)
-    dep = trace_deposits(scene, tables,
-                         stream_generator(dev, seed, PHOTON_STREAM, it),
-                         n_photons=n_photons,
-                         max_photon_bounces=max_photon_bounces,
-                         spawn_eps=spawn_eps, intersector=intersector)
-    stage("photon pass")
-    g_grid, c_grid = build_maps(scene, dep, grid_res, n_photons)
-    stage("grid build")
+    g_grid, c_grid = photon_maps(
+        scene, tables, stream_generator(dev, seed, PHOTON_STREAM, it),
+        n_photons=n_photons, max_photon_bounces=max_photon_bounces,
+        spawn_eps=spawn_eps, grid_res=grid_res, intersector=intersector,
+        stage=stage)
     return measure_and_update(
         scene, tables, state, g_grid, c_grid,
         stream_generator(dev, seed, MEASURE_STREAM, it), width=width,

@@ -8,7 +8,8 @@ The PyTorch counterpart of ``raytracer_tpu/models/wavefront_soa.py``:
 ``render_regen_soa`` with NEE and MIS (and, where neither is on, its
 one-kernel step, ``ops/regen.py``), and for SPPM ``gather_regen_soa``,
 ``gather_walk_soa``, ``measurement_soa``, ``emit_photons_soa``,
-``trace_photon_deposits_soa`` and ``trace_photon_deposits_regen_soa``.
+``trace_photon_deposits_soa`` and the regenerating photon pass
+``PhotonPass`` (``trace_photon_deposits_regen_soa`` runs it eagerly).
 The SPPM passes take the "pallas" or the "leaf" route (``intersector``);
 ``--debug-nans`` checks each loop's state after every step
 (``utils/nans.py``).
@@ -35,6 +36,8 @@ one tensor op updates all three components. The loop runs eagerly: a
 Python ``while`` around one regeneration-kernel launch per step, or, with
 NEE, MIS or the SPPM gather, one bounce-kernel launch plus the
 bookkeeping ops, with one host sync per step for the loop condition.
+The photon pass has a static step count and no host sync: on the card
+SPPM replays it as a CUDA graph (``models/sppm.py::graphed_photon_pass``).
 """
 
 from __future__ import annotations
@@ -749,13 +752,16 @@ def measurement_soa(scene: Scene, tables: BounceTables,
                          bsdf.T.contiguous())
 
 
-def emit_photons_soa(lights: Lights, gen: torch.Generator, n: int):
+def emit_photons_soa(lights: Lights, gen: torch.Generator, n: int,
+                     down=None):
     """Photon emission (light.rs:98-103, 158-166, 220-225): a light picked
     in proportion to its power (inverse CDF over ``exp(log_prob)``), a point
     on its surface, a direction in the hemisphere around its normal (power
     weighted by the cosine for rect lights). Seven uniform rows: pick,
-    sphere normal (2), hemisphere (2), rect uv (2). Returns (origin,
-    direction, power), each (3, n)."""
+    sphere normal (2), hemisphere (2), rect uv (2). ``down``: the rect
+    lights' normal (0, -1, 0) as a (3, 1) device tensor, made by the
+    caller once for many calls (else here). Returns (origin, direction,
+    power), each (3, n)."""
     dev = lights.p0.device
     U = torch.rand((7, n), generator=gen, device=dev)
     idx = pick_light(lights, U[0])
@@ -773,7 +779,8 @@ def emit_photons_soa(lights: Lights, gen: torch.Generator, n: int):
     r_origin = torch.stack([p0[0] + (p1[0] - p0[0]) * U[5], p0[1],
                             p0[2] + (p1[2] - p0[2]) * U[6]])
     is_sph = lights.kind[idx] == LIGHT_SPHERE
-    down = torch.tensor([0.0, -1.0, 0.0], device=dev)[:, None]
+    if down is None:
+        down = torch.tensor([0.0, -1.0, 0.0], device=dev)[:, None]
     nrm = torch.where(is_sph, sn, down)
     origin = torch.where(is_sph, s_origin, r_origin)
     # one hemisphere draw around the chosen normal serves both kinds
@@ -793,6 +800,11 @@ class Deposits(NamedTuple):
     caustic: torch.Tensor  # (P,) bool: first diffuse after specular only
 
 
+# the regenerating photon pass's wavefront width (JAX wavefront_soa.py:
+# 1247, chosen from a TPU sweep); it fixes the deposit slots and the draws
+PHOTON_LANES = 16384
+
+
 def spawn_window(n_photons: int, lanes: int) -> int:
     """Steps during which retired lanes may spawn the next photon: ~L/2.5
     lanes retire per step, so 4 (B - L) / L steps admit the remaining
@@ -800,24 +812,20 @@ def spawn_window(n_photons: int, lanes: int) -> int:
     return 0 if n_photons <= lanes else -(-4 * (n_photons - lanes) // lanes)
 
 
-def trace_photon_deposits_regen_soa(scene, tables: BounceTables,
-                                    gen: torch.Generator, n_photons: int,
-                                    max_bounces: int, t_min: float,
-                                    spawn_eps, lanes: int = 16384,
-                                    window: int = None,
-                                    intersector: str = "pallas"):
-    """Path-regeneration photon pass: a fixed wavefront of
-    ``min(lanes, n_photons)`` lanes traces photons; when a photon dies
-    (Russian roulette, miss or the ``max_bounces`` cap) its lane emits the
-    next photon while the spawn budget of ``n_photons`` lasts.
+class PhotonPass:
+    """The path-regeneration photon pass in static buffers: a fixed
+    wavefront of L = ``min(lanes, n_photons)`` lanes traces photons; when
+    a photon dies (Russian roulette, miss or the ``max_bounces`` cap) its
+    lane emits the next photon while the spawn budget of ``n_photons``
+    lasts. ``lanes`` defaults to ``PHOTON_LANES``.
 
     The step count S = window + max_bounces is static (``spawn_window``;
-    ``window`` overrides it), so every admitted photon gets its full bounce
-    allowance and the loop needs no host sync. A per-step prefix sum over
-    the retire mask admits exactly the budget. If the window closes before
-    the budget is spent, deposit powers are scaled by n_photons / spawned,
-    which keeps the estimate unbiased (the density estimate divides by the
-    nominal count).
+    ``window`` overrides it), so every admitted photon gets its full
+    bounce allowance and the loop needs no host sync. A per-step prefix
+    sum over the retire mask admits exactly the budget. If the window
+    closes before the budget is spent, deposit powers are scaled by
+    n_photons / spawned, which keeps the estimate unbiased (the density
+    estimate divides by the nominal count).
 
     Per photon (material.rs:27-45, photon_mapper.rs:244-252): Russian
     roulette against the attenuation's largest component with the power
@@ -825,72 +833,139 @@ def trace_photon_deposits_regen_soa(scene, tables: BounceTables,
     renormalisation at every diffuse hit, and a caustic flag on the first
     diffuse hit after a specular-only prefix.
 
-    The bounce takes ``intersector``'s route ("pallas" or "leaf").
+    The buffers: the lanes (origin, direction, power, alive, the
+    specular and diffuse flags, depth), the deposits (9, S, L) (point,
+    power, normal), their flags (2, S, L) (valid, caustic) and the spawn
+    counter. ``step`` updates them in place and every constant tensor is
+    made here, so one object runs the same pass eagerly and under a CUDA
+    graph's capture (``models/sppm.py::graphed_photon_pass``). The bounce
+    takes ``intersector``'s route ("pallas" or "leaf"); ``lights``
+    replaces the scene's emitters (a graph's own copies); ``spawn_eps``:
+    a float or a 0-d tensor."""
 
-    Returns (``Deposits`` of S * L slots, photons spawned as a 0-d device
-    tensor)."""
-    B = int(n_photons)
-    L = min(B, int(lanes))
-    if window is None:
-        window = spawn_window(B, L)
-    S = window + max_bounces
-    dev = tables.sph.device
-    f32 = torch.float32
-    fused = use_fused(scene, intersector)
-    dep = torch.empty((9, S, L), dtype=f32, device=dev)
-    flags = torch.empty((2, S, L), dtype=torch.bool, device=dev)
+    def __init__(self, scene, tables: BounceTables, n_photons: int,
+                 max_bounces: int, t_min: float, spawn_eps,
+                 lanes: int = None, window: int = None,
+                 intersector: str = "pallas", lights: Lights = None):
+        B = int(n_photons)
+        L = min(B, int(PHOTON_LANES if lanes is None else lanes))
+        if window is None:
+            window = spawn_window(B, L)
+        self.B, self.L, self.window = B, L, window
+        self.S = window + max_bounces
+        self.max_bounces, self.t_min = max_bounces, t_min
+        self.tables, self.intersector = tables, intersector
+        self.fused = use_fused(scene, intersector)
+        self.scene = None if self.fused else scene   # unfused textures
+        self.lights = scene.lights if lights is None else lights
+        dev = tables.sph.device
+        f32 = torch.float32
+        self.eps = torch.as_tensor(spawn_eps, dtype=f32, device=dev)
+        self.down = torch.tensor([0.0, -1.0, 0.0], device=dev)[:, None]
+        self.dep = torch.empty((9, self.S, L), dtype=f32, device=dev)
+        self.flags = torch.empty((2, self.S, L), dtype=torch.bool,
+                                 device=dev)
+        self.o, self.d, self.w = (torch.empty((3, L), dtype=f32, device=dev)
+                                  for _ in range(3))
+        self.alive, self.has_spec, self.has_diff = (
+            torch.empty((L,), dtype=torch.bool, device=dev)
+            for _ in range(3))
+        self.depth = torch.empty((L,), dtype=torch.int32, device=dev)
+        self.counter = torch.empty((), dtype=torch.int64, device=dev)
 
-    o, d, w = emit_photons_soa(scene.lights, gen, L)
-    alive = torch.ones((L,), dtype=torch.bool, device=dev)
-    has_spec = torch.zeros_like(alive)
-    has_diff = torch.zeros_like(alive)
-    depth = torch.zeros((L,), dtype=torch.int32, device=dev)
-    counter = torch.full((), L, dtype=torch.int64, device=dev)
-    for step in range(S):
-        U = torch.rand((U_TRACE_ROWS, L), generator=gen, device=dev)
-        b = bounce_step(tables, U, o, d, alive, t_min=t_min,
-                        spawn_eps=spawn_eps, fused=fused, scene=scene,
-                        intersector=intersector)
+    def start(self, gen: torch.Generator):
+        """Emit the first L photons and reset the lanes."""
+        for buf, x in zip((self.o, self.d, self.w),
+                          emit_photons_soa(self.lights, gen, self.L,
+                                           self.down)):
+            buf.copy_(x)
+        self.alive.fill_(True)
+        self.has_spec.fill_(False)
+        self.has_diff.fill_(False)
+        self.depth.zero_()
+        self.counter.fill_(self.L)
+
+    def step(self, gen: torch.Generator, step: int):
+        """Bounce every lane once, deposit, and (within the window) spawn
+        into the retired lanes."""
+        L, B = self.L, self.B
+        o, d, w, alive = self.o, self.d, self.w, self.alive
+        U = torch.rand((U_TRACE_ROWS, L), generator=gen, device=o.device)
+        b = bounce_step(self.tables, U, o, d, alive, t_min=self.t_min,
+                        spawn_eps=self.eps, fused=self.fused,
+                        scene=self.scene, intersector=self.intersector)
         hmax = b.att.amax(0)
         survive = U[U_RR] <= hmax
         inter = torch.where(survive, b.inter, INTER_ABSORB)
         diffuse_now = alive & (inter == INTER_DIFFUSE)
-        dep[0:3, step] = b.p
-        dep[3:6, step] = w
-        dep[6:9, step] = b.n
-        flags[0, step] = diffuse_now
-        flags[1, step] = diffuse_now & has_spec & ~has_diff
+        self.dep[0:3, step] = b.p
+        self.dep[3:6, step] = w
+        self.dep[6:9, step] = b.n
+        self.flags[0, step] = diffuse_now
+        self.flags[1, step] = diffuse_now & self.has_spec & ~self.has_diff
 
         cont = alive & (inter != INTER_ABSORB)
-        depth = depth + 1
-        cont = cont & (depth < max_bounces)      # per-path cap
+        self.depth += 1
+        cont = cont & (self.depth < self.max_bounces)    # per-path cap
         renorm = torch.where(survive, b.att / torch.clamp(hmax, min=1e-12),
                              1.0)
-        o = torch.where(cont, b.no, o)
-        d = torch.where(cont, b.nd, d)
-        w = torch.where(cont, w * renorm, w)
-        has_spec = has_spec | (cont & ~diffuse_now)
-        has_diff = has_diff | diffuse_now
+        torch.where(cont, b.no, o, out=o)
+        torch.where(cont, b.nd, d, out=d)
+        torch.where(cont, w * renorm, w, out=w)
+        self.has_spec |= cont & ~diffuse_now
+        self.has_diff |= diffuse_now
         alive_next = alive & cont
-        if step < window:
+        if step < self.window:
             retire = alive & ~cont
             rank = torch.cumsum(retire, 0)
-            spawn = retire & (counter + rank <= B)
-            counter = counter + torch.minimum(rank[-1], B - counter)
-            eo, ed, ew = emit_photons_soa(scene.lights, gen, L)
-            o = torch.where(spawn, eo, o)
-            d = torch.where(spawn, ed, d)
-            w = torch.where(spawn, ew, w)
-            has_spec = has_spec & ~spawn
-            has_diff = has_diff & ~spawn
-            depth = torch.where(spawn, 0, depth)
-            alive_next = alive_next | spawn
-        alive = alive_next
+            spawn = retire & (self.counter + rank <= B)
+            self.counter += torch.minimum(rank[-1], B - self.counter)
+            eo, ed, ew = emit_photons_soa(self.lights, gen, L, self.down)
+            torch.where(spawn, eo, o, out=o)
+            torch.where(spawn, ed, d, out=d)
+            torch.where(spawn, ew, w, out=w)
+            self.has_spec &= ~spawn
+            self.has_diff &= ~spawn
+            self.depth.masked_fill_(spawn, 0)
+            alive_next |= spawn
+        alive.copy_(alive_next)
         nans.check("a photon step", power=w, origin=o, direction=d)
-    dep[3:6] *= B / torch.clamp(counter, min=1).to(f32)
-    dep = dep.reshape(9, S * L)
-    flags = flags.reshape(2, S * L)
-    return Deposits(dep[0:3], dep[3:6], dep[6:9], flags[0], flags[1]), counter
+
+    def finish(self):
+        """Rescale the deposit powers by n_photons / spawned."""
+        self.dep[3:6] *= self.B / torch.clamp(self.counter,
+                                              min=1).to(torch.float32)
+
+    def run(self, gen: torch.Generator):
+        """The whole pass, its draws from ``gen``."""
+        self.start(gen)
+        for step in range(self.S):
+            self.step(gen, step)
+        self.finish()
+
+    def deposits(self):
+        """(``Deposits`` of S * L slots, photons spawned as a 0-d device
+        tensor): views of the buffers."""
+        dep = self.dep.reshape(9, self.S * self.L)
+        flags = self.flags.reshape(2, self.S * self.L)
+        return (Deposits(dep[0:3], dep[3:6], dep[6:9], flags[0], flags[1]),
+                self.counter)
+
+
+def trace_photon_deposits_regen_soa(scene, tables: BounceTables,
+                                    gen: torch.Generator, n_photons: int,
+                                    max_bounces: int, t_min: float,
+                                    spawn_eps, lanes: int = None,
+                                    window: int = None,
+                                    intersector: str = "pallas"):
+    """The path-regeneration photon pass (``PhotonPass``) run eagerly,
+    its draws from ``gen``. Returns (``Deposits`` of S * L slots, photons
+    spawned as a 0-d device tensor)."""
+    pas = PhotonPass(scene, tables, n_photons, max_bounces, t_min,
+                     spawn_eps, lanes=lanes, window=window,
+                     intersector=intersector)
+    pas.run(gen)
+    return pas.deposits()
 
 
 def trace_photon_deposits_soa(scene, tables: BounceTables,

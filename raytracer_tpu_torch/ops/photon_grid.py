@@ -16,6 +16,7 @@ ids, the same stable sort, the same bfloat16 payload rounding.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -41,12 +42,20 @@ class QueryResult(NamedTuple):
     count_cap: torch.Tensor  # (N,)
 
 
+@functools.lru_cache(maxsize=16)
+def res_tensor(res: Tuple[int, int, int], device) -> torch.Tensor:
+    """The grid resolution as a (3,) float32 tensor on ``device``, made
+    once per (resolution, device): a grid build copies nothing from the
+    host, so that a CUDA graph can capture it. Not to be written to."""
+    return torch.tensor(res, dtype=torch.float32, device=device)
+
+
 def cell_coords(pos, bmin, inv_cell, res: Tuple[int, int, int]):
     """Integer cell coordinates (N, 3) int32 of each (N, 3) position,
     clamped into the grid. The float product is rounded as in the JAX
     package; values are clamped before the integer cast, which changes
     nothing for finite positions and keeps out-of-range ones defined."""
-    hi = torch.tensor(res, dtype=torch.float32, device=pos.device)
+    hi = res_tensor(tuple(res), pos.device)
     x = torch.nan_to_num((pos - bmin) * inv_cell, nan=0.0)
     ci = torch.minimum(torch.clamp(torch.floor(x), min=0.0), hi - 1.0)
     return ci.to(torch.int32)
@@ -73,8 +82,7 @@ def build_grid(pos, power, norm, valid, bmin, bmax,
     before the sentinel tail."""
     n_cells = res[0] * res[1] * res[2]
     extent = torch.clamp(bmax - bmin, min=1e-6)
-    inv_cell = torch.tensor(res, dtype=torch.float32,
-                            device=pos.device) / extent
+    inv_cell = res_tensor(tuple(res), pos.device) / extent
     cid = cell_ids(pos, bmin, inv_cell, res)
     cid = torch.where(valid, cid, n_cells)
     order = torch.argsort(cid, stable=True)

@@ -54,7 +54,10 @@ def photon_maps_sharded(scene: Scene, tables, seed: int, iteration: int, *,
                         stage=None):
     """The photon pass of this rank (ceil(n_photons / n) photons), its
     deposits all-gathered with every rank's, and both maps built from all
-    of them: the same grids on every rank. Returns (global grid, caustic
+    of them: the same grids on every rank. On the card the pass is one
+    replay of its captured graph (``sppm.trace_deposits``); the
+    all-gather copies its deposits out of the graph's buffers, and the
+    maps are built eagerly after it. Returns (global grid, caustic
     grid)."""
     n_dev = mesh.size
     n_local = -(-int(n_photons) // n_dev)
