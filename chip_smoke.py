@@ -3658,6 +3658,7 @@ def photon_graph_phase() -> dict:
     its graphed iterations."""
     from raytracer_tpu_torch.models import sppm
     from raytracer_tpu_torch.models import wavefront_soa as wf
+    from raytracer_tpu_torch.utils import timing
     scene = load("cornell_mesh", SPPM_W / SPPM_H).to(DEV)
     cfg = sppm_config(SPPM_SPP)
     eager_pass, graph_pass, kw, tables = graph_passes(scene, cfg)
@@ -3669,15 +3670,17 @@ def photon_graph_phase() -> dict:
     torch.cuda.empty_cache()
     mem0, res0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
     zero_counts()
-    first_s = host_s(graph_pass)
+    with timing.recording():
+        first_s = host_s(graph_pass)
+    spans = timing.recorded()["spans"]
     first = {k: v for k, v in counts().items() if v}
     entry = next(reversed(sppm.PHOTON_GRAPHS.entries.values()))
     mem = torch.cuda.memory_allocated() - mem0
     pool = torch.cuda.memory_reserved() - res0
     steps = wf.spawn_window(SPPM_PHOTONS, wf.PHOTON_LANES) + bounces
-    log(f"photon graph: first call {first_s:.4f} s = warm-up step "
-        f"{entry.info['warm_s']:.4f} s, capture {entry.info['capture_s']:.4f}"
-        f" s, instantiate {entry.info['instantiate_s']:.4f} s, and a replay;"
+    log(f"photon graph: first call {first_s:.4f} s = warm-up step, capture "
+        f"and instantiation {spans['graph.capture']['s']:.4f} s, and a "
+        f"replay {spans['graph.replay']['s']:.4f} s (host);"
         f" {steps} steps, launches captured a replay {entry.launches}, in "
         f"the first call {first}; memory held {mem / 2**20:.1f} MiB "
         f"allocated, {pool / 2**20:.1f} MiB reserved")

@@ -82,7 +82,9 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--preset", choices=["ci"], default=None,
                    help="small CI workload (RenderConfig.ci_preset)")
     r.add_argument("--profile-dir", default=None,
-                   help="write a torch.profiler trace (trace.json) here")
+                   help="write a torch.profiler trace (trace.json) here, "
+                        "the port's spans in it, and print the render's "
+                        "counters")
     r.add_argument("--debug-nans", action="store_true",
                    help="raise FloatingPointError at the first wavefront "
                         "step whose outputs hold a NaN")
@@ -161,7 +163,8 @@ def _render(args) -> int:
     from raytracer_tpu_torch.utils import nans
     from raytracer_tpu_torch.utils.config import RenderConfig, SPPMConfig
     from raytracer_tpu_torch.utils.image import save_render
-    from raytracer_tpu_torch.utils.timing import StageTimer, maybe_profile
+    from raytracer_tpu_torch.utils.timing import (
+        StageTimer, maybe_profile, recorded)
 
     timer = StageTimer()
     cfg = RenderConfig(
@@ -254,6 +257,10 @@ def _render(args) -> int:
     if not writer:
         return 0
     timer.count("traced_rays", rays)
+    if args.profile_dir:
+        # the recorder's counters of the profiled render
+        for name, v in recorded()["counters"].items():
+            timer.count(name, v)
     with timer.stage("Save"):
         save_render(cfg.output, img)
     build_s = timer.stages["Scene build"]

@@ -34,7 +34,7 @@ from raytracer_tpu_torch.ops import dispatch, intersect, materials, media, vec
 from raytracer_tpu_torch.ops import mis as mis_ops
 from raytracer_tpu_torch.ops import nee as nee_ops
 from raytracer_tpu_torch.scene.types import INTER_ABSORB, INTER_DIFFUSE, Scene
-from raytracer_tpu_torch.utils import nans
+from raytracer_tpu_torch.utils import nans, timing
 from raytracer_tpu_torch.utils.config import RenderConfig
 from raytracer_tpu_torch.utils.timing import Progress, sync_for
 
@@ -199,6 +199,7 @@ def trace_radiance(scene: Scene, o, d, generator: torch.Generator, *,
     return TraceResult(rad.T, rays)
 
 
+@timing.spanned("pt.render_fn")
 def render_fn(scene: Scene, generator: torch.Generator, *, width: int,
               height: int, spp: int, spp_chunk: int, max_depth: int,
               t_min: float, spawn_eps_rel: float, intersector: str = "auto",

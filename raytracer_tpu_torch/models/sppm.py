@@ -47,10 +47,10 @@ from raytracer_tpu_torch.ops import photon_grid as pg
 from raytracer_tpu_torch.ops.fused_bounce import has_media
 from raytracer_tpu_torch.ops.photon_query import query_photons
 from raytracer_tpu_torch.scene.types import INTER_ABSORB, INTER_DIFFUSE, Scene
-from raytracer_tpu_torch.utils import graphs, nans
+from raytracer_tpu_torch.utils import graphs, nans, timing
 from raytracer_tpu_torch.utils.config import RenderConfig, SPPMConfig
 from raytracer_tpu_torch.utils.rng import stream_generator
-from raytracer_tpu_torch.utils.timing import Progress, sync_for
+from raytracer_tpu_torch.utils.timing import Progress, Stages, sync_for
 
 PI = 3.141592653589793
 PHOTON_T_MIN = 1e-4         # photon_mapper.rs:242
@@ -85,24 +85,6 @@ def state_to(state: SPPMState, device) -> SPPMState:
     return SPPMState(SPPMHalf(*(x.to(device) for x in state.glob)),
                      SPPMHalf(*(x.to(device) for x in state.caustic)),
                      int(state.iteration))
-
-
-class Stages:
-    """Per-stage host-clock seconds of one iteration, taken after a device
-    sync, when ``times`` is a dict; a no-op otherwise."""
-
-    def __init__(self, times: Optional[dict], device):
-        self.times, self.device = times, torch.device(device)
-        self.t = time.perf_counter()
-
-    def __call__(self, name: str):
-        if self.times is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.times[name] = self.times.get(name, 0.0) + now - self.t
-        self.t = now
 
 
 # ----------------------------------------------------------------- routes
@@ -296,25 +278,22 @@ def photon_maps(scene: Scene, tables, gen, *, n_photons: int,
                 intersector: str = "pallas", stage=None):
     """The photon pass and both maps (the JAX ``photon_grids``). Where
     ``photon_graph`` says so they are one graph replay
-    (``graphed_photon_pass``) and the stage "photon pass" covers both;
-    else the pass (stage "photon pass") and then the grid builds ("grid
-    build"). Returns (global grid, caustic grid)."""
+    (``graphed_photon_pass``) and the stage "sppm.photon_pass" covers
+    both; else the pass ("sppm.photon_pass") and then the grid builds
+    ("sppm.grid_build"). Returns (global grid, caustic grid)."""
     stage = stage or Stages(None, scene.bounds_min.device)
-    method = dispatch.route(scene, intersector)
-    if photon_graph(scene, method, scene.bounds_min.device):
-        _dep, _spawned, maps = graphed_photon_pass(
-            scene, tables, gen, n_photons=n_photons,
-            max_photon_bounces=max_photon_bounces, spawn_eps=spawn_eps,
-            grid_res=grid_res, intersector=method)
-        stage("photon pass")
-        return maps
-    dep = trace_deposits(scene, tables, gen, n_photons=n_photons,
-                         max_photon_bounces=max_photon_bounces,
-                         spawn_eps=spawn_eps, intersector=method)
-    stage("photon pass")
-    maps = build_maps(scene, dep, grid_res, n_photons)
-    stage("grid build")
-    return maps
+    with stage("sppm.photon_pass"):
+        method = dispatch.route(scene, intersector)
+        if photon_graph(scene, method, scene.bounds_min.device):
+            return graphed_photon_pass(
+                scene, tables, gen, n_photons=n_photons,
+                max_photon_bounces=max_photon_bounces, spawn_eps=spawn_eps,
+                grid_res=grid_res, intersector=method)[2]
+        dep = trace_deposits(scene, tables, gen, n_photons=n_photons,
+                             max_photon_bounces=max_photon_bounces,
+                             spawn_eps=spawn_eps, intersector=method)
+    with stage("sppm.grid_build"):
+        return build_maps(scene, dep, grid_res, n_photons)
 
 
 # ------------------------------------------------------- measurement pass
@@ -366,7 +345,10 @@ def _measurement_aos(scene: Scene, tables, gen, o, d, *, max_depth: int,
     valid = torch.zeros_like(alive)
     p, nrm, bsdf = (torch.zeros((n, 3), device=dev) for _ in range(3))
     step = 0
-    while step < max_depth and bool(alive.any()):
+    while step < max_depth:
+        with timing.span("walk.sync"):
+            if not bool(alive.any()):
+                break
         U = torch.rand((k_rows, n), generator=gen, device=dev)
         attrs = hit_and_attrs(scene, o, d, t_min,
                               _media_u(scene, U, wf.U_DIEL + 1),
@@ -390,6 +372,7 @@ def _measurement_aos(scene: Scene, tables, gen, o, d, *, max_depth: int,
         step += 1
         nans.check("a measurement step", point=p, normal=nrm, bsdf=bsdf,
                    origin=o, direction=d)
+    timing.count("walk.steps", step)
     return wf.MeasurePoints(valid, p, nrm, bsdf)
 
 
@@ -413,34 +396,18 @@ def _query(grid: pg.PhotonGrid, grid_res, points, radius, cap_radius,
     raise ValueError(f"unknown query_impl {impl!r}")
 
 
-def _sorted_dual_query(g_grid, c_grid, grid_res, pts_p, rg, cap_g, rc,
-                       cap_c, bounds_min, bounds_max, stage=None,
-                       k_per_cell: int = 64, impl: str = "dense"):
-    """Both map queries with the points cell-sorted (one shared stable
-    sort), so a kernel tile covers a compact patch of surface and culls
-    most photon chunks. Results are unsorted back; the sums are those of
-    the unsorted query."""
-    n = pts_p.shape[0]
+def _cell_order(pts_p, grid_res, bounds_min, bounds_max):
+    """(order, inverse) of the points' one shared stable sort by grid
+    cell, which both map queries take, so a kernel tile covers a compact
+    patch of surface and culls most photon chunks; a query's results,
+    indexed by the inverse, are those of the unsorted query."""
     extent = torch.clamp(bounds_max - bounds_min, min=1e-6)
     inv_cell = pg.res_tensor(tuple(grid_res), pts_p.device) / extent
     order = torch.argsort(pg.cell_ids(pts_p, bounds_min, inv_cell, grid_res),
                           stable=True)
     inv = torch.empty_like(order)
-    inv[order] = torch.arange(n, device=order.device)
-    p_s = pts_p[order].contiguous()
-
-    def unsort(q):
-        return pg.QueryResult(*(x[inv] for x in q))
-
-    qg = _query(g_grid, grid_res, p_s, rg[order], cap_g[order], k_per_cell,
-                impl)
-    if stage:
-        stage("query global")
-    qc = _query(c_grid, grid_res, p_s, rc[order], cap_c[order], k_per_cell,
-                impl)
-    if stage:
-        stage("query caustic")
-    return unsort(qg), unsort(qc)
+    inv[order] = torch.arange(pts_p.shape[0], device=order.device)
+    return order, inv
 
 
 def cap_radius(scene: Scene, grid_res):
@@ -499,6 +466,7 @@ def _update_half(half: SPPMHalf, pts: wf.MeasurePoints, q: pg.QueryResult,
 
 # -------------------------------------------------------------- iteration
 
+@timing.spanned("sppm.iteration")
 def sppm_iteration(scene: Scene, tables, state: SPPMState, seed: int, *,
                    width: int, height: int, n_photons: int,
                    max_photon_bounces: int, max_camera_bounces: int,
@@ -510,7 +478,8 @@ def sppm_iteration(scene: Scene, tables, state: SPPMState, seed: int, *,
     """One SPPM iteration over the whole image, on ``intersector``'s
     route, the queries by ``query_impl``. ``times``: a dict that receives
     per-stage seconds (each stage ends in a device sync; on the photon
-    graph, "photon pass" covers the grid builds, ``photon_maps``)."""
+    graph, "photon pass" covers the grid builds, ``photon_maps``): the
+    keys of the stage spans (``timing.stage_key``)."""
     dev = scene.bounds_min.device
     it = int(state.iteration)
     spawn_eps = spawn_eps_rel * scene.scale
@@ -542,23 +511,29 @@ def measure_and_update(scene: Scene, tables, state: SPPMState, g_grid,
     both queries and the update of ``state``, whose rows are those
     pixels'. Returns the updated state, one iteration further."""
     stage = stage or Stages(None, scene.bounds_min.device)
-    pts = measurement_pass(scene, tables, gen, width, height,
-                           max_camera_bounces, t_min, spawn_eps, intersector,
-                           pixel_ids)
-    stage("measurement")
-    cap = cap_radius(scene, grid_res)
-    rg, cap_g = query_radii(state.glob, cap)
-    rc, cap_c = query_radii(state.caustic, cap)
-    qg, qc = _sorted_dual_query(g_grid, c_grid, grid_res, pts.p, rg, cap_g,
-                                rc, cap_c, scene.bounds_min,
-                                scene.bounds_max, stage, k_per_cell,
-                                query_impl)
-    glob = _update_half(state.glob, pts, qg, k_global, alpha, cap)
-    caus = _update_half(state.caustic, pts, qc, k_caustic, alpha, cap)
-    for name, half in (("global", glob), ("caustic", caus)):
-        nans.check(f"the {name} stat update", flux=half.flux,
-                   radius2=half.radius2, photons=half.photons)
-    stage("update")
+    with stage("sppm.measurement"):
+        pts = measurement_pass(scene, tables, gen, width, height,
+                               max_camera_bounces, t_min, spawn_eps,
+                               intersector, pixel_ids)
+    with stage("sppm.query.global"):
+        cap = cap_radius(scene, grid_res)
+        rg, cap_g = query_radii(state.glob, cap)
+        rc, cap_c = query_radii(state.caustic, cap)
+        order, inv = _cell_order(pts.p, grid_res, scene.bounds_min,
+                                 scene.bounds_max)
+        p_s = pts.p[order].contiguous()
+        qg = _query(g_grid, grid_res, p_s, rg[order], cap_g[order],
+                    k_per_cell, query_impl)
+    with stage("sppm.query.caustic"):
+        qc = _query(c_grid, grid_res, p_s, rc[order], cap_c[order],
+                    k_per_cell, query_impl)
+    with stage("sppm.update"):
+        qg, qc = (pg.QueryResult(*(x[inv] for x in q)) for q in (qg, qc))
+        glob = _update_half(state.glob, pts, qg, k_global, alpha, cap)
+        caus = _update_half(state.caustic, pts, qc, k_caustic, alpha, cap)
+        for name, half in (("global", glob), ("caustic", caus)):
+            nans.check(f"the {name} stat update", flux=half.flux,
+                       radius2=half.radius2, photons=half.photons)
     return SPPMState(glob, caus, int(state.iteration) + 1)
 
 
@@ -601,11 +576,14 @@ def gather_walk(scene: Scene, tables, o, d, est, gen, *, max_depth: int,
     rad = torch.zeros((n, 3), device=dev)
     alive = torch.ones((n,), dtype=torch.bool, device=dev)
     rays = 0
+    steps = 0
     for _ in range(max_depth):
-        n_alive = int(alive.sum())
+        with timing.span("walk.sync"):
+            n_alive = int(alive.sum())
         if n_alive == 0:
             break
         rays += n_alive
+        steps += 1
         U = torch.rand((k_rows, n), generator=gen, device=dev)
         attrs = hit_and_attrs(scene, o, d, t_min,
                               _media_u(scene, U, wf.U_DIEL + 1),
@@ -624,9 +602,11 @@ def gather_walk(scene: Scene, tables, o, d, est, gen, *, max_depth: int,
         alive = cont
         nans.check("a gather-walk step", radiance=rad, throughput=tput,
                    origin=o, direction=d)
+    timing.count("walk.steps", steps)
     return rad, rays
 
 
+@timing.spanned("sppm.gather_fn")
 def gather_fn(scene: Scene, tables, state: SPPMState, gen, *, width: int,
               height: int, spp: int, spp_chunk: int, max_depth: int,
               t_min: float, spawn_eps_rel: float, n_total_photons: int,

@@ -61,7 +61,7 @@ from raytracer_tpu_torch.ops.noise import marble
 from raytracer_tpu_torch.ops.sampling import (
     camera_rays_soa, uniform_sphere_from,
 )
-from raytracer_tpu_torch.utils import nans
+from raytracer_tpu_torch.utils import nans, timing
 from raytracer_tpu_torch.scene.types import (
     INTER_ABSORB, INTER_DIFFUSE, INTER_REFLECT, INTER_REFRACT,
     INTER_SPECULAR, LIGHT_SPHERE, MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT,
@@ -556,47 +556,50 @@ def render_regen_soa(scene, tables: BounceTables, gen: torch.Generator, *,
     Returns ((npix, 3) radiance sum over all samples in pixel order, or
     (n_out, 3) in slot order with ``pixel_slots``, rays traced (alive
     lanes summed over steps, an int), loop steps)."""
-    dev = tables.sph.device
-    cam = scene.camera
-    if pixel_slots is None:
-        perm, inv = block_order(width, height)
-        slots = torch.as_tensor(perm, device=dev).long()
-    else:
-        inv = None
-        slots = torch.as_tensor(pixel_slots, device=dev).long()
-    n_out = slots.shape[0]
-    n = n_out * lanes_per_pixel
-    slot_id = torch.arange(n, device=dev) % n_out
-    pix = slots[slot_id]
-    px = (pix % width).to(torch.float32)
-    py = (pix // width).to(torch.float32)
-    motion = tables.sph_vel is not None
-    first = torch.rand((4 + motion, n), generator=gen, device=dev)
-    o0, d0 = camera_rays_soa(cam, px, py, width, height, first[:4])
-    times = (cam.time0 + first[4] * (cam.time1 - cam.time0) if motion
-             else None)
-    ones = torch.ones((3, n), device=dev)
-    zeros = torch.zeros((3, n), device=dev)
-    izero = torch.zeros((n,), dtype=torch.int32, device=dev)
-    if est is not None and pixel_slots is None:
-        est = est[slots]                       # slot order
-    lane_est = None if est is None else est[slot_id].T.contiguous()
-    alive0 = torch.ones((n,), dtype=torch.bool, device=dev)
-    s = _Lanes(o0, d0, ones, zeros, zeros.clone(), alive0, izero,
-               izero.clone(), px, py, slot_id, ~alive0, lane_est, times)
-    kw = dict(width=width, height=height, quota=samples_per_lane,
-              max_depth=max_depth, t_min=t_min, spawn_eps=spawn_eps,
-              russian_roulette=russian_roulette,
-              fused=use_fused(scene, intersector), nee=nee, mis=mis,
-              intersector=intersector)
-    one_kernel = (_ONE_KERNEL_STEP and kw["fused"] and not (nee or mis)
-                  and est is None)
-    if one_kernel:
-        cam_pack = regen_ops.pack_camera(cam)
-        eps = float(spawn_eps)                 # one host read, not per step
-        rkw = dict(width=width, height=height, quota=samples_per_lane,
-                   max_depth=max_depth, rr_on=russian_roulette,
-                   rr_start=RR_START_BOUNCE, t_min=t_min)
+    # the lanes and the step's arguments
+    with timing.span("regen.setup"):
+        dev = tables.sph.device
+        cam = scene.camera
+        if pixel_slots is None:
+            perm, inv = block_order(width, height)
+            slots = torch.as_tensor(perm, device=dev).long()
+        else:
+            inv = None
+            slots = torch.as_tensor(pixel_slots, device=dev).long()
+        n_out = slots.shape[0]
+        n = n_out * lanes_per_pixel
+        slot_id = torch.arange(n, device=dev) % n_out
+        pix = slots[slot_id]
+        px = (pix % width).to(torch.float32)
+        py = (pix // width).to(torch.float32)
+        motion = tables.sph_vel is not None
+        first = torch.rand((4 + motion, n), generator=gen, device=dev)
+        o0, d0 = camera_rays_soa(cam, px, py, width, height, first[:4])
+        times = (cam.time0 + first[4] * (cam.time1 - cam.time0) if motion
+                 else None)
+        ones = torch.ones((3, n), device=dev)
+        zeros = torch.zeros((3, n), device=dev)
+        izero = torch.zeros((n,), dtype=torch.int32, device=dev)
+        if est is not None and pixel_slots is None:
+            est = est[slots]                   # slot order
+        lane_est = None if est is None else est[slot_id].T.contiguous()
+        alive0 = torch.ones((n,), dtype=torch.bool, device=dev)
+        s = _Lanes(o0, d0, ones, zeros, zeros.clone(), alive0, izero,
+                   izero.clone(), px, py, slot_id, ~alive0, lane_est, times)
+        kw = dict(width=width, height=height, quota=samples_per_lane,
+                  max_depth=max_depth, t_min=t_min, spawn_eps=spawn_eps,
+                  russian_roulette=russian_roulette,
+                  fused=use_fused(scene, intersector), nee=nee, mis=mis,
+                  intersector=intersector)
+        one_kernel = (_ONE_KERNEL_STEP and kw["fused"] and not (nee or mis)
+                      and est is None)
+        if one_kernel:
+            cam_pack = regen_ops.pack_camera(cam)
+            with timing.span("regen.eps.sync"):
+                eps = float(spawn_eps)         # one host read, not per step
+            rkw = dict(width=width, height=height, quota=samples_per_lane,
+                       max_depth=max_depth, rr_on=russian_roulette,
+                       rr_start=RR_START_BOUNCE, t_min=t_min)
 
     rays = 0      # a Python int: exact at any count
     steps = 0
@@ -605,40 +608,51 @@ def render_regen_soa(scene, tables: BounceTables, gen: torch.Generator, *,
     sizes = _drain_sizes(n)
     for level, floor in enumerate(sizes[1:] + [0]):
         while True:
-            n_alive = int(s.alive.sum())   # the one host sync per step
+            with timing.span("regen.sync"):
+                n_alive = int(s.alive.sum())   # the one host sync per step
             if n_alive <= floor:
                 break
             rays += n_alive
-            if one_kernel:
-                U = torch.rand((U_REGEN_ROWS + motion, s.o.shape[1]),
-                               generator=gen, device=dev)
-                s = regen_ops.regen_step_tables(tables, cam_pack, U, eps, s,
-                                                **rkw)
-            else:
-                s, cast = _step(s, tables, scene, gen, **kw)
-                if cast is not None:
-                    shadow += cast.sum()
+            with timing.span("regen.dispatch"):
+                if one_kernel:
+                    with timing.span("regen.draw"):
+                        U = torch.rand((U_REGEN_ROWS + motion, s.o.shape[1]),
+                                       generator=gen, device=dev)
+                    s = regen_ops.regen_step_tables(tables, cam_pack, U, eps,
+                                                    s, **rkw)
+                else:
+                    with timing.span("regen.launch"):
+                        s, cast = _step(s, tables, scene, gen, **kw)
+                        if cast is not None:
+                            shadow += cast.sum()
             steps += 1
             nans.check("a path-regeneration step", origin=s.o,
                        direction=s.d, throughput=s.tput,
                        sample_radiance=s.samp, radiance=s.acc)
-        if level == 0:
-            # level 0 keeps its static lane -> slot map: a reshape-sum
-            accum += s.acc.reshape(3, lanes_per_pixel, n_out).sum(1)
-        else:
-            accum.index_add_(1, s.slot, s.acc)
-        if floor:
-            # survivors first, in stable order; finished radiance stays
-            # behind in ``accum``
-            idx = torch.argsort((~s.alive).to(torch.int8), stable=True)[:floor]
-            s = _Lanes(*(None if x is None else x[..., idx] for x in s))
-            s = s._replace(acc=torch.zeros_like(s.acc))
+        with timing.span("regen.drain"):
+            if level == 0:
+                # level 0 keeps its static lane -> slot map: a reshape-sum
+                accum += s.acc.reshape(3, lanes_per_pixel, n_out).sum(1)
+            else:
+                accum.index_add_(1, s.slot, s.acc)
+            if floor:
+                # survivors first, in stable order; finished radiance stays
+                # behind in ``accum``
+                idx = torch.argsort((~s.alive).to(torch.int8),
+                                    stable=True)[:floor]
+                s = _Lanes(*(None if x is None else x[..., idx] for x in s))
+                s = s._replace(acc=torch.zeros_like(s.acc))
+    timing.count("regen.steps", steps)
+    timing.count("regen.rays", rays)
     if stats is not None:
-        stats["shadow_lanes"] = stats.get("shadow_lanes", 0) + int(shadow)
+        with timing.span("regen.shadow.sync"):
+            shadow = int(shadow)
+        stats["shadow_lanes"] = stats.get("shadow_lanes", 0) + shadow
         stats["steps"] = stats.get("steps", 0) + steps
     if inv is None:
         return accum.T, rays, steps
-    return accum.T[torch.as_tensor(inv, device=dev).long()], rays, steps
+    with timing.span("regen.finish"):
+        return accum.T[torch.as_tensor(inv, device=dev).long()], rays, steps
 
 
 def gather_regen_soa(scene, tables: BounceTables, est, gen: torch.Generator,
@@ -681,11 +695,14 @@ def gather_walk_soa(scene: Scene, tables: BounceTables, o, d, est,
     rad = torch.zeros((3, n), device=dev)
     alive = torch.ones((n,), dtype=torch.bool, device=dev)
     rays = 0
+    steps = 0
     for _ in range(max_depth):
-        n_alive = int(alive.sum())
+        with timing.span("walk.sync"):
+            n_alive = int(alive.sum())
         if n_alive == 0:
             break
         rays += n_alive
+        steps += 1
         U = torch.rand((U_DIEL + 1 + k_med, n), generator=gen, device=dev)
         b = bounce_step(tables, U, o, d, alive, t_min=t_min,
                         spawn_eps=spawn_eps, fused=fused, scene=scene,
@@ -701,6 +718,7 @@ def gather_walk_soa(scene: Scene, tables: BounceTables, o, d, est,
         alive = cont
         nans.check("a gather-walk step", radiance=rad, throughput=tput,
                    origin=o, direction=d)
+    timing.count("walk.steps", steps)
     return rad, rays
 
 
@@ -730,7 +748,10 @@ def measurement_soa(scene: Scene, tables: BounceTables,
     valid = torch.zeros((n,), dtype=torch.bool, device=dev)
     p, nrm, bsdf = (torch.zeros((3, n), device=dev) for _ in range(3))
     step = 0
-    while step < max_depth and bool(alive.any()):
+    while step < max_depth:
+        with timing.span("walk.sync"):
+            if not bool(alive.any()):
+                break
         U = torch.rand((U_DIEL + 1, n), generator=gen, device=dev)
         b = bounce_step(tables, U, o, d, alive, t_min=t_min,
                         spawn_eps=spawn_eps, fused=fused, scene=scene,
@@ -748,6 +769,7 @@ def measurement_soa(scene: Scene, tables: BounceTables,
         step += 1
         nans.check("a measurement step", point=p, normal=nrm, bsdf=bsdf,
                    origin=o, direction=d)
+    timing.count("walk.steps", step)
     return MeasurePoints(valid, p.T.contiguous(), nrm.T.contiguous(),
                          bsdf.T.contiguous())
 

@@ -39,6 +39,7 @@ import torch
 
 from raytracer_tpu_torch.kernels import build
 from raytracer_tpu_torch.ops.photon_grid import QueryResult
+from raytracer_tpu_torch.utils import timing
 
 TILE = 64       # points per kernel tile: a warp, 2 points a lane
 CHUNK = 1024    # photons per chunk box
@@ -122,7 +123,7 @@ def query_photons_plain(planes: PhotonPlanes, points, r2, cap2) -> QueryResult:
     n = points.shape[0]
     dev = points.device
     out = torch.zeros((n, 8), device=dev)
-    k_live = -(-int(planes.n_live[0]) // CHUNK)
+    k_live = _live_chunks(planes)
     if n == 0 or k_live == 0:
         return _result(out)
     clo, chi = planes.cull[0:3, :k_live], planes.cull[3:6, :k_live]
@@ -132,12 +133,19 @@ def query_photons_plain(planes: PhotonPlanes, points, r2, cap2) -> QueryResult:
         rr, cc = r2[a:a + PLAIN_POINTS], cap2[a:a + PLAIN_POINTS]
         reach2 = torch.maximum(rr, cc).amax()
         near = _gap2(p.amin(0)[None], p.amax(0)[None], clo, chi)[0] <= reach2
-        sel = (near.nonzero()[:, 0, None] * CHUNK + lanes).reshape(-1)
+        with timing.span("query.sync"):
+            sel = (near.nonzero()[:, 0, None] * CHUNK + lanes).reshape(-1)
         step = max(CHUNK, PLAIN_PAIRS // p.shape[0] // CHUNK * CHUNK)
         acc = out[a:a + PLAIN_POINTS]
         for b in range(0, sel.shape[0], step):
             _fold_plain(planes, sel[b:b + step], p, rr, cc, acc)
     return _result(out)
+
+
+def _live_chunks(planes: PhotonPlanes) -> int:
+    """The chunks up to the last valid photon's (a host read)."""
+    with timing.span("query.sync"):
+        return -(-int(planes.n_live[0]) // CHUNK)
 
 
 def _result(out) -> QueryResult:
@@ -180,11 +188,13 @@ def plan_items(planes: PhotonPlanes, points, r2, cap2,
     pairs, ic = max(ITEM, ceil(T / BUDGET)), max(1, ceil(count / ic))
     items per tile. ``tile``: points per tile (the kernel's TILE)."""
     lo, hi, reach2 = tile_boxes(points, r2, cap2, tile)
-    k_live = -(-int(planes.n_live[0]) // CHUNK)
+    k_live = _live_chunks(planes)
     live = _gap2(lo, hi, planes.cull[0:3, :k_live],
                  planes.cull[3:6, :k_live]) <= reach2[:, None]
     count = live.sum(1)
-    ic = max(ITEM, -(-int(count.sum()) // BUDGET))
+    with timing.span("query.sync"):
+        total = int(count.sum())
+    ic = max(ITEM, -(-total // BUDGET))
     items = torch.clamp(-(-count // ic), min=1)
     item0 = torch.cat([items.new_zeros(1), torch.cumsum(items, 0)])
     return Plan(lo, hi, reach2, live, count, ic, item0)
@@ -192,8 +202,9 @@ def plan_items(planes: PhotonPlanes, points, r2, cap2,
 
 def item_chunks(plan: Plan, tile: int) -> list:
     """The chunks of each item of ``tile``, in item order."""
-    c = torch.nonzero(plan.live[tile])[:, 0]
-    n = int(plan.item0[tile + 1] - plan.item0[tile])
+    with timing.span("query.sync"):
+        c = torch.nonzero(plan.live[tile])[:, 0]
+        n = int(plan.item0[tile + 1] - plan.item0[tile])
     return [c[k * plan.ic:(k + 1) * plan.ic] for k in range(n)]
 
 
@@ -223,7 +234,9 @@ def query_items_plain(planes: PhotonPlanes, points, r2, cap2) -> QueryResult:
         p, rr, cc = points[a:a + TILE], r2[a:a + TILE], cap2[a:a + TILE]
         for chunks in item_chunks(plan, tile):
             part = torch.zeros((p.shape[0], 8), device=points.device)
-            groups = [live_groups(planes, plan, tile, int(c)) for c in chunks]
+            with timing.span("query.sync"):
+                chunks = chunks.tolist()
+            groups = [live_groups(planes, plan, tile, c) for c in chunks]
             if groups:
                 j = (torch.cat(groups)[:, None] * GROUP + lanes).reshape(-1)
                 _fold_plain(planes, j, p, rr, cc, part)

@@ -44,6 +44,7 @@ from raytracer_tpu_torch.ops.fused_bounce import (
 )
 from raytracer_tpu_torch.ops.sampling import camera_rays_soa
 from raytracer_tpu_torch.scene.types import INTER_ABSORB, Camera
+from raytracer_tpu_torch.utils import timing
 
 U_ROWS = 8                       # the loop's draw per step (+1: motion)
 U_RR = 3                         # Russian roulette
@@ -218,32 +219,35 @@ def _regen_cuda(tab: BounceTables, cam, U, eps: float, lanes, *, width,
         if motion:
             margs = motion_args(tab, lanes.time, n, dev, "regen step",
                                 tab.ordered)
-        if tab.ordered and motion:
-            lib = bind("regen_ordered", "rt_regen_ordered_motion",
-                       _ARGTYPES + STAGE_ARGTYPES * 2 + [_P] * 5)
-            rc = lib.rt_regen_ordered_motion(
-                *args, *stage_args(tab.osph, dev), *stage_args(tab.otri, dev),
-                stats_arg(stats, n, dev), *margs, stream)
-            check_launch(lib, rc, "ordered regen kernel (motion)")
-            ORDERED_MOTION_LAUNCHES += 1
-        elif motion:
-            lib = bind("regen", "rt_regen_motion", _ARGTYPES + [_P] * 3)
-            rc = lib.rt_regen_motion(*args, *margs, stream)
-            check_launch(lib, rc, "regen kernel (motion)")
-            MOTION_LAUNCHES += 1
-        elif tab.ordered:
-            lib = bind("regen_ordered", "rt_regen_ordered",
-                       _ARGTYPES + STAGE_ARGTYPES * 2 + [_P, _P])
-            rc = lib.rt_regen_ordered(
-                *args, *stage_args(tab.osph, dev), *stage_args(tab.otri, dev),
-                stats_arg(stats, n, dev), stream)
-            check_launch(lib, rc, "ordered regen kernel")
-            ORDERED_LAUNCHES += 1
-        else:
-            lib = bind("regen", "rt_regen", _ARGTYPES + [_P])
-            rc = lib.rt_regen(*args, stream)
-            check_launch(lib, rc, "regen kernel")
-            LAUNCHES += 1
+        with timing.span("regen.launch"):
+            if tab.ordered and motion:
+                lib = bind("regen_ordered", "rt_regen_ordered_motion",
+                           _ARGTYPES + STAGE_ARGTYPES * 2 + [_P] * 5)
+                rc = lib.rt_regen_ordered_motion(
+                    *args, *stage_args(tab.osph, dev),
+                    *stage_args(tab.otri, dev),
+                    stats_arg(stats, n, dev), *margs, stream)
+                check_launch(lib, rc, "ordered regen kernel (motion)")
+                ORDERED_MOTION_LAUNCHES += 1
+            elif motion:
+                lib = bind("regen", "rt_regen_motion", _ARGTYPES + [_P] * 3)
+                rc = lib.rt_regen_motion(*args, *margs, stream)
+                check_launch(lib, rc, "regen kernel (motion)")
+                MOTION_LAUNCHES += 1
+            elif tab.ordered:
+                lib = bind("regen_ordered", "rt_regen_ordered",
+                           _ARGTYPES + STAGE_ARGTYPES * 2 + [_P, _P])
+                rc = lib.rt_regen_ordered(
+                    *args, *stage_args(tab.osph, dev),
+                    *stage_args(tab.otri, dev),
+                    stats_arg(stats, n, dev), stream)
+                check_launch(lib, rc, "ordered regen kernel")
+                ORDERED_LAUNCHES += 1
+            else:
+                lib = bind("regen", "rt_regen", _ARGTYPES + [_P])
+                rc = lib.rt_regen(*args, stream)
+                check_launch(lib, rc, "regen kernel")
+                LAUNCHES += 1
     return lanes
 
 
@@ -267,7 +271,8 @@ def regen_step_tables(tab: BounceTables, cam, U, eps: float, lanes, *,
               rr_on=rr_on, rr_start=rr_start, t_min=t_min, stats=stats)
     dev = lanes.o.device
     if dev.type == "cpu":
-        return regen_step_plain(tab, cam, U, eps, lanes, **kw)
+        with timing.span("regen.launch"):
+            return regen_step_plain(tab, cam, U, eps, lanes, **kw)
     if dev.type != "cuda":
         raise NotImplementedError(f"regen step: no kernel for {dev}")
     return _regen_cuda(tab, cam, U, eps, lanes, **kw)

@@ -36,6 +36,7 @@ from raytracer_tpu_torch.parallel.render import (
 from raytracer_tpu_torch.scene.types import Scene
 from raytracer_tpu_torch.utils.config import RenderConfig
 from raytracer_tpu_torch.utils.rng import stream_generator
+from raytracer_tpu_torch.utils.timing import Stages
 
 # the gather's per-batch lane budgets of one px rank (JAX render_sppm)
 GATHER_LANES = 16_000_000
@@ -61,20 +62,17 @@ def photon_maps_sharded(scene: Scene, tables, seed: int, iteration: int, *,
     grid)."""
     n_dev = mesh.size
     n_local = -(-int(n_photons) // n_dev)
-    dep = sppm.trace_deposits(
-        scene, tables, stream_generator(mesh.device, seed, PHOTON_STREAM,
-                                        iteration, mesh.rank),
-        n_photons=n_local, max_photon_bounces=max_photon_bounces,
-        spawn_eps=spawn_eps, intersector=intersector)
-    if stage:
-        stage("photon pass")
-    dep = gather_deposits(dep, n_photons, mesh)
-    if stage:
-        stage("all-gather")
-    maps = sppm.build_maps(scene, dep, grid_res, n_local * n_dev)
-    if stage:
-        stage("grid build")
-    return maps
+    stage = stage or Stages(None, mesh.device)
+    with stage("sppm.photon_pass"):
+        dep = sppm.trace_deposits(
+            scene, tables, stream_generator(mesh.device, seed, PHOTON_STREAM,
+                                            iteration, mesh.rank),
+            n_photons=n_local, max_photon_bounces=max_photon_bounces,
+            spawn_eps=spawn_eps, intersector=intersector)
+    with stage("sppm.all-gather"):
+        dep = gather_deposits(dep, n_photons, mesh)
+    with stage("sppm.grid_build"):
+        return sppm.build_maps(scene, dep, grid_res, n_local * n_dev)
 
 
 def gather_deposits(dep: wf.Deposits, n_photons: int,
@@ -107,7 +105,7 @@ def sppm_iteration_sharded(scene: Scene, tables, state: SPPMState,
     _check_mesh(mesh)
     it = int(state.iteration)
     spawn_eps = spawn_eps_rel * scene.scale
-    stage = sppm.Stages(times, mesh.device)
+    stage = Stages(times, mesh.device)
     g_grid, c_grid = photon_maps_sharded(
         scene, tables, seed, it, mesh=mesh, n_photons=n_photons,
         max_photon_bounces=max_photon_bounces, grid_res=grid_res,

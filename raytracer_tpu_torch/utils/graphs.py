@@ -25,11 +25,14 @@ taken back (nothing ran) and added again at every replay
 of the same program run eagerly.
 
 A capture or replay error raises; nothing falls back to an eager run.
+The recorder (``utils/timing.py``) sees the span ``graph.capture`` (the
+warm-up, the capture and the instantiation) and ``graph.replay`` (the
+input copies and the replay), and counts ``graph.captures`` and
+``graph.replays``.
 """
 
 from __future__ import annotations
 
-import time
 from collections import OrderedDict
 from typing import Callable, NamedTuple
 
@@ -38,6 +41,7 @@ import torch
 from raytracer_tpu_torch.kernels import (
     add_launches, launch_counts, launches_since,
 )
+from raytracer_tpu_torch.utils import timing
 
 MAX_GRAPHS = 2      # a render holds one graph; one more for its neighbour
 
@@ -74,25 +78,17 @@ def clone(tree):
 
 class CudaGraph:
     """The card's capture primitive: one ``torch.cuda.CUDAGraph`` whose
-    random draws come from ``gen``. ``info`` gets the seconds the capture
-    enqueued for and the seconds of ending it (``capture_end``, which
-    instantiates the graph)."""
+    random draws come from ``gen``."""
 
     def __init__(self, device, gen: torch.Generator):
         self.device = torch.device(device)
         self.graph = torch.cuda.CUDAGraph()
         self.graph.register_generator_state(gen)
-        self.info = {}
 
     def capture(self, program: Callable):
         with torch.cuda.device(self.device):
             with torch.cuda.graph(self.graph):
-                t0 = time.perf_counter()
-                out = program()
-                t1 = time.perf_counter()
-            t2 = time.perf_counter()
-        self.info.update(capture_s=t1 - t0, instantiate_s=t2 - t1)
-        return out
+                return program()
 
     def replay(self):
         self.graph.replay()
@@ -105,7 +101,6 @@ class Entry(NamedTuple):
     keep: object          # what the program's buffers hang on
     outputs: object       # the program's outputs, refreshed by a replay
     launches: dict        # kernel launches per replay
-    info: dict            # warm-up, capture and instantiate seconds
 
 
 class GraphCache:
@@ -141,32 +136,32 @@ class GraphCache:
         self.entries[key] = entry
         while len(self.entries) > self.size:
             self.entries.popitem(last=False)
-        for dst, src in zip(tensors(entry.inputs), tensors(inputs)):
-            if dst is not src:
-                dst.copy_(src)
-        state = gen.get_state()
-        entry.gen.set_state(state)
-        entry.graph.replay()
+        with timing.span("graph.replay"):
+            for dst, src in zip(tensors(entry.inputs), tensors(inputs)):
+                if dst is not src:
+                    dst.copy_(src)
+            entry.gen.set_state(gen.get_state())
+            entry.graph.replay()
+        timing.count("graph.replays")
         add_launches(entry.launches)
         # the caller's generator moves on past the program's draws
         gen.set_state(entry.gen.get_state())
         return entry.outputs
 
+    @timing.spanned("graph.capture")
     def _capture(self, device, inputs, gen, build) -> Entry:
         own = clone(inputs)
         g = torch.Generator(device=device)
         g.set_state(gen.get_state())
-        t0 = time.perf_counter()
         warm, program, keep = build(own, g)
         warm()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        warm_s = time.perf_counter() - t0
         graph = self.primitive(device, g)
         before = launch_counts()
         outputs = graph.capture(program)
         launches = launches_since(before)
         add_launches(launches, -1)          # the capture ran nothing
         self.captures += 1
-        info = dict(getattr(graph, "info", {}), warm_s=warm_s)
-        return Entry(graph, own, g, keep, outputs, launches, info)
+        timing.count("graph.captures")
+        return Entry(graph, own, g, keep, outputs, launches)
