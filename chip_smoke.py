@@ -162,7 +162,9 @@ Phases, each of which raises on failure (exit code non-zero):
    iteration each way under ``torch.profiler`` (busy share); phase 7's
    render eagerly, through the graph, eagerly, the graphed state no
    farther from the eager ones than they are apart; and the pass at
-   ``LANE_SWEEP`` lanes (steps, deposit slots, seconds).
+   ``LANE_SWEEP`` lanes and the rule's (``lane_sweep``: steps, deposit
+   slots, photons spawned, seconds, memory peak) at 500,000 photons and
+   at a four-card rank's 125,000.
 
 It imports no JAX. The line before the last is a JSON object with the
 kernels' launches, errors, times and bounds; the last line is
@@ -3545,7 +3547,8 @@ def bench_field160k(rec: dict) -> float:
 
 GRAPH_TURNS = 5          # pass and iteration timings, each way
 GRAPH_ITER = 3           # the photon stream of the compared pass
-LANE_SWEEP = (16384, 32768, 65536, 131072)
+LANE_SWEEP = (16384, 65536, 131072, 262144, 524288)
+SWEEP_PHOTONS = (SPPM_PHOTONS, 125_000)   # a rank's of a four-card split
 
 
 @contextlib.contextmanager
@@ -3588,10 +3591,11 @@ def state_diff(a, b) -> float:
                for h, k in zip(a[:2], b[:2]) for x, y in zip(h, k))
 
 
-def graph_passes(scene, cfg):
-    """The eager pass (and maps) and its graphed twin on one iteration's
-    stream (GRAPH_ITER), for ``scene`` at ``cfg``'s SPPM settings:
-    (eager_pass, graph_pass, iteration kwargs, tables)."""
+def graph_passes(scene, cfg, maps=True):
+    """The eager pass (and maps, unless ``maps`` is false) and its
+    graphed twin on one iteration's stream (GRAPH_ITER), for ``scene`` at
+    ``cfg``'s SPPM settings: (eager_pass, graph_pass, iteration kwargs,
+    tables)."""
     from raytracer_tpu_torch.models import sppm
     from raytracer_tpu_torch.models import wavefront_soa as wf
     from raytracer_tpu_torch.ops import dispatch
@@ -3602,7 +3606,8 @@ def graph_passes(scene, cfg):
     if not sppm.photon_graph(scene, method, scene.bounds_min.device):
         raise AssertionError(f"route {method} takes no graph")
     eps = cfg.spawn_eps_rel * scene.scale
-    bounces, res = kw["max_photon_bounces"], kw["grid_res"]
+    bounces = kw["max_photon_bounces"]
+    res = kw["grid_res"] if maps else None
     n = cfg.sppm.photons_per_iter
 
     def gen():
@@ -3613,7 +3618,8 @@ def graph_passes(scene, cfg):
         dep, spawned = wf.trace_photon_deposits_regen_soa(
             scene, tables, gen(), n, bounces, sppm.PHOTON_T_MIN, eps,
             intersector=method)
-        return dep, spawned, sppm.build_maps(scene, dep, res, n)
+        return dep, spawned, (None if res is None else
+                              sppm.build_maps(scene, dep, res, n))
 
     def graph_pass():
         return sppm.graphed_photon_pass(
@@ -3677,12 +3683,14 @@ def photon_graph_phase() -> dict:
     entry = next(reversed(sppm.PHOTON_GRAPHS.entries.values()))
     mem = torch.cuda.memory_allocated() - mem0
     pool = torch.cuda.memory_reserved() - res0
-    steps = wf.spawn_window(SPPM_PHOTONS, wf.PHOTON_LANES) + bounces
+    lanes = wf.photon_lanes(SPPM_PHOTONS)
+    steps = wf.spawn_window(SPPM_PHOTONS, lanes) + bounces
     log(f"photon graph: first call {first_s:.4f} s = warm-up step, capture "
         f"and instantiation {spans['graph.capture']['s']:.4f} s, and a "
         f"replay {spans['graph.replay']['s']:.4f} s (host);"
-        f" {steps} steps, launches captured a replay {entry.launches}, in "
-        f"the first call {first}; memory held {mem / 2**20:.1f} MiB "
+        f" {lanes} lanes, {steps} steps, launches captured a replay "
+        f"{entry.launches}, in the first call {first}; memory held "
+        f"{mem / 2**20:.1f} MiB "
         f"allocated, {pool / 2**20:.1f} MiB reserved")
     if entry.launches.get("bounce") != steps or first.get("bounce") != \
             steps + 1:
@@ -3773,27 +3781,62 @@ def photon_graph_phase() -> dict:
         raise AssertionError("the graphed render's state is farther from "
                              "the eager renders' than they are apart")
 
-    # the lane sweep (graph, pass and maps)
-    sweep, lanes0 = [], wf.PHOTON_LANES
+    return {"launches": launches["graph"], "secs": secs, "split": split,
+            "sweep": lane_sweep(scene)}
+
+
+def lane_sweep(scene) -> list:
+    """The graphed pass at each of ``LANE_SWEEP`` lanes and at the
+    rule's (``wf.photon_lanes``), for each budget of ``SWEEP_PHOTONS``:
+    the 500,000 photons of an iteration with both maps, and a rank's
+    125,000 of a four-card split without them (a rank builds no map).
+    Per point: steps, deposit slots, deposits, photons spawned, the
+    capturing call, ``GRAPH_TURNS`` replays and the memory peak above
+    what was held before the capture. The rule's point must spawn its
+    whole budget. Returns the rows."""
+    from raytracer_tpu_torch.models import sppm
+    from raytracer_tpu_torch.models import wavefront_soa as wf
+    rows, pinned = [], (wf.PHOTON_LANES, wf.PHOTON_LANES_MAX)
+    rules = {n: wf.photon_lanes(n) for n in SWEEP_PHOTONS}
     try:
-        for lanes in LANE_SWEEP:
-            wf.PHOTON_LANES = lanes
-            sppm.PHOTON_GRAPHS.clear()
-            cap = host_s(graph_pass)
-            times = [host_s(graph_pass) for _ in range(GRAPH_TURNS)]
-            dep, spawned, _ = graph_pass()
-            torch.cuda.synchronize()
-            s_ = wf.spawn_window(SPPM_PHOTONS, lanes) + bounces
-            sweep.append((lanes, s_, dep.pos.shape[1], int(dep.valid.sum()),
-                          int(spawned), cap, float(np.median(times))))
-            log(f"photon graph lanes {lanes}: {s_} steps, "
-                f"{dep.pos.shape[1]} slots, {int(dep.valid.sum())} deposits, "
-                f"{int(spawned)} spawned; capturing call {cap:.4f} s, "
-                f"replays {', '.join(f'{x:.4f}' for x in times)} s")
+        for n, rule in rules.items():
+            cfg = sppm_config(SPPM_SPP, photons_per_iter=n)
+            _, graph_pass, kw, _ = graph_passes(scene, cfg,
+                                                maps=n == SPPM_PHOTONS)
+            for width in sorted({min(n, x) for x in LANE_SWEEP} | {rule}):
+                # the rule pinned to one width
+                wf.PHOTON_LANES = wf.PHOTON_LANES_MAX = width
+                sppm.PHOTON_GRAPHS.clear()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                cap = host_s(graph_pass)
+                times = [host_s(graph_pass) for _ in range(GRAPH_TURNS)]
+                peak = torch.cuda.max_memory_allocated() - base
+                dep, spawned, _ = graph_pass()
+                torch.cuda.synchronize()
+                steps = wf.spawn_window(n, width) + kw["max_photon_bounces"]
+                row = dict(photons=n, lanes=width, rule=width == rule,
+                           steps=steps, slots=dep.pos.shape[1],
+                           deposits=int(dep.valid.sum()),
+                           spawned=int(spawned), capture_s=cap,
+                           replay_s=float(np.median(times)), peak_bytes=peak)
+                rows.append(row)
+                log(f"photon graph {n} photons, lanes {width}"
+                    f"{' (the rule)' if row['rule'] else ''}: {steps} "
+                    f"steps, {row['slots']} slots, {row['deposits']} "
+                    f"deposits, {row['spawned']} spawned; capturing call "
+                    f"{cap:.4f} s, replays "
+                    f"{', '.join(f'{x:.4f}' for x in times)} s (median "
+                    f"{row['replay_s']:.4f}); memory peak {peak} B")
+                if row["rule"] and row["spawned"] != n:
+                    raise AssertionError(f"the rule's {width} lanes spawn "
+                                         f"{row['spawned']} of {n}")
     finally:
-        wf.PHOTON_LANES = lanes0
+        wf.PHOTON_LANES, wf.PHOTON_LANES_MAX = pinned
         sppm.PHOTON_GRAPHS.clear()
-    return {"launches": launches["graph"], "secs": secs, "split": split}
+    return rows
 
 
 def main() -> int:

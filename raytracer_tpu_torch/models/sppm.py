@@ -230,7 +230,9 @@ def graphed_photon_pass(scene: Scene, tables, gen, *, n_photons: int,
     ``grid_res`` is given, as one replay of a graph captured at the first
     call of its key (``utils/graphs.py``; the JAX ``photon_grids``, one
     device dispatch). The key: the tables' layout, ``n_photons``, the
-    lanes, window, ``max_photon_bounces``, ``grid_res`` and the route.
+    lanes (``wf.photon_lanes``, the eager pass's), window,
+    ``max_photon_bounces``, ``grid_res`` and the route. Every replay
+    counts the pass (``wf.count_pass``), as the eager pass does.
     The draws are ``gen``'s, as the eager pass's. Returns (``Deposits``,
     photons spawned, (global grid, caustic grid) or None): the graph's
     buffers, which its next replay overwrites."""
@@ -239,7 +241,7 @@ def graphed_photon_pass(scene: Scene, tables, gen, *, n_photons: int,
     eps = torch.as_tensor(spawn_eps, dtype=torch.float32, device=dev)
     inputs = (tables._replace(leaf=None), scene.lights, scene.bounds_min,
               scene.bounds_max, eps.reshape(()))
-    lanes = min(int(n_photons), wf.PHOTON_LANES)
+    lanes = wf.photon_lanes(n_photons)
     window = wf.spawn_window(int(n_photons), lanes)
     grid_res = None if grid_res is None else tuple(grid_res)
     key = ("photon pass", int(n_photons), lanes, window,
@@ -270,7 +272,9 @@ def graphed_photon_pass(scene: Scene, tables, gen, *, n_photons: int,
 
         return warm, program, (pas, res_t)
 
-    return cache.run(key, inputs, gen, build)
+    out = cache.run(key, inputs, gen, build)
+    wf.count_pass(window + int(max_photon_bounces), lanes)
+    return out
 
 
 def photon_maps(scene: Scene, tables, gen, *, n_photons: int,

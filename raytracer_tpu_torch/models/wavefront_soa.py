@@ -822,9 +822,37 @@ class Deposits(NamedTuple):
     caustic: torch.Tensor  # (P,) bool: first diffuse after specular only
 
 
-# the regenerating photon pass's wavefront width (JAX wavefront_soa.py:
-# 1247, chosen from a TPU sweep); it fixes the deposit slots and the draws
+# The regenerating photon pass's wavefront width is ``photon_lanes``' rule:
+# at least PHOTON_LANES (the JAX package's width, wavefront_soa.py:1247),
+# at most PHOTON_LANES_MAX (past it, on an H100, the maps' sort of the
+# wider slots costs what fewer steps save), and never more than the
+# budget. The width fixes the deposit slots and the draws.
 PHOTON_LANES = 16384
+PHOTON_LANES_MAX = 262144
+LANE_QUANTUM = 1024
+
+
+def photon_lanes(n_photons: int) -> int:
+    """The photon wavefront's width for a budget of ``n_photons``: half
+    the budget rounded up to ``LANE_QUANTUM`` lanes, within
+    [PHOTON_LANES, PHOTON_LANES_MAX], and the whole budget when that is
+    smaller. Half the budget spawns the other half in ``spawn_window`` = 4
+    steps, so a pass of 16 bounces takes 20 steps (500,000 photons:
+    250,880 lanes; 16,384 lanes took 135 steps). Each step is ~70 small
+    ops whose launches, not their width, set its time. The deposit slots,
+    S * L <= 4 n + 13 L (38 bytes each), come to at most ~10 n where the
+    half rules (500,000 photons: 5,017,600 slots, 191 MB) and tend to 4 n
+    past 2 * PHOTON_LANES_MAX photons."""
+    B = int(n_photons)
+    half = -(-B // (2 * LANE_QUANTUM)) * LANE_QUANTUM
+    return min(B, max(PHOTON_LANES, min(half, PHOTON_LANES_MAX)))
+
+
+def count_pass(steps: int, lanes: int):
+    """Record one photon pass of ``steps`` steps over ``lanes`` lanes
+    (counters ``photon.steps``, ``photon.lanes``): host ints only."""
+    timing.count("photon.steps", steps)
+    timing.count("photon.lanes", lanes)
 
 
 def spawn_window(n_photons: int, lanes: int) -> int:
@@ -839,7 +867,7 @@ class PhotonPass:
     wavefront of L = ``min(lanes, n_photons)`` lanes traces photons; when
     a photon dies (Russian roulette, miss or the ``max_bounces`` cap) its
     lane emits the next photon while the spawn budget of ``n_photons``
-    lasts. ``lanes`` defaults to ``PHOTON_LANES``.
+    lasts. ``lanes`` defaults to ``photon_lanes(n_photons)``.
 
     The step count S = window + max_bounces is static (``spawn_window``;
     ``window`` overrides it), so every admitted photon gets its full
@@ -870,7 +898,7 @@ class PhotonPass:
                  lanes: int = None, window: int = None,
                  intersector: str = "pallas", lights: Lights = None):
         B = int(n_photons)
-        L = min(B, int(PHOTON_LANES if lanes is None else lanes))
+        L = min(B, photon_lanes(B) if lanes is None else int(lanes))
         if window is None:
             window = spawn_window(B, L)
         self.B, self.L, self.window = B, L, window
@@ -982,11 +1010,12 @@ def trace_photon_deposits_regen_soa(scene, tables: BounceTables,
                                     intersector: str = "pallas"):
     """The path-regeneration photon pass (``PhotonPass``) run eagerly,
     its draws from ``gen``. Returns (``Deposits`` of S * L slots, photons
-    spawned as a 0-d device tensor)."""
+    spawned as a 0-d device tensor). Counts the pass (``count_pass``)."""
     pas = PhotonPass(scene, tables, n_photons, max_bounces, t_min,
                      spawn_eps, lanes=lanes, window=window,
                      intersector=intersector)
     pas.run(gen)
+    count_pass(pas.S, pas.L)
     return pas.deposits()
 
 

@@ -68,9 +68,15 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
+def pin_lanes(monkeypatch, lanes):
+    """The lane rule pinned to ``lanes`` (for budgets above it)."""
+    monkeypatch.setattr(wf, "PHOTON_LANES", lanes)
+    monkeypatch.setattr(wf, "PHOTON_LANES_MAX", lanes)
+
+
 @pytest.fixture
 def lanes(monkeypatch):
-    monkeypatch.setattr(wf, "PHOTON_LANES", LANES)
+    pin_lanes(monkeypatch, LANES)
     return LANES
 
 
@@ -189,10 +195,10 @@ def test_one_capture_per_key_and_bounded(lanes, monkeypatch):
     assert cache.captures == 2 and len(cache) == 2
     graphed(scene, tables, 0, cache, maps=False)
     assert cache.captures == 3 and len(cache) == graphs.MAX_GRAPHS
-    monkeypatch.setattr(wf, "PHOTON_LANES", 2 * LANES)
+    pin_lanes(monkeypatch, 2 * LANES)
     graphed(scene, tables, 0, cache, maps=False)
     assert cache.captures == 4
-    monkeypatch.setattr(wf, "PHOTON_LANES", LANES)
+    pin_lanes(monkeypatch, LANES)
     other = builtin.three_spheres()
     graphed(other, fb.pack_tables(other), 0, cache, maps=False)
     assert cache.captures == 5 and len(cache) == graphs.MAX_GRAPHS
@@ -337,7 +343,7 @@ def test_graphed_iterations_and_render_equal_eager(lanes, monkeypatch):
     assert sppm.PHOTON_GRAPHS.captures == 1
 
     monkeypatch.undo()
-    monkeypatch.setattr(wf, "PHOTON_LANES", LANES)
+    pin_lanes(monkeypatch, LANES)
     renders = []
     for graph in (False, True):
         if graph:
@@ -409,3 +415,122 @@ def test_grid_res_tensor_made_once():
     a = pg.res_tensor((4, 5, 6), CPU)
     assert a is pg.res_tensor((4, 5, 6), CPU)
     assert a.tolist() == [4.0, 5.0, 6.0] and a.dtype == torch.float32
+
+
+# the lane rule, at a budget with the cell's ratio of photons to lanes
+# (500,000 photons on 250,880 lanes; here 64,000 on 32,768: 20 steps at
+# 16 bounces, 4 of them spawning)
+WIDE_PHOTONS = 64000
+
+
+@pytest.mark.parametrize("n", [1, 1000, 3000, 8000, 16384])
+def test_rule_runs_a_small_budget_at_once(n):
+    """Up to PHOTON_LANES photons the wavefront is the whole budget, as
+    before the rule: no spawn window."""
+    assert wf.photon_lanes(n) == n
+    assert wf.spawn_window(n, wf.photon_lanes(n)) == 0
+
+
+@pytest.mark.parametrize("n", [16385, 20000, 32768])
+def test_rule_keeps_the_narrow_width_up_to_twice_it(n):
+    assert wf.photon_lanes(n) == wf.PHOTON_LANES == 16384
+
+
+@pytest.mark.parametrize("n,lanes", [(500_000, 250_880),
+                                     (-(-500_000 // 4), 63_488),
+                                     (WIDE_PHOTONS, 32_768)],
+                         ids=["iteration", "rank_of_four", "scaled"])
+def test_rule_bounds_the_steps(n, lanes):
+    """Half the budget, rounded up to 1,024 lanes: 20 steps at 16
+    bounces (at most 28), for the upstream's 500,000 photons and for one
+    rank's share of a four-card split (arithmetic only)."""
+    assert wf.photon_lanes(n) == lanes
+    assert wf.spawn_window(n, lanes) + 16 == 20
+
+
+def test_rule_caps_the_width_and_the_slots():
+    """Past 2 * PHOTON_LANES_MAX photons the width stays at the cap; the
+    deposit slots stay under 4 n + 13 L, and under 10 n + 20,480 where the
+    half rules."""
+    cap = wf.PHOTON_LANES_MAX
+    for n in (2 * cap, 2 * cap + 1, 10 ** 7, 10 ** 8):
+        assert wf.photon_lanes(n) == cap
+    for n in (16385, 32769, 65537, 100_000, 500_000, 2 * cap, 10 ** 7):
+        lanes = wf.photon_lanes(n)
+        assert lanes % wf.LANE_QUANTUM == 0 or lanes == n
+        slots = (wf.spawn_window(n, lanes) + 16) * lanes
+        assert slots <= 4 * n + 13 * lanes
+        if wf.PHOTON_LANES < lanes < cap:
+            assert slots <= 10 * n + 20 * wf.LANE_QUANTUM
+
+
+def test_rule_spends_the_budget_exactly():
+    """At the cell's ratio (64,000 photons, the rule's 32,768 lanes, 16
+    bounces) the window spawns exactly the budget, so ``finish`` scales
+    the deposits by exactly 1."""
+    scene = cornell()
+    pas = wf.PhotonPass(scene, fb.pack_tables(scene), WIDE_PHOTONS, 16,
+                        sppm.PHOTON_T_MIN, 1e-5 * scene.scale)
+    assert (pas.L, pas.window, pas.S) == (32768, 4, 20)
+    gen = photon_gen(0)
+    pas.start(gen)
+    for step in range(pas.S):
+        pas.step(gen, step)
+    before = pas.dep.clone()
+    pas.finish()
+    assert int(pas.counter) == WIDE_PHOTONS
+    assert torch.equal(pas.dep, before)
+
+
+def test_graph_matches_eager_at_the_rules_lanes():
+    """The graphed pass and maps at the rule's width (no lanes pinned)
+    equal the eager pass bit for bit, on two iterations' streams."""
+    scene = cornell()
+    tables = fb.pack_tables(scene)
+    cache = graphs.GraphCache(primitive=FakeGraph)
+    res = pg.choose_grid_resolution(scene.bounds_min.numpy(),
+                                    scene.bounds_max.numpy(), WIDE_PHOTONS,
+                                    100)[0]
+    eps = 1e-5 * scene.scale
+    for it in (0, 1):
+        gen = photon_gen(it)
+        dep, spawned = wf.trace_photon_deposits_regen_soa(
+            scene, tables, gen, WIDE_PHOTONS, BOUNCES, sppm.PHOTON_T_MIN,
+            eps)
+        grids = sppm.build_maps(scene, dep, res, WIDE_PHOTONS)
+        g_gen = photon_gen(it)
+        g_dep, g_spawned, g_grids = sppm.graphed_photon_pass(
+            scene, tables, g_gen, n_photons=WIDE_PHOTONS,
+            max_photon_bounces=BOUNCES, spawn_eps=eps, grid_res=res,
+            cache=cache)
+        assert dep.pos.shape[1] == wf.photon_lanes(WIDE_PHOTONS) * (
+            4 + BOUNCES)
+        assert int(spawned) == WIDE_PHOTONS
+        assert_same(dep, g_dep)
+        assert_same(grids, g_grids)
+        assert torch.equal(spawned, g_spawned)
+        assert torch.equal(gen.get_state(), g_gen.get_state())
+    assert cache.captures == 1
+
+
+@pytest.mark.parametrize("way", ["eager", "graph"])
+def test_each_pass_counts_its_steps_and_lanes_once(lanes, way):
+    """``photon.steps`` and ``photon.lanes`` gain S and L once a pass:
+    an eager pass, and each replay of the captured one (the capture and
+    its warm-up count nothing)."""
+    from raytracer_tpu_torch.utils import timing
+    scene = cornell()
+    tables = fb.pack_tables(scene)
+    cache = graphs.GraphCache(primitive=FakeGraph)
+    steps = wf.spawn_window(PHOTONS, lanes) + BOUNCES
+    with timing.recording():
+        for it in (0, 1, 2):
+            if way == "eager":
+                eager(scene, tables, it, maps=False)
+            else:
+                graphed(scene, tables, it, cache, maps=False)
+    counters = timing.recorded()["counters"]
+    assert counters["photon.steps"] == 3 * steps
+    assert counters["photon.lanes"] == 3 * lanes
+    if way == "graph":
+        assert cache.captures == 1 and counters["graph.replays"] == 3

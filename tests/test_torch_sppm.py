@@ -205,6 +205,40 @@ def test_photon_pass_matches_jax():
     assert not (dep.caustic & ~dep.valid).any()
 
 
+def test_photon_pass_at_the_rules_lanes_matches_jax(monkeypatch):
+    """The regenerating pass at the lane rule's shape against JAX's on
+    the same lanes: 8,000 photons with the rule's floor pinned to 1,024
+    lanes take the rule's 4,096 lanes, a 4-step spawn window and 20 steps
+    at 16 bounces (the cell's 500,000 photons take 250,880 lanes and the
+    same 20 steps). Deposits, caustic count and flux per photon agree
+    within BAND."""
+    monkeypatch.setattr(twf, "PHOTON_LANES", 1024)
+    B, MB = 8000, 16
+    L = twf.photon_lanes(B)
+    assert (L, twf.spawn_window(B, L)) == (4096, 4)
+    scene_j = jbuiltin.cornell_box(with_mesh=True)
+    eps = 1e-5 * float(scene_j.scale)
+    comps, sp_j = jwf.trace_photon_deposits_regen_soa(
+        scene_j, jax.random.PRNGKey(1), B, MB, 1e-4, eps, "pallas",
+        lanes=L, return_spawned=True)
+    scene_t = tbuiltin.cornell_box(with_mesh=True)
+    dep, sp_t = twf.trace_photon_deposits_regen_soa(
+        scene_t, pack_tables(scene_t), torch.Generator().manual_seed(1), B,
+        MB, 1e-4, eps)
+    assert int(sp_t) == int(sp_j) == B
+    assert dep.pos.shape == (3, len(np.asarray(comps[0]))) == (3, 20 * L)
+    v = np.asarray(comps[9])
+    ref = {"deposits": v.sum(), "caustic": np.asarray(comps[10]).sum(),
+           "flux": np.stack([np.asarray(c) for c in comps[3:6]])[:, v].sum(1)
+           / B}
+    ours = {"deposits": int(dep.valid.sum()),
+            "caustic": int(dep.caustic.sum()),
+            "flux": dep.power[:, dep.valid].double().sum(1).numpy() / B}
+    for k in ref:
+        np.testing.assert_allclose(ours[k], ref[k], rtol=BAND[k], err_msg=k)
+    assert not (dep.caustic & ~dep.valid).any()
+
+
 def test_photon_pass_spawn_budget_and_rescale():
     """lanes < budget: the prefix-sum budget spawns exactly n_photons. A
     window closed early spawns fewer and scales deposit power by
@@ -229,6 +263,31 @@ def test_photon_pass_spawn_budget_and_rescale():
         return dep.power[:, dep.valid].double().sum(1)
 
     torch.testing.assert_close(flux(short), flux(full), rtol=0.12, atol=0)
+
+
+def test_photon_pass_at_the_rules_lanes_matches_narrow_lanes():
+    """One budget on the rule's wavefront (64,000 photons on 32,768 lanes,
+    20 steps at 16 bounces: the cell's ratio of photons to lanes) and on
+    1,024 lanes (262 steps): both spawn the whole budget, and the deposit
+    count, the caustic count and the flux per photon agree within BAND.
+    Only the deposit slots and the order of the draws differ."""
+    scene = tbuiltin.cornell_box(with_mesh=True)
+    tab = pack_tables(scene)
+    eps = 1e-5 * float(scene.scale)
+    B = 64000
+    assert twf.photon_lanes(B) == 32768
+    out = {}
+    for lanes in (None, 1024):
+        dep, spawned = twf.trace_photon_deposits_regen_soa(
+            scene, tab, torch.Generator().manual_seed(3), B, 16, 1e-4, eps,
+            lanes=lanes)
+        assert int(spawned) == B
+        out[lanes] = {
+            "deposits": int(dep.valid.sum()),
+            "caustic": int(dep.caustic.sum()),
+            "flux": dep.power[:, dep.valid].double().sum(1).numpy() / B}
+    for k, v in out[None].items():
+        np.testing.assert_allclose(v, out[1024][k], rtol=BAND[k], err_msg=k)
 
 
 @pytest.mark.parametrize("drain_floor", [None, 256])
