@@ -3553,8 +3553,9 @@ SWEEP_PHOTONS = (SPPM_PHOTONS, 125_000)   # a rank's of a four-card split
 
 @contextlib.contextmanager
 def eager_photons():
-    """The photon pass and the maps run eagerly on the card, the route the
-    graph replaced: ``sppm.photon_graph`` answers no."""
+    """The photon pass, the maps, the measurement, the queries and the
+    update run eagerly on the card, the route the graphs replaced:
+    ``sppm.photon_graph`` answers no."""
     from raytracer_tpu_torch.models import sppm
     real = sppm.photon_graph
     sppm.photon_graph = lambda *a: False
@@ -3658,10 +3659,10 @@ def photon_graph_phase() -> dict:
     stream (deposits, flags, spawn count, both maps), and on
     sphere_field(65536), whose tables take the ordered bounce; the
     capture's seconds and memory; bounce launches an iteration equal both
-    ways; GRAPH_TURNS turns of the pass and the iteration each way, and
-    one iteration each way under the profiler; phase 7's render through
-    the graph and eagerly; the lane sweep. Returns the bounce launches of
-    its graphed iterations."""
+    ways but for the measurement walk's steps; GRAPH_TURNS turns of the
+    pass and the iteration each way, and one iteration each way under the
+    profiler; phase 7's render through the graph and eagerly; the lane
+    sweep. Returns the bounce launches of its graphed iterations."""
     from raytracer_tpu_torch.models import sppm
     from raytracer_tpu_torch.models import wavefront_soa as wf
     from raytracer_tpu_torch.utils import timing
@@ -3719,19 +3720,26 @@ def photon_graph_phase() -> dict:
             scene, tables, state or sppm.init_state(SPPM_W * SPPM_H, DEV),
             0, **kw)
 
-    launches = {}
+    # (the graphs' iteration replays the measurement's head, which bounces
+    # the steps it captured, K, where the eager walk bounces its own)
+    launches, walked = {}, {}
     for way in ("eager", "graph"):
         with (eager_photons() if way == "eager" else contextlib.nullcontext()):
-            iteration()
+            for _ in range(2):
+                iteration()
             torch.cuda.synchronize()
             zero_counts()
-            iteration()
-            torch.cuda.synchronize()
+            with timing.recording():
+                iteration()
+                torch.cuda.synchronize()
+            walked[way] = timing.recorded()["counters"]["walk.steps"]
             launches[way] = {k: v for k, v in counts().items() if v}
     log(f"photon graph: launches an iteration, eager {launches['eager']}, "
-        f"graph {launches['graph']}")
-    if launches["eager"] != launches["graph"]:
-        raise AssertionError(f"launches differ: {launches}")
+        f"graph {launches['graph']}; measurement walk steps {walked}")
+    photon = {way: dict(n, bounce=n["bounce"] - walked[way])
+              for way, n in launches.items()}
+    if photon["eager"] != photon["graph"]:
+        raise AssertionError(f"launches differ: {launches}, {walked}")
 
     # turns: the pass (and maps) and the iteration, each way
     secs = {k: [] for k in ("eager pass", "graph pass", "eager iteration",

@@ -22,7 +22,9 @@ The queries are the dense kernel (``query_impl="dense"``) or the 27-cell
 gather of ``ops/photon_grid.py`` ("grid"). On a CUDA device the SoA
 photon pass on the fused bounce and both maps are one CUDA graph replay
 an iteration (``photon_graph``, ``graphed_photon_pass``: the JAX
-``photon_grids``, one device dispatch).
+``photon_grids``, one device dispatch), and the measurement, the queries
+and the update two more, with one host read between them
+(``graphed_measure_and_update``).
 
 The whole image is one iteration: the JAX package's pixel-blocked
 iteration exists because long TPU dispatches failed, and is not ported.
@@ -34,6 +36,7 @@ across, so a render resumed from a saved state equals a straight one.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import NamedTuple, Optional
 
@@ -165,13 +168,14 @@ PHOTON_GRAPHS = graphs.GraphCache()
 
 
 def photon_graph(scene: Scene, method: str, device) -> bool:
-    """Whether the photon pass runs as a captured CUDA graph
-    (``graphed_photon_pass``), from static facts only: on a CUDA device,
+    """Whether the photon pass and the measurement run as captured CUDA
+    graphs (``graphed_photon_pass``, ``graphed_measure_and_update``),
+    from static facts only: on a CUDA device,
     on the SoA route's fused bounce (``wf.use_fused``: the flat or the
     ordered kernel), with ``--debug-nans`` off. The CPU, the "leaf" route
     and the unfused stage (their wrappers compact lanes with ``nonzero``
     and read ``any()``), the (N, 3) route and ``--debug-nans`` (each
-    check reads the device) run the pass eagerly."""
+    check reads the device) run both eagerly."""
     return (torch.device(device).type == "cuda"
             and soa_eligible(scene, method) and wf.use_fused(scene, method)
             and not nans.enabled())
@@ -302,6 +306,25 @@ def photon_maps(scene: Scene, tables, gen, *, n_photons: int,
 
 # ------------------------------------------------------- measurement pass
 
+def _camera_soa(camera, gen, width: int, height: int, pixel_ids, dev):
+    """One jittered camera ray (3, P) per pixel of ``pixel_ids`` (P,), the
+    whole image when None, drawn from ``gen``."""
+    pix = (torch.arange(width * height, device=dev) if pixel_ids is None
+           else pixel_ids)
+    px = (pix % width).to(torch.float32)
+    py = (pix // width).to(torch.float32)
+    return wf.camera_rays_soa(
+        camera, px, py, width, height,
+        torch.rand((4, pix.shape[0]), generator=gen, device=dev))
+
+
+def _served(pts: wf.MeasurePoints, pixel_ids, width: int, height: int):
+    """``pts`` with the pixels past the image invalid."""
+    if pixel_ids is None:
+        return pts
+    return pts._replace(valid=pts.valid & (pixel_ids < width * height))
+
+
 def measurement_pass(scene: Scene, tables, gen, width: int, height: int,
                      max_depth: int, t_min: float, spawn_eps,
                      intersector: str = "pallas",
@@ -312,14 +335,8 @@ def measurement_pass(scene: Scene, tables, gen, width: int, height: int,
     to serve, the whole image by default (a pixel shard: JAX's
     ``ids_shard``); an id past the image gives an invalid point."""
     method = dispatch.route(scene, intersector)
-    dev = scene.bounds_min.device
-    pix = (torch.arange(width * height, device=dev) if pixel_ids is None
-           else pixel_ids)
-    px = (pix % width).to(torch.float32)
-    py = (pix // width).to(torch.float32)
-    o, d = wf.camera_rays_soa(
-        scene.camera, px, py, width, height,
-        torch.rand((4, pix.shape[0]), generator=gen, device=dev))
+    o, d = _camera_soa(scene.camera, gen, width, height, pixel_ids,
+                       scene.bounds_min.device)
     if soa_eligible(scene, method):
         pts = wf.measurement_soa(scene, tables, gen, o, d,
                                  max_depth=max_depth, t_min=t_min,
@@ -329,9 +346,7 @@ def measurement_pass(scene: Scene, tables, gen, width: int, height: int,
                                d.T.contiguous(), max_depth=max_depth,
                                t_min=t_min, spawn_eps=spawn_eps,
                                intersector=method)
-    if pixel_ids is None:
-        return pts
-    return pts._replace(valid=pts.valid & (pix < width * height))
+    return _served(pts, pixel_ids, width, height)
 
 
 def _measurement_aos(scene: Scene, tables, gen, o, d, *, max_depth: int,
@@ -414,9 +429,9 @@ def _cell_order(pts_p, grid_res, bounds_min, bounds_max):
     return order, inv
 
 
-def cap_radius(scene: Scene, grid_res):
+def cap_radius(bounds_min, bounds_max, grid_res):
     """The query radius cap: one grid cell, a 0-d tensor."""
-    extent = torch.clamp(scene.bounds_max - scene.bounds_min, min=1e-6)
+    extent = torch.clamp(bounds_max - bounds_min, min=1e-6)
     return (extent / pg.res_tensor(tuple(grid_res), extent.device)).min()
 
 
@@ -481,9 +496,11 @@ def sppm_iteration(scene: Scene, tables, state: SPPMState, seed: int, *,
                    times: Optional[dict] = None) -> SPPMState:
     """One SPPM iteration over the whole image, on ``intersector``'s
     route, the queries by ``query_impl``. ``times``: a dict that receives
-    per-stage seconds (each stage ends in a device sync; on the photon
-    graph, "photon pass" covers the grid builds, ``photon_maps``): the
-    keys of the stage spans (``timing.stage_key``)."""
+    per-stage seconds (each stage ends in a device sync; on the graphs,
+    "photon pass" covers the grid builds, ``photon_maps``, and "query
+    global" the caustic query, the update and the measurement's read and
+    tail, ``graphed_measure_and_update``): the keys of the stage spans
+    (``timing.stage_key``)."""
     dev = scene.bounds_min.device
     it = int(state.iteration)
     spawn_eps = spawn_eps_rel * scene.scale
@@ -513,18 +530,42 @@ def measure_and_update(scene: Scene, tables, state: SPPMState, g_grid,
     """The rest of an iteration once both maps are built: the measurement
     pass of ``pixel_ids`` (the whole image by default) drawn from ``gen``,
     both queries and the update of ``state``, whose rows are those
-    pixels'. Returns the updated state, one iteration further."""
+    pixels'. Where ``photon_graph`` says so this runs as two captured
+    graphs (``graphed_measure_and_update``), else eagerly. Returns the
+    updated state, one iteration further."""
     stage = stage or Stages(None, scene.bounds_min.device)
-    with stage("sppm.measurement"):
-        pts = measurement_pass(scene, tables, gen, width, height,
-                               max_camera_bounces, t_min, spawn_eps,
-                               intersector, pixel_ids)
+    kw = dict(grid_res=tuple(grid_res), alpha=alpha, k_global=k_global,
+              k_caustic=k_caustic, query_impl=query_impl,
+              k_per_cell=k_per_cell)
+    method = dispatch.route(scene, intersector)
+    if photon_graph(scene, method, scene.bounds_min.device):
+        glob, caus = graphed_measure_and_update(
+            scene, tables, state, g_grid, c_grid, gen, width=width,
+            height=height, max_camera_bounces=max_camera_bounces,
+            t_min=t_min, spawn_eps=spawn_eps, intersector=method,
+            pixel_ids=pixel_ids, stage=stage, **kw)
+    else:
+        with stage("sppm.measurement"):
+            pts = measurement_pass(scene, tables, gen, width, height,
+                                   max_camera_bounces, t_min, spawn_eps,
+                                   intersector, pixel_ids)
+        glob, caus = _query_update(state.glob, state.caustic, pts, g_grid,
+                                   c_grid, scene.bounds_min,
+                                   scene.bounds_max, stage=stage, **kw)
+    return SPPMState(glob, caus, int(state.iteration) + 1)
+
+
+def _query_update(glob: SPPMHalf, caus: SPPMHalf, pts: wf.MeasurePoints,
+                  g_grid, c_grid, bounds_min, bounds_max, *, grid_res,
+                  alpha: float, k_global: float, k_caustic: float,
+                  query_impl: str, k_per_cell: int, stage):
+    """Both queries of the points ``pts``, cell-sorted, and the update of
+    both halves, each stage under ``stage``. Returns the new halves."""
     with stage("sppm.query.global"):
-        cap = cap_radius(scene, grid_res)
-        rg, cap_g = query_radii(state.glob, cap)
-        rc, cap_c = query_radii(state.caustic, cap)
-        order, inv = _cell_order(pts.p, grid_res, scene.bounds_min,
-                                 scene.bounds_max)
+        cap = cap_radius(bounds_min, bounds_max, grid_res)
+        rg, cap_g = query_radii(glob, cap)
+        rc, cap_c = query_radii(caus, cap)
+        order, inv = _cell_order(pts.p, grid_res, bounds_min, bounds_max)
         p_s = pts.p[order].contiguous()
         qg = _query(g_grid, grid_res, p_s, rg[order], cap_g[order],
                     k_per_cell, query_impl)
@@ -533,12 +574,149 @@ def measure_and_update(scene: Scene, tables, state: SPPMState, g_grid,
                     k_per_cell, query_impl)
     with stage("sppm.update"):
         qg, qc = (pg.QueryResult(*(x[inv] for x in q)) for q in (qg, qc))
-        glob = _update_half(state.glob, pts, qg, k_global, alpha, cap)
-        caus = _update_half(state.caustic, pts, qc, k_caustic, alpha, cap)
+        glob = _update_half(glob, pts, qg, k_global, alpha, cap)
+        caus = _update_half(caus, pts, qc, k_caustic, alpha, cap)
         for name, half in (("global", glob), ("caustic", caus)):
             nans.check(f"the {name} stat update", flux=half.flux,
                        radius2=half.radius2, photons=half.photons)
-    return SPPMState(glob, caus, int(state.iteration) + 1)
+    return glob, caus
+
+
+# ------------------------------------------------- captured measurement
+
+WALK_MARGIN = 2     # steps a captured head walks past the first walk's
+
+
+class MeasureGraphs(graphs.GraphCache):
+    """The captured programs of ``graphed_measure_and_update`` (a head of
+    the measurement walk, and the queries with the update), and each
+    head's step count: ``head_steps`` of the first eager walk of its key
+    (its camera, tables, pixels, image size and route). Apart from
+    ``PHOTON_GRAPHS``, so that neither evicts the other; room for two
+    renders' pairs."""
+
+    def __init__(self, primitive=graphs.CudaGraph):
+        super().__init__(2 * graphs.MAX_GRAPHS, primitive)
+        self.steps = {}
+
+    def clear(self):
+        super().clear()
+        self.steps.clear()
+
+
+MEASURE_GRAPHS = MeasureGraphs()
+
+
+def head_steps(walked: int, max_depth: int) -> int:
+    """The steps of a captured head of the measurement walk: the
+    ``walked`` steps of the first eager walk of its key and WALK_MARGIN
+    more, at most ``max_depth``."""
+    return min(walked + WALK_MARGIN, max_depth)
+
+
+def _no_stage(name: str):
+    return contextlib.nullcontext()
+
+
+def graphed_measure_and_update(scene: Scene, tables, state: SPPMState,
+                               g_grid, c_grid, gen, *, width: int,
+                               height: int, max_camera_bounces: int,
+                               grid_res, alpha: float, k_global: float,
+                               k_caustic: float, t_min: float, spawn_eps,
+                               intersector: str, query_impl: str,
+                               k_per_cell: int, pixel_ids=None, stage=None,
+                               cache: MeasureGraphs = None):
+    """``measure_and_update`` as two graph replays and one host read,
+    equal to the eager pass bit for bit (``utils/graphs.py``):
+
+    - the head: the camera rays of ``pixel_ids`` and K = ``head_steps``
+      steps of the walk (``wf.measure_step``), no host read, and a device
+      flag, a lane alive after step K. Steps past the last lane's end are
+      masked and draw what an eager step would, so steps 1..K draw what
+      the eager walk draws. The first call of a key walks eagerly
+      instead, and that walk's steps fix its K;
+    - the queries and the update (``_query_update``) of the walk's
+      points, ``state`` and the maps (``photon_maps``' graph buffers),
+      which the entry copies in, as every input. It is queued before the
+      host reads the flag, so the card runs both replays back to back.
+      Where the flag is set the walk goes on eagerly from step K + 1
+      (``wf.measure_walk_soa``, a read a step) up to
+      ``max_camera_bounces``, the update replays again on its points, and
+      ``walk.tail`` counts the iteration.
+
+    Stages: "sppm.measurement" covers the head, "sppm.query.global" the
+    second replay, the read and any tail. Returns the new halves (global,
+    caustic), the caller's own tensors."""
+    cache = MEASURE_GRAPHS if cache is None else cache
+    stage = stage or Stages(None, scene.bounds_min.device)
+    dev = scene.bounds_min.device
+    eps = torch.as_tensor(spawn_eps, dtype=torch.float32,
+                          device=dev).reshape(())
+    head_in = (tables._replace(leaf=None), scene.camera, eps, pixel_ids)
+    head = ("measure head", width, height, t_min, intersector,
+            graphs.layout(head_in))
+    walk_kw = dict(max_depth=max_camera_bounces, t_min=t_min,
+                   spawn_eps=eps, intersector=intersector)
+
+    def build_head(inp, g):
+        tab, cam, eps, pix = inp
+
+        def program():
+            o, d = _camera_soa(cam, g, width, height, pix, dev)
+            w = wf.measure_lanes(o, d)
+            for _ in range(k):
+                w = wf.measure_step(tab, g, w, t_min=t_min, spawn_eps=eps)
+            return w, w.alive.any()
+        return program, program, None
+
+    def build_update(inp, g):
+        w, pix, glob, caus, gg, cg, bmin, bmax = inp
+        # made before the capture, held while the graph reads it
+        res_t = pg.res_tensor(tuple(grid_res), dev)
+
+        def program():
+            pts = _served(wf.measure_points(w), pix, width, height)
+            return _query_update(
+                glob, caus, pts, gg, cg, bmin, bmax, grid_res=grid_res,
+                alpha=alpha, k_global=k_global, k_caustic=k_caustic,
+                query_impl=query_impl, k_per_cell=k_per_cell,
+                stage=_no_stage)
+        return program, program, res_t
+
+    def update(walk):
+        inputs = (walk._replace(o=None, d=None, alive=None), pixel_ids,
+                  state.glob, state.caustic, g_grid, c_grid,
+                  scene.bounds_min, scene.bounds_max)
+        key = ("measure update", width, height, tuple(grid_res), alpha,
+               k_global, k_caustic, query_impl, k_per_cell)
+        # the entry's buffers, which its next replay overwrites: copied
+        return graphs.clone(cache.run(key, inputs, gen, build_update))
+
+    with stage("sppm.measurement"):
+        k = cache.steps.get(head)
+        if k is None:
+            o, d = _camera_soa(scene.camera, gen, width, height, pixel_ids,
+                               dev)
+            walk, walked = wf.measure_walk_soa(
+                scene, tables, gen, wf.measure_lanes(o, d), **walk_kw)
+            cache.steps[head] = head_steps(walked, max_camera_bounces)
+        else:
+            walk, alive = cache.run(head + (k,), head_in, gen, build_head)
+    with stage("sppm.query.global"):
+        halves = update(walk)
+        if k is not None:
+            tail = False
+            if k < max_camera_bounces:
+                with timing.span("walk.sync"):
+                    tail = bool(alive)
+            timing.count("walk.tail", int(tail))
+            if tail:
+                walk, _ = wf.measure_walk_soa(scene, tables, gen, walk,
+                                              step=k, **walk_kw)
+                halves = update(walk)
+            else:
+                timing.count("walk.steps", k)
+    return halves
 
 
 # ----------------------------------------------------------- final gather

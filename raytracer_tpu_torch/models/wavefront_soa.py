@@ -7,7 +7,8 @@ The PyTorch counterpart of ``raytracer_tpu/models/wavefront_soa.py``:
 ``scatter_soa``), ``_mis_bounce``, ``trace_radiance_soa`` and
 ``render_regen_soa`` with NEE and MIS (and, where neither is on, its
 one-kernel step, ``ops/regen.py``), and for SPPM ``gather_regen_soa``,
-``gather_walk_soa``, ``measurement_soa``, ``emit_photons_soa``,
+``gather_walk_soa``, ``measurement_soa`` (``measure_walk_soa`` of
+``measure_step``), ``emit_photons_soa``,
 ``trace_photon_deposits_soa`` and the regenerating photon pass
 ``PhotonPass`` (``trace_photon_deposits_regen_soa`` runs it eagerly).
 The SPPM passes take the "pallas" or the "leaf" route (``intersector``);
@@ -38,6 +39,9 @@ NEE, MIS or the SPPM gather, one bounce-kernel launch plus the
 bookkeeping ops, with one host sync per step for the loop condition.
 The photon pass has a static step count and no host sync: on the card
 SPPM replays it as a CUDA graph (``models/sppm.py::graphed_photon_pass``).
+A measurement step (``measure_step``) reads nothing either, so SPPM
+replays a head of the walk's steps the same way
+(``graphed_measure_and_update``).
 """
 
 from __future__ import annotations
@@ -731,47 +735,94 @@ class MeasurePoints(NamedTuple):
     bsdf: torch.Tensor    # (N, 3) the point's bsdf colour (albedo or 1/pi)
 
 
+class MeasureWalk(NamedTuple):
+    """The measurement walk's lanes: (3, N) rows and (N,) flags."""
+    o: torch.Tensor       # (3, N) the next ray's origin
+    d: torch.Tensor       # (3, N) and direction
+    alive: torch.Tensor   # (N,) bool: still walking the specular chain
+    valid: torch.Tensor   # (N,) bool: reached its first diffuse hit
+    p: torch.Tensor       # (3, N) that hit's point
+    nrm: torch.Tensor     # (3, N) its normal
+    bsdf: torch.Tensor    # (3, N) its bsdf colour
+
+
+def measure_lanes(o, d) -> MeasureWalk:
+    """The walk's lanes before its first step, from camera rays (3, N)."""
+    n = o.shape[1]
+    dev = o.device
+    return MeasureWalk(o, d, torch.ones((n,), dtype=torch.bool, device=dev),
+                       torch.zeros((n,), dtype=torch.bool, device=dev),
+                       *(torch.zeros((3, n), device=dev) for _ in range(3)))
+
+
+def measure_step(tables: BounceTables, gen: torch.Generator,
+                 w: MeasureWalk, *, t_min: float, spawn_eps,
+                 fused: bool = True, scene: Scene = None,
+                 intersector: str = "pallas") -> MeasureWalk:
+    """One step of the walk, with no host read: the three scatter rows
+    drawn from ``gen`` and one bounce (``bounce_step``). A lane that is
+    not alive keeps its values; the draws are the same whichever lanes
+    are."""
+    U = torch.rand((U_DIEL + 1, w.o.shape[1]), generator=gen,
+                   device=w.o.device)
+    b = bounce_step(tables, U, w.o, w.d, w.alive, t_min=t_min,
+                    spawn_eps=spawn_eps, fused=fused, scene=scene,
+                    intersector=intersector)
+    diffuse_now = w.alive & (b.inter == INTER_DIFFUSE)
+    alive = w.alive & ~diffuse_now & (b.inter != INTER_ABSORB)
+    # the bsdf colour is the scatter's attenuation (albedo, 1/pi for a
+    # diffuse light): no second texture lookup
+    return MeasureWalk(torch.where(alive, b.no, w.o),
+                       torch.where(alive, b.nd, w.d), alive,
+                       w.valid | diffuse_now,
+                       torch.where(diffuse_now, b.p, w.p),
+                       torch.where(diffuse_now, b.n, w.nrm),
+                       torch.where(diffuse_now, b.att, w.bsdf))
+
+
+def measure_points(w: MeasureWalk) -> MeasurePoints:
+    """The walk's first diffuse hits as (N, 3) rows."""
+    return MeasurePoints(w.valid, w.p.T.contiguous(), w.nrm.T.contiguous(),
+                         w.bsdf.T.contiguous())
+
+
+def measure_walk_soa(scene: Scene, tables: BounceTables,
+                     gen: torch.Generator, w: MeasureWalk, *,
+                     max_depth: int, t_min: float, spawn_eps,
+                     intersector: str = "pallas", step: int = 0):
+    """update_sppm's specular walk to the first diffuse hit
+    (photon_mapper.rs:277-300) from lanes ``w`` that have taken ``step``
+    steps: ``measure_step`` while a lane is alive, up to ``max_depth``
+    steps, with one host read per step for the loop condition. On
+    ``intersector``'s route ("pallas" or "leaf"); the bounce is fused
+    where ``use_fused`` says (an image or noise texture, or the leaf
+    route, takes the unfused stage). Counts the steps (``walk.steps``,
+    ``step`` included). Returns (lanes, steps taken in all)."""
+    fused = use_fused(scene, intersector)
+    while step < max_depth:
+        with timing.span("walk.sync"):
+            if not bool(w.alive.any()):
+                break
+        w = measure_step(tables, gen, w, t_min=t_min, spawn_eps=spawn_eps,
+                         fused=fused, scene=scene, intersector=intersector)
+        step += 1
+        nans.check("a measurement step", point=w.p, normal=w.nrm,
+                   bsdf=w.bsdf, origin=w.o, direction=w.d)
+    timing.count("walk.steps", step)
+    return w, step
+
+
 def measurement_soa(scene: Scene, tables: BounceTables,
                     gen: torch.Generator, o, d, *, max_depth: int,
                     t_min: float, spawn_eps,
                     intersector: str = "pallas") -> MeasurePoints:
-    """update_sppm's specular walk to the first diffuse hit
-    (photon_mapper.rs:277-300): no emission, no throughput. ``o``/``d``
-    (3, N) camera rays, on ``intersector``'s route ("pallas" or "leaf");
-    the bounce is fused where ``use_fused`` says (an image or noise
-    texture, or the leaf route, takes the unfused stage). One host sync
-    per step for the loop condition."""
-    n = o.shape[1]
-    dev = o.device
-    fused = use_fused(scene, intersector)
-    alive = torch.ones((n,), dtype=torch.bool, device=dev)
-    valid = torch.zeros((n,), dtype=torch.bool, device=dev)
-    p, nrm, bsdf = (torch.zeros((3, n), device=dev) for _ in range(3))
-    step = 0
-    while step < max_depth:
-        with timing.span("walk.sync"):
-            if not bool(alive.any()):
-                break
-        U = torch.rand((U_DIEL + 1, n), generator=gen, device=dev)
-        b = bounce_step(tables, U, o, d, alive, t_min=t_min,
-                        spawn_eps=spawn_eps, fused=fused, scene=scene,
-                        intersector=intersector)
-        diffuse_now = alive & (b.inter == INTER_DIFFUSE)
-        valid = valid | diffuse_now
-        # the bsdf colour is the scatter's attenuation (albedo, 1/pi for a
-        # diffuse light): no second texture lookup
-        p = torch.where(diffuse_now, b.p, p)
-        nrm = torch.where(diffuse_now, b.n, nrm)
-        bsdf = torch.where(diffuse_now, b.att, bsdf)
-        alive = alive & ~diffuse_now & (b.inter != INTER_ABSORB)
-        o = torch.where(alive, b.no, o)
-        d = torch.where(alive, b.nd, d)
-        step += 1
-        nans.check("a measurement step", point=p, normal=nrm, bsdf=bsdf,
-                   origin=o, direction=d)
-    timing.count("walk.steps", step)
-    return MeasurePoints(valid, p.T.contiguous(), nrm.T.contiguous(),
-                         bsdf.T.contiguous())
+    """The walk (``measure_walk_soa``) of camera rays ``o``/``d`` (3, N):
+    no emission, no throughput. Returns each lane's first diffuse hit."""
+    w, _steps = measure_walk_soa(scene, tables, gen, measure_lanes(o, d),
+                                 max_depth=max_depth, t_min=t_min,
+                                 spawn_eps=spawn_eps,
+                                 intersector=intersector)
+    return measure_points(w)
 
 
 def emit_photons_soa(lights: Lights, gen: torch.Generator, n: int,

@@ -1,7 +1,8 @@
 """Captured CUDA graphs of fixed-shape programs, kept in a small cache: the
 port's counterpart of JAX's jit cache for the programs it replays (the
 SPPM photon pass and both photon maps, ``models/sppm.py::
-graphed_photon_pass``).
+graphed_photon_pass``; the measurement's head and the queries with the
+update, ``graphed_measure_and_update``).
 
 An entry is keyed as a jit is: by the static arguments its caller names
 and by the layout of its input tensors (each one's shape, dtype and

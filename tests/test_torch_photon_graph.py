@@ -264,10 +264,12 @@ def test_cpu_iteration_never_captures(monkeypatch):
 
     monkeypatch.setattr(sppm, "PHOTON_GRAPHS",
                         graphs.GraphCache(primitive=refuse))
+    monkeypatch.setattr(sppm, "MEASURE_GRAPHS",
+                        sppm.MeasureGraphs(primitive=refuse))
     scene = cornell()
     times = {}
     iteration(scene, times=times)
-    assert len(sppm.PHOTON_GRAPHS) == 0
+    assert len(sppm.PHOTON_GRAPHS) == len(sppm.MEASURE_GRAPHS) == 0
     assert {"photon pass", "grid build"} <= set(times)
 
 
@@ -287,10 +289,12 @@ def small_config(iters=2):
 
 
 def force_graph(monkeypatch, primitive=FakeGraph):
-    """Send the CPU's SPPM through the graph, as the card's is."""
+    """Send the CPU's SPPM through the graphs, as the card's is."""
     monkeypatch.setattr(sppm, "photon_graph", lambda *a: True)
     monkeypatch.setattr(sppm, "PHOTON_GRAPHS",
                         graphs.GraphCache(primitive=primitive))
+    monkeypatch.setattr(sppm, "MEASURE_GRAPHS",
+                        sppm.MeasureGraphs(primitive=primitive))
 
 
 def test_capture_error_raises_and_nothing_runs_eagerly(lanes, monkeypatch):
