@@ -1055,7 +1055,6 @@ def main_path() -> tuple:
     one launch of the regeneration kernel. Returns its launches in those
     two renders and the RR-off image mean."""
     from raytracer_tpu_torch.models import path_tracer
-    from raytracer_tpu_torch.ops import regen
     from raytracer_tpu_torch.scene.loader import load_scene
     from raytracer_tpu_torch.utils.config import RenderConfig
     from raytracer_tpu_torch.utils.image import save_render
@@ -1073,7 +1072,7 @@ def main_path() -> tuple:
     zero_counts()
     means, runs = {}, {}
     for rr in (False, True):
-        before = regen.LAUNCHES
+        before = counts()["regen"]
         t0 = time.perf_counter()
         img, rays = path_tracer.render(scene, cfg(SPP, rr), 1, device=DEV)
         torch.cuda.synchronize()
@@ -1083,17 +1082,17 @@ def main_path() -> tuple:
         log(f"main path scene_500 {WIDTH}x{HEIGHT} {SPP} spp depth {DEPTH} "
             f"RR {'on' if rr else 'off'}: {rays} rays in {dt:.4f} s = "
             f"{rays / dt / 1e6:.4f} Mrays/s; regen launches "
-            f"{regen.LAUNCHES - before}; image mean {host.mean():.6f}")
+            f"{counts()['regen'] - before}; image mean {host.mean():.6f}")
         if not (np.isfinite(host).all() and host.mean() > 0):
             raise AssertionError("main-path image is not finite and positive")
-        if rays <= 0 or regen.LAUNCHES == before or counts()["bounce"]:
+        if rays <= 0 or counts()["regen"] == before or counts()["bounce"]:
             raise AssertionError("main path traced no rays through the "
                                  f"regen kernel: {counts()}")
         save_render(os.path.join(ROOT, "output", f"chip_smoke_{tag}.png"),
                     host)
         means[rr] = float(host.mean())
         runs[rr] = (rays, dt)
-    return regen.LAUNCHES, means[False], runs[False]
+    return counts()["regen"], means[False], runs[False]
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1104,8 +1103,6 @@ def sppm_path() -> tuple:
     ``sppm.render``. Returns both kernels' launches in that render and its
     image mean."""
     from raytracer_tpu_torch.models import sppm
-    from raytracer_tpu_torch.ops import fused_bounce as fb
-    from raytracer_tpu_torch.ops import photon_query as pq
     from raytracer_tpu_torch.utils.image import save_render
     scene = load("cornell_mesh", SPPM_W / SPPM_H)
     times = {}
@@ -1118,14 +1115,14 @@ def sppm_path() -> tuple:
                          done))
 
     torch.cuda.synchronize()
-    fb.LAUNCHES = pq.LAUNCHES = 0
+    zero_counts()
     t0 = time.perf_counter()
     img, rays, state = sppm.render(scene, sppm_config(SPPM_SPP), 0,
                                    checkpoint_cb=split, device=DEV,
                                    times=times)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"bounce": fb.LAUNCHES, "photon_query": pq.LAUNCHES}
+    launches = {k: counts()[k] for k in ("bounce", "photon_query")}
     for i, (split_s, _) in enumerate(per_iter):
         log(f"sppm iteration {i}: {sum(split_s.values()):.4f} s = "
             + ", ".join(f"{k} {v:.4f}" for k, v in split_s.items()))
@@ -1363,9 +1360,6 @@ def nee_mis_path(pt_mean: float) -> dict:
     0 before each render and read after it. Returns the launches per
     render."""
     from raytracer_tpu_torch.models import path_tracer
-    from raytracer_tpu_torch.ops import closest_hit as ch
-    from raytracer_tpu_torch.ops import fused_bounce as fb
-    from raytracer_tpu_torch.ops import photon_query as pq
     from raytracer_tpu_torch.utils.config import RenderConfig
     from raytracer_tpu_torch.utils.image import save_render
     scene = load("scene_500", WIDTH / HEIGHT)
@@ -1379,14 +1373,14 @@ def nee_mis_path(pt_mean: float) -> dict:
         stats = {}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fb.LAUNCHES = ch.LAUNCHES = pq.LAUNCHES = 0
+        zero_counts()
         t0 = time.perf_counter()
         img, rays = path_tracer.render(scene, cfg, 1, device=DEV,
                                        stats=stats)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches[tag] = {"bounce": fb.LAUNCHES, "closest": ch.LAUNCHES,
-                         "photon_query": pq.LAUNCHES}
+        launches[tag] = {k: counts()[k]
+                         for k in ("bounce", "closest", "photon_query")}
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         host = img.cpu().numpy()
         mean = float(host.mean())

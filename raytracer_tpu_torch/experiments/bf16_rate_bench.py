@@ -22,7 +22,7 @@ import subprocess
 
 import torch
 
-from raytracer_tpu_torch.kernels.build import bind, check_launch
+from raytracer_tpu_torch.kernels import launch
 
 TILE = 256
 C = 1024
@@ -42,10 +42,6 @@ DTYPES = (torch.float32, torch.bfloat16)
 # Hopper white paper), device memory.
 PEAK = {torch.float32: 67e12, torch.bfloat16: 134e12}
 PEAK_BYTES = 3.35e12
-
-# Kernel launches made by ``fma_chain`` on CUDA tensors. A plain integer:
-# a run reads it before and after to show it went through the kernel.
-LAUNCHES = 0
 
 
 def make_inputs(n_tiles: int = N_TILES, device="cuda", seed: int = 0,
@@ -71,7 +67,6 @@ _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
 
 
 def _fma_cuda(x, w, passes: int):
-    global LAUNCHES
     if x.dtype not in DTYPES or w.dtype != x.dtype or w.shape != x.shape:
         raise ValueError(f"fma probe: x and w must be float32 or bfloat16 "
                          f"of one shape, got {x.dtype} {tuple(x.shape)} and "
@@ -84,12 +79,9 @@ def _fma_cuda(x, w, passes: int):
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        lib = bind("fma_rate", "rt_fma_rate", _ARGTYPES)
-        rc = lib.rt_fma_rate(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                             x.numel(), passes, int(x.dtype == torch.bfloat16),
-                             stream)
-        check_launch(lib, rc, "fma probe kernel")
-    LAUNCHES += 1
+        launch("fma_rate", "fma_rate", "rt_fma_rate", _ARGTYPES,
+               (x.data_ptr(), w.data_ptr(), out.data_ptr(), x.numel(), passes,
+                int(x.dtype == torch.bfloat16), stream), "fma probe kernel")
     return out
 
 

@@ -1,36 +1,35 @@
 """Builds the CUDA sources under ``csrc/`` with nvcc and loads them
-(``build``), and reads the kernel wrappers' launch counts: each wrapper
-adds one to its module's count where it launches its kernel."""
+(``build``), launches their entry points (``launch``) and counts the
+launches by library and form (``COUNTS``)."""
+
+from collections import Counter
+
+from raytracer_tpu_torch.kernels.build import bind, check_launch
+
+# The ``launch_counts`` keys: the single-form kernels, then the sweeps
+# (``ops/fused_bounce.py::sweep_forms``) by form.
+KEYS = (("leaf", "photon_query", "fma_rate")
+        + tuple(k + f for k in ("bounce", "closest", "regen")
+                for f in ("", "_ordered", "_motion", "_ordered_motion")))
+
+# Kernel launches on CUDA tensors, by key. A run reads them before and
+# after to show it went through the kernels; a CUDA graph's replay adds
+# what its capture launched (``utils/graphs.py``).
+COUNTS = Counter(dict.fromkeys(KEYS, 0))
 
 
-def _counted():
-    from raytracer_tpu_torch.experiments import bf16_rate_bench as probe
-    from raytracer_tpu_torch.ops import closest_hit, fused_bounce, leaf
-    from raytracer_tpu_torch.ops import photon_query, regen
-    return ((("leaf", leaf), ("photon_query", photon_query),
-             ("fma_rate", probe)),
-            (("bounce", fused_bounce), ("closest", closest_hit),
-             ("regen", regen)))
-
-
-_FORMS = (("", "LAUNCHES"), ("_ordered", "ORDERED_LAUNCHES"),
-          ("_motion", "MOTION_LAUNCHES"),
-          ("_ordered_motion", "ORDERED_MOTION_LAUNCHES"))
-
-
-def _slots() -> dict:
-    """{launch_counts key: (wrapper module, count attribute)}."""
-    single, forms = _counted()
-    out = {name: (mod, "LAUNCHES") for name, mod in single}
-    for name, mod in forms:
-        for suffix, attr in _FORMS:
-            out[name + suffix] = (mod, attr)
-    return out
+def launch(key: str, library: str, symbol: str, argtypes, args, what: str):
+    """Call entry point ``symbol`` of ``lib<library>.so`` (``argtypes``,
+    the stream last) with ``args``, raise if the launch was refused
+    (``what`` names the kernel), and count it under ``key``."""
+    lib = bind(library, symbol, argtypes)
+    check_launch(lib, getattr(lib, symbol)(*args), what)
+    COUNTS[key] += 1
 
 
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch count, by library and form."""
-    return {k: getattr(mod, attr) for k, (mod, attr) in _slots().items()}
+    """Every kernel's launch count, by library and form."""
+    return dict(COUNTS)
 
 
 def launches_since(before: dict) -> dict:
@@ -42,15 +41,12 @@ def launches_since(before: dict) -> dict:
 
 def add_launches(counts: dict, times: int = 1):
     """Add ``counts`` (``launch_counts`` keys) ``times`` times to the
-    wrappers' counts: a CUDA graph's replay launches what its capture
-    counted, though no wrapper runs (``utils/graphs.py``)."""
-    slots = _slots()
+    launch counts."""
     for k, v in counts.items():
-        mod, attr = slots[k]
-        setattr(mod, attr, getattr(mod, attr) + v * times)
+        COUNTS[k] += v * times
 
 
 def zero_launch_counts():
-    """Set every wrapper's launch counts to 0."""
-    for mod, attr in _slots().values():
-        setattr(mod, attr, 0)
+    """Set every launch count to 0."""
+    for k in COUNTS:
+        COUNTS[k] = 0

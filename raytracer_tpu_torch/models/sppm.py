@@ -14,8 +14,8 @@ the "pallas" (and "auto") and "leaf" routes take the SoA passes of
 ``wavefront_soa`` on that route's kernel (a regenerating photon pass, the
 measurement walk, the regenerating gather); a scene with media, and the
 "bruteforce" and "bvh" routes, take the (N, 3) loops of this module
-(``trace_photon_deposits``, the (N, 3) ``measurement_pass``,
-``gather_walk`` and ``gather_fn``'s chunk loop), whose hit goes through
+(``trace_photon_deposits``, the (N, 3) ``measurement_pass``, and
+``gather_fn``'s chunk loop of ``gather_walk``), whose hit goes through
 ``path_tracer.hit_and_attrs`` on the route asked for (the closest-hit or
 leaf kernel, the brute-force scan or the BVH) and then the media override.
 The queries are the dense kernel (``query_impl="dense"``) or the 27-cell
@@ -740,17 +740,11 @@ def gather_walk(scene: Scene, tables, o, d, est, gen, *, max_depth: int,
     ``o``/``d`` (N, 3) traced to completion (JAX ``gather_walk``): Le at
     every hit, the lane's density estimate ``est`` (N, 3) at its first
     diffuse hit, where it stops; specular chains multiply the throughput.
-    ``wf.gather_walk_soa`` on the SoA route, else the (N, 3) loop; both
-    draw the three scatter rows and one free-flight row per medium each
-    step. Returns ((N, 3) radiance, rays as an int: alive lanes summed over
-    steps)."""
+    It serves the routes off SoA (``soa_eligible``: media scenes, brute
+    force and the BVH); each step draws the three scatter rows and one
+    free-flight row per medium. Returns ((N, 3) radiance, rays as an int:
+    alive lanes summed over steps)."""
     method = dispatch.route(scene, intersector)
-    if soa_eligible(scene, method):
-        rad, rays = wf.gather_walk_soa(
-            scene, tables, o.T.contiguous(), d.T.contiguous(),
-            est.T.contiguous(), gen, max_depth=max_depth, t_min=t_min,
-            spawn_eps=spawn_eps, intersector=method)
-        return rad.T, rays
     n = o.shape[0]
     dev = o.device
     k_rows = wf.U_DIEL + 1 + wf.media_rows(scene)

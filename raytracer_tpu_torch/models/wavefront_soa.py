@@ -7,10 +7,10 @@ The PyTorch counterpart of ``raytracer_tpu/models/wavefront_soa.py``:
 ``scatter_soa``), ``_mis_bounce``, ``trace_radiance_soa`` and
 ``render_regen_soa`` with NEE and MIS (and, where neither is on, its
 one-kernel step, ``ops/regen.py``), and for SPPM ``gather_regen_soa``,
-``gather_walk_soa``, ``measurement_soa`` (``measure_walk_soa`` of
-``measure_step``), ``emit_photons_soa``,
-``trace_photon_deposits_soa`` and the regenerating photon pass
-``PhotonPass`` (``trace_photon_deposits_regen_soa`` runs it eagerly).
+``measurement_soa`` (``measure_walk_soa`` of ``measure_step``),
+``emit_photons_soa`` and the regenerating photon pass ``PhotonPass``
+(``trace_photon_deposits_regen_soa`` runs it eagerly; with no spawn
+window it is JAX's photon pass without regeneration).
 The SPPM passes take the "pallas" or the "leaf" route (``intersector``);
 ``--debug-nans`` checks each loop's state after every step
 (``utils/nans.py``).
@@ -680,52 +680,6 @@ def gather_regen_soa(scene, tables: BounceTables, est, gen: torch.Generator,
         pixel_slots=pixel_slots)
 
 
-def gather_walk_soa(scene: Scene, tables: BounceTables, o, d, est,
-                    gen: torch.Generator, *, max_depth: int, t_min: float,
-                    spawn_eps, intersector: str = "pallas"):
-    """The sample_ray walk (photon_mapper.rs:326-365) of one wavefront
-    ``o``/``d`` (3, N), traced to completion without regeneration (the
-    JAX ``gather_walk_soa``): Le at every hit, the lane's density estimate
-    ``est`` (3, N) at its first diffuse hit, where it stops; specular
-    chains multiply the throughput. Each step draws the three scatter rows
-    and then one free-flight row per medium from ``gen``, the rows
-    ``models/sppm.py::gather_walk`` draws, on ``intersector``'s route
-    ("pallas" or "leaf"). Returns ((3, N) radiance, rays as an int)."""
-    n = o.shape[1]
-    dev = o.device
-    fused = use_fused(scene, intersector)
-    k_med = media_rows(scene)
-    tput = torch.ones((3, n), device=dev)
-    rad = torch.zeros((3, n), device=dev)
-    alive = torch.ones((n,), dtype=torch.bool, device=dev)
-    rays = 0
-    steps = 0
-    for _ in range(max_depth):
-        with timing.span("walk.sync"):
-            n_alive = int(alive.sum())
-        if n_alive == 0:
-            break
-        rays += n_alive
-        steps += 1
-        U = torch.rand((U_DIEL + 1 + k_med, n), generator=gen, device=dev)
-        b = bounce_step(tables, U, o, d, alive, t_min=t_min,
-                        spawn_eps=spawn_eps, fused=fused, scene=scene,
-                        intersector=intersector,
-                        media_u=_media_u(U, U_DIEL + 1, k_med))
-        rad = rad + torch.where(alive, tput * b.emit, 0.0)
-        diffuse_now = alive & (b.inter == INTER_DIFFUSE)
-        rad = rad + torch.where(diffuse_now, tput * est, 0.0)
-        cont = alive & ~diffuse_now & (b.inter != INTER_ABSORB)
-        tput = torch.where(cont, tput * b.att, tput)
-        o = torch.where(cont, b.no, o)
-        d = torch.where(cont, b.nd, d)
-        alive = cont
-        nans.check("a gather-walk step", radiance=rad, throughput=tput,
-                   origin=o, direction=d)
-    timing.count("walk.steps", steps)
-    return rad, rays
-
-
 class MeasurePoints(NamedTuple):
     """The measurement pass's first diffuse hit per pixel, (N, 3) rows as
     in the JAX package."""
@@ -1068,56 +1022,3 @@ def trace_photon_deposits_regen_soa(scene, tables: BounceTables,
     pas.run(gen)
     count_pass(pas.S, pas.L)
     return pas.deposits()
-
-
-def trace_photon_deposits_soa(scene, tables: BounceTables,
-                              gen: torch.Generator, n_photons: int,
-                              max_bounces: int, t_min: float, spawn_eps,
-                              intersector: str = "pallas") -> Deposits:
-    """The photon pass without regeneration (the JAX
-    ``trace_photon_deposits_soa``): ``n_photons`` lanes emit once and
-    bounce for a fixed ``max_bounces`` steps, with the per-photon rules of
-    ``trace_photon_deposits_regen_soa`` (Russian roulette with the power
-    renormalised, a deposit of the power from before it at every diffuse
-    hit, the caustic flag). Each step draws the four photon rows and then
-    one free-flight row per medium from ``gen``, the rows
-    ``models/sppm.py::trace_photon_deposits`` draws. Returns ``Deposits``
-    of ``max_bounces * n_photons`` slots, step-major."""
-    n = int(n_photons)
-    dev = tables.sph.device
-    fused = use_fused(scene, intersector)
-    k_med = media_rows(scene)
-    dep = torch.empty((9, max_bounces, n), device=dev)
-    flags = torch.empty((2, max_bounces, n), dtype=torch.bool, device=dev)
-    o, d, w = emit_photons_soa(scene.lights, gen, n)
-    alive = torch.ones((n,), dtype=torch.bool, device=dev)
-    has_spec = torch.zeros_like(alive)
-    has_diff = torch.zeros_like(alive)
-    for step in range(max_bounces):
-        U = torch.rand((U_TRACE_ROWS + k_med, n), generator=gen, device=dev)
-        b = bounce_step(tables, U, o, d, alive, t_min=t_min,
-                        spawn_eps=spawn_eps, fused=fused, scene=scene,
-                        intersector=intersector,
-                        media_u=_media_u(U, U_TRACE_ROWS, k_med))
-        hmax = b.att.amax(0)
-        survive = U[U_RR] <= hmax
-        inter = torch.where(survive, b.inter, INTER_ABSORB)
-        diffuse_now = alive & (inter == INTER_DIFFUSE)
-        dep[0:3, step] = b.p
-        dep[3:6, step] = w
-        dep[6:9, step] = b.n
-        flags[0, step] = diffuse_now
-        flags[1, step] = diffuse_now & has_spec & ~has_diff
-        cont = alive & (inter != INTER_ABSORB)
-        renorm = torch.where(survive, b.att / torch.clamp(hmax, min=1e-12),
-                             1.0)
-        o = torch.where(cont, b.no, o)
-        d = torch.where(cont, b.nd, d)
-        w = torch.where(cont, w * renorm, w)
-        has_spec = has_spec | (cont & ~diffuse_now)
-        has_diff = has_diff | diffuse_now
-        alive = cont
-        nans.check("a photon step", power=w, origin=o, direction=d)
-    dep = dep.reshape(9, -1)
-    flags = flags.reshape(2, -1)
-    return Deposits(dep[0:3], dep[3:6], dep[6:9], flags[0], flags[1])

@@ -15,9 +15,9 @@ Tables with an ordered stage (``ops/ordered.py``) take the ordered kernel
 rule (t, then type, then scene index) that gives the flat kernel's winner.
 
 Motion blur: with a per-ray shutter ``time`` on moving tables, both
-kernels run their motion form (``rt_closest_motion``,
-``rt_closest_ordered_motion``: the TPU kernels with ``has_time=True``), as
-``fused_bounce`` describes; the NEE shadow rays carry their lane's time.
+kernels run their motion form (the TPU kernels with ``has_time=True``;
+``fused_bounce.launch_sweep`` picks the entry point), as ``fused_bounce``
+describes; the NEE shadow rays carry their lane's time.
 
 The tables are ``fused_bounce.pack_tables``'s. The TPU kernel's 28 winner
 slots are not carried over (they exist because TPU gathers are slow): the
@@ -32,20 +32,9 @@ from typing import NamedTuple
 
 import torch
 
-from raytracer_tpu_torch.kernels.build import bind, check_launch
 from raytracer_tpu_torch.ops.fused_bounce import (
-    STAGE_ARGTYPES, BounceTables, _check, _closest_plain, motion_args,
-    stage_args, stats_arg,
+    BounceTables, _check, _closest_plain, launch_sweep, sweep_forms,
 )
-
-# Kernel launches made by ``closest_tables`` on CUDA tensors, of the flat
-# kernel and of the ordered one, static and with motion blur. Plain
-# integers: a run reads them before and after to show it went through the
-# kernels.
-LAUNCHES = 0
-ORDERED_LAUNCHES = 0
-MOTION_LAUNCHES = 0
-ORDERED_MOTION_LAUNCHES = 0
 
 
 class Closest(NamedTuple):
@@ -103,12 +92,11 @@ _I = ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _P, _I,                 # o d tmin tmax alive n
              _P, _I, _P, _I, _P, _I]                 # sph rect tri + counts
 _OUTS = [_P, _P, _P, _P, _P]                         # t ty ix b1 b2
+_FORMS = sweep_forms("closest", "closest-hit", _ARGTYPES, _OUTS)
 
 
 def _closest_cuda(tab: BounceTables, o, d, t_min, t_max, alive,
                   stats=None, time=None) -> Closest:
-    global LAUNCHES, ORDERED_LAUNCHES, MOTION_LAUNCHES
-    global ORDERED_MOTION_LAUNCHES
     dev = o.device
     n = o.shape[1]
     f32 = torch.float32
@@ -132,40 +120,7 @@ def _closest_cuda(tab: BounceTables, o, d, t_min, t_max, alive,
             tab.rect.data_ptr(), tab.rect.shape[0],
             tab.tri.data_ptr(), tab.tri.shape[0]]
     outs = [x.data_ptr() for x in (t, ty, ix, b1, b2)]
-    motion = tab.moves(time)
-    who = "closest hit"
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if tab.ordered and motion:
-            lib = bind("closest_ordered", "rt_closest_ordered_motion",
-                       _ARGTYPES + STAGE_ARGTYPES * 2 + _OUTS + [_P] * 5)
-            rc = lib.rt_closest_ordered_motion(
-                *args, *stage_args(tab.osph, dev), *stage_args(tab.otri, dev),
-                *outs, stats_arg(stats, n, dev),
-                *motion_args(tab, time, n, dev, who, True), stream)
-            check_launch(lib, rc, "ordered closest-hit kernel (motion)")
-            ORDERED_MOTION_LAUNCHES += 1
-        elif motion:
-            lib = bind("closest", "rt_closest_motion",
-                       _ARGTYPES + _OUTS + [_P] * 3)
-            rc = lib.rt_closest_motion(
-                *args, *outs, *motion_args(tab, time, n, dev, who, False),
-                stream)
-            check_launch(lib, rc, "closest-hit kernel (motion)")
-            MOTION_LAUNCHES += 1
-        elif tab.ordered:
-            lib = bind("closest_ordered", "rt_closest_ordered",
-                       _ARGTYPES + STAGE_ARGTYPES * 2 + _OUTS + [_P, _P])
-            rc = lib.rt_closest_ordered(
-                *args, *stage_args(tab.osph, dev), *stage_args(tab.otri, dev),
-                *outs, stats_arg(stats, n, dev), stream)
-            check_launch(lib, rc, "ordered closest-hit kernel")
-            ORDERED_LAUNCHES += 1
-        else:
-            lib = bind("closest", "rt_closest", _ARGTYPES + _OUTS + [_P])
-            rc = lib.rt_closest(*args, *outs, stream)
-            check_launch(lib, rc, "closest-hit kernel")
-            LAUNCHES += 1
+    launch_sweep(_FORMS, tab, args, n, dev, "closest hit", outs, stats, time)
     return Closest(t, ty, ix, b1, b2)
 
 

@@ -48,7 +48,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from raytracer_tpu_torch.kernels.build import bind, check_launch
+from raytracer_tpu_torch.kernels import launch
 from raytracer_tpu_torch.ops import ordered as ordered_ops
 from raytracer_tpu_torch.ops.ordered import OrderedStage
 from raytracer_tpu_torch.scene.types import (
@@ -65,15 +65,6 @@ FRAC_1_PI = 0.3183098861837907
 # not depend on the chunking: the lowest index wins a tie either way)
 PLAIN_PAIRS = 1 << 24
 PLAIN_PAIRS_CPU = 1 << 19
-
-# Kernel launches made by ``bounce_tables`` on CUDA tensors, of the flat
-# kernel and of the ordered one, static and with motion blur. Plain
-# integers: a run reads them before and after to show it went through the
-# kernels.
-LAUNCHES = 0
-ORDERED_LAUNCHES = 0
-MOTION_LAUNCHES = 0
-ORDERED_MOTION_LAUNCHES = 0
 
 
 class BounceTables(NamedTuple):
@@ -590,10 +581,57 @@ def table_args(tab: BounceTables, dev, who: str = "bounce") -> list:
             tab.tri.shape[0], tab.mat.data_ptr()]
 
 
+def sweep_forms(kernel: str, name: str, argtypes: list,
+                outtypes: list = ()) -> dict:
+    """The four forms of sweep kernel ``kernel`` ("bounce", "closest" or
+    "regen"), made once for ``launch_sweep``: {(ordered, motion): (its
+    ``launch_counts`` key ``<kernel><form>``, library (``<kernel>`` or
+    ``<kernel>_ordered``), entry point ``rt_<kernel><form>``, argument
+    types, what a refused launch's message calls it)}. The arguments, in
+    the order of every form: ``argtypes``, both stages if ordered, the
+    output pointers ``outtypes`` (regen has none), the stats if ordered,
+    the motion pointers if moving, the stream. ``name`` names the kernel
+    in the message."""
+    forms = {}
+    for ordered in (False, True):
+        for motion in (False, True):
+            key = kernel + "_ordered" * ordered + "_motion" * motion
+            # the stats if ordered; sph_vel, (osph.vel,) time if moving
+            types = [*argtypes, *STAGE_ARGTYPES * (2 * ordered), *outtypes,
+                     *[_P] * (ordered + (2 + ordered) * motion), _P]
+            forms[ordered, motion] = (
+                key, kernel + "_ordered" * ordered, "rt_" + key, types,
+                "ordered " * ordered + name + " kernel" + " (motion)" * motion)
+    return forms
+
+
+def launch_sweep(forms: dict, tab: BounceTables, args: list, n: int, dev,
+                 who: str, outs=(), stats=None, time=None):
+    """Launch the form of a sweep kernel (``forms``, from ``sweep_forms``)
+    that the tables and the call take: ordered when a stage of ``tab``
+    takes the walk, motion when ``tab.moves(time)``. ``args``, the
+    arguments every form begins with, is extended in place by the rest of
+    that form's, in the order ``sweep_forms`` gives (``outs``: the output
+    pointers); ``who`` names the caller in a bad input's message."""
+    ordered, motion = tab.ordered, tab.moves(time)
+    key, library, symbol, types, what = forms[ordered, motion]
+    if ordered:
+        args += [*stage_args(tab.osph, dev), *stage_args(tab.otri, dev),
+                 *outs, stats_arg(stats, n, dev)]
+    else:
+        args += outs
+    if motion:
+        args += motion_args(tab, time, n, dev, who, ordered)
+    with torch.cuda.device(dev):
+        args.append(torch.cuda.current_stream(dev).cuda_stream)
+        launch(key, library, symbol, types, args, what)
+
+
+_FORMS = sweep_forms("bounce", "bounce", _ARGTYPES, _OUTS)
+
+
 def _bounce_cuda(tab: BounceTables, o_t, d_t, t_min: float, alive, uni_t,
                  stats=None, time=None):
-    global LAUNCHES, ORDERED_LAUNCHES, MOTION_LAUNCHES
-    global ORDERED_MOTION_LAUNCHES
     dev = o_t.device
     n = o_t.shape[1]
     f32 = torch.float32
@@ -606,39 +644,7 @@ def _bounce_cuda(tab: BounceTables, o_t, d_t, t_min: float, alive, uni_t,
     args = [o_t.data_ptr(), d_t.data_ptr(), alive.data_ptr(),
             uni_t.data_ptr(), float(t_min), n, *table_args(tab, dev)]
     outs = [r.data_ptr() for r in rows] + [inter.data_ptr()]
-    motion = tab.moves(time)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if tab.ordered and motion:
-            lib = bind("bounce_ordered", "rt_bounce_ordered_motion",
-                       _ARGTYPES + STAGE_ARGTYPES * 2 + _OUTS + [_P] * 5)
-            rc = lib.rt_bounce_ordered_motion(
-                *args, *stage_args(tab.osph, dev), *stage_args(tab.otri, dev),
-                *outs, stats_arg(stats, n, dev),
-                *motion_args(tab, time, n, dev, "bounce", True), stream)
-            check_launch(lib, rc, "ordered bounce kernel (motion)")
-            ORDERED_MOTION_LAUNCHES += 1
-        elif tab.ordered:
-            lib = bind("bounce_ordered", "rt_bounce_ordered",
-                       _ARGTYPES + STAGE_ARGTYPES * 2 + _OUTS + [_P, _P])
-            rc = lib.rt_bounce_ordered(
-                *args, *stage_args(tab.osph, dev), *stage_args(tab.otri, dev),
-                *outs, stats_arg(stats, n, dev), stream)
-            check_launch(lib, rc, "ordered bounce kernel")
-            ORDERED_LAUNCHES += 1
-        elif motion:
-            lib = bind("bounce", "rt_bounce_motion",
-                       _ARGTYPES + _OUTS + [_P] * 3)
-            rc = lib.rt_bounce_motion(
-                *args, *outs, *motion_args(tab, time, n, dev, "bounce", False),
-                stream)
-            check_launch(lib, rc, "bounce kernel (motion)")
-            MOTION_LAUNCHES += 1
-        else:
-            lib = bind("bounce", "rt_bounce", _ARGTYPES + _OUTS + [_P])
-            rc = lib.rt_bounce(*args, *outs, stream)
-            check_launch(lib, rc, "bounce kernel")
-            LAUNCHES += 1
+    launch_sweep(_FORMS, tab, args, n, dev, "bounce", outs, stats, time)
     no, nd, att, emit, p, nrm = rows
     return inter, no, nd, att, emit, p, nrm
 

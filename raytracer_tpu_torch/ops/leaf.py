@@ -41,7 +41,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.kernels.build import bind, check_launch
+from raytracer_tpu_torch.kernels import launch
 from raytracer_tpu_torch.ops import ordered as ordered_ops
 from raytracer_tpu_torch.ops.closest_hit import Closest, _closest, _rows
 from raytracer_tpu_torch.ops.fused_bounce import (
@@ -56,10 +56,6 @@ GROUP = 32         # rays that walk the hierarchy together: a warp
 STACK = 32         # the kernel's stack of nodes: the hierarchy's depth cap
 BIG_FACTOR = 20.0  # "big": radius > 20 x the median radius
 MIN_SPHERES = 256  # with_leaf_tables' policy
-
-# Kernel launches made by ``leaf_closest`` on CUDA tensors. A plain integer:
-# a run reads it before and after to show it went through the kernel.
-LAUNCHES = 0
 
 
 class LeafPack(NamedTuple):
@@ -377,7 +373,6 @@ _ARGTYPES = [_P, _P, _P, _P, _P, _I,                 # o d tmin tmax alive n
 
 def _leaf_cuda(tab: BounceTables, o, d, t_min, t_max, alive,
                visits=None) -> Closest:
-    global LAUNCHES
     lp = _need(tab)
     dev = o.device
     n = o.shape[1]
@@ -397,10 +392,9 @@ def _leaf_cuda(tab: BounceTables, o, d, t_min, t_max, alive,
     ix = torch.empty((n,), dtype=torch.int32, device=dev)
     b1 = torch.empty((n,), dtype=f32, device=dev)
     b2 = torch.empty((n,), dtype=f32, device=dev)
-    lib = bind("leaf", "rt_leaf", _ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.rt_leaf(
+        launch("leaf", "leaf", "rt_leaf", _ARGTYPES, (
             o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
             alive.data_ptr(), n,
             lp.big.data_ptr(), lp.big_orig.data_ptr(), lp.big.shape[0],
@@ -411,9 +405,7 @@ def _leaf_cuda(tab: BounceTables, o, d, t_min, t_max, alive,
             lp.sph.shape[0] // max(n_leaf, 1),
             t.data_ptr(), ty.data_ptr(), ix.data_ptr(), b1.data_ptr(),
             b2.data_ptr(), None if visits is None else visits.data_ptr(),
-            stream)
-    check_launch(lib, rc, "leaf kernel")
-    LAUNCHES += 1
+            stream), "leaf kernel")
     return Closest(t, ty, ix, b1, b2)
 
 

@@ -37,7 +37,7 @@ from typing import NamedTuple
 
 import torch
 
-from raytracer_tpu_torch.kernels import build
+from raytracer_tpu_torch.kernels import build, launch
 from raytracer_tpu_torch.ops.photon_grid import QueryResult
 from raytracer_tpu_torch.utils import timing
 
@@ -51,10 +51,6 @@ BIG = 3.0e38
 # photon) pairs per piece
 PLAIN_POINTS = 2048
 PLAIN_PAIRS = 1 << 24
-
-# Kernel launches made by ``query_planes`` on CUDA tensors (see
-# ``fused_bounce.LAUNCHES``).
-LAUNCHES = 0
 
 
 class PhotonPlanes(NamedTuple):
@@ -299,7 +295,7 @@ def _check(name, x, dev, dtype, shape):
 
 def _library():
     """The kernel's library, its shapes checked against this module's."""
-    lib = build.bind("photon_query", "rt_photon_query", _ARGTYPES)
+    lib = build.load_library("photon_query")
     if lib.rt_photon_query_work.argtypes is None:
         lib.rt_photon_query_work.argtypes = [_I, _I]
         lib.rt_photon_query_work.restype = _I
@@ -317,7 +313,6 @@ def _library():
 
 
 def _query_cuda(planes: PhotonPlanes, points, r2, cap2) -> QueryResult:
-    global LAUNCHES
     dev = points.device
     n = points.shape[0]
     p_pad = planes.posf.shape[1]
@@ -341,14 +336,14 @@ def _query_cuda(planes: PhotonPlanes, points, r2, cap2) -> QueryResult:
     slots = torch.empty((slots_n, TILE, 8), dtype=f32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.rt_photon_query(
-            points.data_ptr(), r2.data_ptr(), cap2.data_ptr(), n,
-            planes.posf.data_ptr(), planes.payload.data_ptr(),
-            planes.cull.data_ptr(), planes.gcull.data_ptr(), k,
-            planes.n_live.data_ptr(), out.data_ptr(), work.data_ptr(),
-            slots.data_ptr(), stream)
-    build.check_launch(lib, rc, "photon query kernel")
-    LAUNCHES += 1
+        launch("photon_query", "photon_query", "rt_photon_query",
+               _ARGTYPES, (
+                   points.data_ptr(), r2.data_ptr(), cap2.data_ptr(), n,
+                   planes.posf.data_ptr(), planes.payload.data_ptr(),
+                   planes.cull.data_ptr(), planes.gcull.data_ptr(), k,
+                   planes.n_live.data_ptr(), out.data_ptr(),
+                   work.data_ptr(), slots.data_ptr(), stream),
+               "photon query kernel")
     return _result(out)
 
 

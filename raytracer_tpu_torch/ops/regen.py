@@ -27,7 +27,7 @@ Motion blur (JAX ``has_time=True``): the lanes carry a shutter time
 row 9), the bounce tests the moving spheres at each lane's time, and a
 lane that respawns takes the next sample's time ``time0 + U[8] (time1 -
 time0)`` from the packed camera's shutter (19-20). The kernels' motion
-entry points (``rt_regen_motion``, ``rt_regen_ordered_motion``) update the
+entry points (``fused_bounce.launch_sweep``'s motion form) update the
 time in place with the rest of the lane.
 """
 
@@ -37,10 +37,9 @@ import ctypes
 
 import torch
 
-from raytracer_tpu_torch.kernels.build import bind, check_launch
 from raytracer_tpu_torch.ops.fused_bounce import (
-    STAGE_ARGTYPES, TABLE_ARGTYPES, BounceTables, _check, bounce_fused_plain,
-    bounce_ordered_plain, motion_args, stage_args, stats_arg, table_args,
+    TABLE_ARGTYPES, BounceTables, _check, bounce_fused_plain,
+    bounce_ordered_plain, launch_sweep, sweep_forms, table_args,
 )
 from raytracer_tpu_torch.ops.sampling import camera_rays_soa
 from raytracer_tpu_torch.scene.types import INTER_ABSORB, Camera
@@ -51,15 +50,6 @@ U_RR = 3                         # Russian roulette
 U_CAM = slice(4, 8)              # the respawn: jitter x, y, lens r, phi
 U_TIME = 8                       # the respawn's shutter time (motion)
 CAM_WIDTH = 32                   # pack_camera's length
-
-# Kernel launches made by ``regen_step_tables`` on CUDA tensors, of the
-# flat kernel and of the ordered one, static and with motion blur. Plain
-# integers: a run reads them before and after to show it went through the
-# kernels.
-LAUNCHES = 0
-ORDERED_LAUNCHES = 0
-MOTION_LAUNCHES = 0
-ORDERED_MOTION_LAUNCHES = 0
 
 
 def pack_camera(cam: Camera) -> torch.Tensor:
@@ -178,14 +168,13 @@ _I = ctypes.c_int
 # o d tput samp acc alive depth done px py U cam; tmin eps; n width height
 # quota max_depth rr_on rr_start; the tables
 _ARGTYPES = ([_P] * 12 + [ctypes.c_float] * 2 + [_I] * 7 + TABLE_ARGTYPES)
+_FORMS = sweep_forms("regen", "regen", _ARGTYPES)
 _WRITTEN = ("o", "d", "tput", "samp", "acc", "alive", "depth", "done")
 
 
 def _regen_cuda(tab: BounceTables, cam, U, eps: float, lanes, *, width,
                 height, quota, max_depth, rr_on, rr_start, t_min,
                 stats=None):
-    global LAUNCHES, ORDERED_LAUNCHES, MOTION_LAUNCHES
-    global ORDERED_MOTION_LAUNCHES
     dev = lanes.o.device
     n = lanes.o.shape[1]
     f32, i32 = torch.float32, torch.int32
@@ -214,40 +203,9 @@ def _regen_cuda(tab: BounceTables, cam, U, eps: float, lanes, *, width,
     args += [U.data_ptr(), cam.data_ptr(), float(t_min), float(eps), n,
              width, height, quota, max_depth, int(bool(rr_on)), rr_start,
              *table_args(tab, dev, "regen step")]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if motion:
-            margs = motion_args(tab, lanes.time, n, dev, "regen step",
-                                tab.ordered)
-        with timing.span("regen.launch"):
-            if tab.ordered and motion:
-                lib = bind("regen_ordered", "rt_regen_ordered_motion",
-                           _ARGTYPES + STAGE_ARGTYPES * 2 + [_P] * 5)
-                rc = lib.rt_regen_ordered_motion(
-                    *args, *stage_args(tab.osph, dev),
-                    *stage_args(tab.otri, dev),
-                    stats_arg(stats, n, dev), *margs, stream)
-                check_launch(lib, rc, "ordered regen kernel (motion)")
-                ORDERED_MOTION_LAUNCHES += 1
-            elif motion:
-                lib = bind("regen", "rt_regen_motion", _ARGTYPES + [_P] * 3)
-                rc = lib.rt_regen_motion(*args, *margs, stream)
-                check_launch(lib, rc, "regen kernel (motion)")
-                MOTION_LAUNCHES += 1
-            elif tab.ordered:
-                lib = bind("regen_ordered", "rt_regen_ordered",
-                           _ARGTYPES + STAGE_ARGTYPES * 2 + [_P, _P])
-                rc = lib.rt_regen_ordered(
-                    *args, *stage_args(tab.osph, dev),
-                    *stage_args(tab.otri, dev),
-                    stats_arg(stats, n, dev), stream)
-                check_launch(lib, rc, "ordered regen kernel")
-                ORDERED_LAUNCHES += 1
-            else:
-                lib = bind("regen", "rt_regen", _ARGTYPES + [_P])
-                rc = lib.rt_regen(*args, stream)
-                check_launch(lib, rc, "regen kernel")
-                LAUNCHES += 1
+    with timing.span("regen.launch"):
+        launch_sweep(_FORMS, tab, args, n, dev, "regen step", stats=stats,
+                     time=lanes.time)
     return lanes
 
 

@@ -20,10 +20,10 @@ generator, registered with the graph; its state is set from the caller's
 generator before every replay, so a replay draws exactly what the
 program run eagerly from that generator would.
 
-The kernel wrappers count a launch in Python, so the capture's counts are
-taken back (nothing ran) and added again at every replay
-(``kernels.add_launches``): the counts of a graphed program equal those
-of the same program run eagerly.
+The kernel wrappers count a launch in Python (``kernels.COUNTS``), so the
+capture's counts are taken back (nothing ran) and added again at every
+replay: the counts of a graphed program equal those of the same program
+run eagerly.
 
 A capture or replay error raises; nothing falls back to an eager run.
 The recorder (``utils/timing.py``) sees the span ``graph.capture`` (the
@@ -39,9 +39,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from raytracer_tpu_torch.kernels import (
-    add_launches, launch_counts, launches_since,
-)
+from raytracer_tpu_torch.kernels import COUNTS
 from raytracer_tpu_torch.utils import timing
 
 MAX_GRAPHS = 2      # a render holds one graph; one more for its neighbour
@@ -144,7 +142,7 @@ class GraphCache:
             entry.gen.set_state(gen.get_state())
             entry.graph.replay()
         timing.count("graph.replays")
-        add_launches(entry.launches)
+        COUNTS.update(entry.launches)
         # the caller's generator moves on past the program's draws
         gen.set_state(entry.gen.get_state())
         return entry.outputs
@@ -159,10 +157,10 @@ class GraphCache:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         graph = self.primitive(device, g)
-        before = launch_counts()
+        before = COUNTS.copy()
         outputs = graph.capture(program)
-        launches = launches_since(before)
-        add_launches(launches, -1)          # the capture ran nothing
+        launches = dict(COUNTS - before)    # the positive differences
+        COUNTS.subtract(launches)           # the capture ran nothing
         self.captures += 1
         timing.count("graph.captures")
         return Entry(graph, own, g, keep, outputs, launches)

@@ -168,15 +168,15 @@ def test_golden_bands_match_check_against(name):
 
 
 def test_launch_counts_read_and_zero_every_wrapper(monkeypatch):
-    """``kernels.launch_counts`` reads each wrapper's count by library and
-    form, ``launches_since`` the non-zero differences, and
+    """``kernels.launch_counts`` reads every count of ``kernels.COUNTS`` by
+    library and form, ``launches_since`` the non-zero differences, and
     ``zero_launch_counts`` sets them all to 0."""
     from raytracer_tpu_torch import kernels
-    from raytracer_tpu_torch.ops import photon_query, regen
-    monkeypatch.setattr(regen, "ORDERED_MOTION_LAUNCHES", 5)
+    monkeypatch.setitem(kernels.COUNTS, "regen_ordered_motion", 5)
     before = kernels.launch_counts()
     assert len(before) == 15 and before["regen_ordered_motion"] == 5
-    monkeypatch.setattr(photon_query, "LAUNCHES", before["photon_query"] + 2)
+    monkeypatch.setitem(kernels.COUNTS, "photon_query",
+                        before["photon_query"] + 2)
     assert kernels.launches_since(before) == {"photon_query": 2}
     kernels.zero_launch_counts()
     assert set(kernels.launch_counts().values()) == {0}

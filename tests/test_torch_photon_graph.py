@@ -43,9 +43,9 @@ class FakeGraph:
         return self.outputs
 
     def replay(self):
-        before = kernels.launch_counts()
+        before = kernels.COUNTS.copy()
         out = self.program()
-        kernels.add_launches(kernels.launches_since(before), -1)
+        kernels.COUNTS.subtract(kernels.COUNTS - before)
         for dst, src in zip(graphs.tensors(self.outputs),
                             graphs.tensors(out)):
             if dst is not src:
@@ -87,11 +87,11 @@ def counted(monkeypatch):
     real = wf.bounce_tables
 
     def bounce(*a, **k):
-        fb.LAUNCHES += 1
+        kernels.COUNTS["bounce"] += 1
         return real(*a, **k)
 
     monkeypatch.setattr(wf, "bounce_tables", bounce)
-    monkeypatch.setattr(fb, "LAUNCHES", 0)
+    monkeypatch.setitem(kernels.COUNTS, "bounce", 0)
 
 
 def cornell(albedo=None):
@@ -225,17 +225,17 @@ def test_replays_count_the_eager_launches(lanes, counted):
     steps = wf.spawn_window(PHOTONS, lanes) + BOUNCES
     for it in (0, 1):
         eager(scene, tables, it)
-    assert fb.LAUNCHES == 2 * steps
+    assert kernels.COUNTS["bounce"] == 2 * steps
     cache = graphs.GraphCache(primitive=FakeGraph)
-    fb.LAUNCHES = 0
+    kernels.COUNTS["bounce"] = 0
     graphed(scene, tables, 0, cache)
-    assert fb.LAUNCHES == steps + 1
+    assert kernels.COUNTS["bounce"] == steps + 1
     assert cache.entries[next(iter(cache.entries))].launches == {
         "bounce": steps}
-    fb.LAUNCHES = 0
+    kernels.COUNTS["bounce"] = 0
     for it in (1, 2):
         graphed(scene, tables, it, cache)
-    assert fb.LAUNCHES == 2 * steps
+    assert kernels.COUNTS["bounce"] == 2 * steps
 
 
 def test_route_rule():
@@ -406,7 +406,7 @@ def test_layout_keys_and_copies():
 
 
 def test_add_launches_round_trip(monkeypatch):
-    monkeypatch.setattr(fb, "LAUNCHES", 3)
+    monkeypatch.setitem(kernels.COUNTS, "bounce", 3)
     before = kernels.launch_counts()
     kernels.add_launches({"bounce": 4, "photon_query": 2}, times=2)
     assert kernels.launches_since(before) == {"bounce": 8,

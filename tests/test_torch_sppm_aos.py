@@ -1,7 +1,6 @@
 """SPPM's (N, 3) route in the port (``models/sppm.py``'s
 ``trace_photon_deposits``, (N, 3) ``measurement_pass``, ``gather_walk``
-and ``gather_fn``'s chunk loop; ``wavefront_soa.gather_walk_soa`` and
-``trace_photon_deposits_soa``; ``materials.scatter_photon``;
+and ``gather_fn``'s chunk loop; ``materials.scatter_photon``;
 ``photon_grid.query_grid``; ``nee.sample_li``) against the JAX package's.
 
 Function level, on the same numpy inputs:
@@ -20,10 +19,12 @@ Function level, on the same numpy inputs:
 Route level: the port's SPPM takes the JAX package's route
 (``soa_eligible`` against JAX ``_soa_eligible``, and the passes that run)
 for every intersector on Cornell and cornell_smoke. Given the same rows
-(the same generator seed), ``gather_walk_soa`` (the kernel route) and
-``gather_walk``'s (N, 3) loop (the brute-force route) trace the same
-paths: radiance within 1e-4 on at least 99% of the lanes, rays within
-0.1%; likewise the two photon passes' deposits.
+(the same generator seed), ``gather_walk`` on the kernel route (the
+closest-hit kernel, as a media scene's gather takes it) and on the
+brute-force route trace the same paths: radiance within 1e-4 on at least
+99% of the lanes, rays within 0.1%; likewise the (N, 3) photon pass and
+the regenerating SoA pass with no spawn window
+(``wavefront_soa.trace_photon_deposits_regen_soa``), on the kernel route.
 
 Image level (the packages draw from different streams): SPPM at 16x16,
 2 iterations x 4,000 photons, a 4-spp gather, on cornell_smoke (the
@@ -348,10 +349,11 @@ def test_routes_follow_jax(name, route, monkeypatch):
     assert calls == ({"soa": 3, "aos": 0} if soa else {"soa": 0, "aos": 3})
 
 
-def test_gather_walk_soa_equals_gather_walk():
-    """The same generator seed gives both walks the same rows: the kernel
-    route's SoA walk and the brute-force (N, 3) walk trace the same
-    paths."""
+def test_gather_walk_on_the_kernel_route_equals_bruteforce():
+    """The same generator seed gives both walks the same rows: the (N, 3)
+    walk on the kernel route ("pallas": the closest-hit kernel, the
+    gather of a media scene such as cornell_smoke) and on the brute-force
+    route trace the same paths."""
     scene = tbuiltin.cornell_box()
     tables = pack_tables(scene)
     w = h = 24
@@ -364,21 +366,17 @@ def test_gather_walk_soa_equals_gather_walk():
     rad_a, rays_a = sppm.gather_walk(scene, tables, o, d, est,
                                      torch.Generator().manual_seed(5),
                                      intersector="bruteforce", **kw)
-    rad_s, rays_s = twf.gather_walk_soa(
-        scene, tables, o.T.contiguous(), d.T.contiguous(),
-        est.T.contiguous(), torch.Generator().manual_seed(5), **kw)
-    close = torch.isclose(rad_s.T, rad_a, rtol=1e-4, atol=1e-4).all(1)
-    assert close.float().mean() >= 0.99
-    assert abs(rays_a - rays_s) <= 0.001 * rays_a and rays_a > pix.shape[0]
-    # dispatching through gather_walk on the kernel route runs the SoA walk
     rad_k, rays_k = sppm.gather_walk(scene, tables, o, d, est,
                                      torch.Generator().manual_seed(5),
                                      intersector="pallas", **kw)
-    assert torch.equal(rad_k, rad_s.T) and rays_k == rays_s
+    close = torch.isclose(rad_k, rad_a, rtol=1e-4, atol=1e-4).all(1)
+    assert close.float().mean() >= 0.99
+    assert abs(rays_a - rays_k) <= 0.001 * rays_a and rays_a > pix.shape[0]
 
 
 def test_photon_passes_equal_given_the_same_rows():
-    """``trace_photon_deposits_soa`` (kernel route) and the (N, 3)
+    """The regenerating pass with one lane a photon and no spawn window
+    (``trace_photon_deposits_regen_soa``, kernel route) and the (N, 3)
     ``trace_photon_deposits`` (brute-force route) on one seed: the same
     deposits on at least 99% of the slots."""
     scene = tbuiltin.cornell_box()
@@ -387,8 +385,9 @@ def test_photon_passes_equal_given_the_same_rows():
     kw = (3000, 6, sppm.PHOTON_T_MIN, 1e-5 * scene.scale)
     a = sppm.trace_photon_deposits(*args, torch.Generator().manual_seed(2),
                                    *kw, "bruteforce")
-    s = twf.trace_photon_deposits_soa(*args,
-                                      torch.Generator().manual_seed(2), *kw)
+    s, spawned = twf.trace_photon_deposits_regen_soa(
+        *args, torch.Generator().manual_seed(2), *kw, lanes=3000, window=0)
+    assert int(spawned) == 3000
     assert a.valid.shape == s.valid.shape == (6 * 3000,)
     same = (a.valid == s.valid) & (a.caustic == s.caustic)
     assert same.float().mean() >= 0.99 and a.valid.sum() > 3000
