@@ -6,7 +6,7 @@ Phases, each of which raises on failure (exit code non-zero):
 
 1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
    no CUDA device is an error;
-2. build the nine kernels from ``raytracer_tpu_torch/csrc`` (one nvcc
+2. build the ten kernels from ``raytracer_tpu_torch/csrc`` (one nvcc
    per source, started together), with ptxas registers and spills;
 3. the bounce kernel against its plain PyTorch version on the card, on the
    bounce cases of ``tests/test_torch_bounce.py`` and on scene_500 at the
@@ -164,7 +164,16 @@ Phases, each of which raises on failure (exit code non-zero):
    farther from the eager ones than they are apart; and the pass at
    ``LANE_SWEEP`` lanes and the rule's (``lane_sweep``: steps, deposit
    slots, photons spawned, seconds, memory peak) at 500,000 photons and
-   at a four-card rank's 125,000.
+   at a four-card rank's 125,000;
+21. the photon step kernel (``ops/photon_step.py``: the photon pass's
+   step after the bounce, one launch) against its plain twin
+   (``PhotonPass._step_plain``) at the cell's size (Cornell with its
+   mesh, 500,000 photons, 250,880 lanes) and on textured_spheres through
+   the unfused bounce and the leaf route (100,000 photons) on one
+   iteration's draws: lanes and spawn counter after every step, deposits
+   and flags after the pass, bit-equal; one step's time each way inside the window and after
+   it, beside the bounce's and the draws', with the bound; the eager
+   pass each way.
 
 It imports no JAX. The line before the last is a JSON object with the
 kernels' launches, errors, times and bounds; the last line is
@@ -201,7 +210,8 @@ P_TOL_REL = 1e-5        # p, no: atol = P_TOL_REL * scene.scale
 EDGE_ULPS = 24
 DEV = "cuda"
 KERNELS = ("bounce", "photon_query", "closest", "closest_ordered",
-           "bounce_ordered", "leaf", "regen", "regen_ordered", "fma_rate")
+           "bounce_ordered", "leaf", "regen", "regen_ordered", "fma_rate",
+           "photon_step")
 # photon query: flux |kernel - plain| <= Q_RTOL |plain| + Q_ATOL max|plain|.
 # Both sum non-negative float32 terms, in another order (the kernel one
 # photon at a time, the plain version by chunked matmuls); the kernel's
@@ -350,14 +360,16 @@ def build() -> float:
 def ptxas(name: str) -> list:
     """The register and spill lines of ``name``'s build, each tagged with
     its kernel's form where the kernel is a template on MOTION: "[static]"
-    or "[motion]"."""
+    or "[motion]" (the photon step's on SPAWN: "[after]" or "[window]")."""
     from raytracer_tpu_torch.kernels import build as kbuild
+    on, off = (("[window] ", "[after] ") if name == "photon_step" else
+               ("[motion] ", "[static] "))
     out, form = [], ""
     for ln in kbuild.build_log(name).splitlines():
         if "Compiling entry function" in ln:
             entry = ln.split("'")[1]
-            form = ("[motion] " if "ILb1E" in entry else
-                    "[static] " if "ILb0E" in entry else "")
+            form = (on if "ILb1E" in entry else
+                    off if "ILb0E" in entry else "")
         elif "registers" in ln or "spill" in ln:
             out.append(form + ln.strip())
     return out
@@ -3687,9 +3699,10 @@ def photon_graph_phase() -> dict:
         f"{entry.launches}, in the first call {first}; memory held "
         f"{mem / 2**20:.1f} MiB "
         f"allocated, {pool / 2**20:.1f} MiB reserved")
-    if entry.launches.get("bounce") != steps or first.get("bounce") != \
-            steps + 1:
-        raise AssertionError(f"graph launches {entry.launches}, {first}")
+    for key in ("bounce", "photon_step"):    # the warm-up steps once
+        if entry.launches.get(key) != steps or first.get(key) != steps + 1:
+            raise AssertionError(f"graph launches {entry.launches}, "
+                                 f"{first}")
     graph_bit_equal("Cornell", eager_pass, graph_pass)
 
     # the ordered bounce in the graph: field64k's tables take the walk
@@ -3732,7 +3745,8 @@ def photon_graph_phase() -> dict:
         f"graph {launches['graph']}; measurement walk steps {walked}")
     photon = {way: dict(n, bounce=n["bounce"] - walked[way])
               for way, n in launches.items()}
-    if photon["eager"] != photon["graph"]:
+    if photon["eager"] != photon["graph"] or \
+            launches["graph"].get("photon_step") != steps:
         raise AssertionError(f"launches differ: {launches}, {walked}")
 
     # turns: the pass (and maps) and the iteration, each way
@@ -3841,6 +3855,183 @@ def lane_sweep(scene) -> list:
     return rows
 
 
+# ----------------------------------------------------------------- phase 21
+
+STEP_REPS = 20          # CUDA-event timings of one step, each way
+# the card held busy (torch.cuda._sleep) while the host enqueues a timed
+# call, so that its events time the device's work and not the host's
+# launch path: ~10 ms at the H100's clock
+HOLD_CYCLES = 20_000_000
+# bytes a lane a step (csrc/photon_step.cu): read the bounce's rows (64),
+# the lane (43) and the roulette draw (4); write the deposit (36), its
+# flags (2) and the lane (43); a lane that spawns reads 28 more
+STEP_LANE_BYTES, SPAWN_BYTES = 111 + 81, 28
+STEP_STATE = ("o", "d", "w", "alive", "has_spec", "has_diff", "depth",
+              "counter")
+TWIN_PHOTONS = 100_000  # textured_spheres' unfused and leaf routes
+
+
+def step_twins(tag, scene, tables, method, n_photons, bounces, eps):
+    """Two eager photon passes of ``n_photons`` on ``method``'s route and
+    the same draws (iteration GRAPH_ITER's stream), one stepping through
+    the kernel and one through the plain twin on the card: the lanes and
+    the spawn counter compared after every step, the deposits, flags and
+    the generator's state after the pass, all bit for bit, and one kernel
+    launch a step. Returns ``make(kernel)``, which builds such a pass,
+    ``gen()``, the launches, and the largest |kernel - plain| over the
+    float lanes after every step and the deposits after the pass."""
+    from raytracer_tpu_torch.models import sppm
+    from raytracer_tpu_torch.models import wavefront_soa as wf
+    from raytracer_tpu_torch.utils.rng import stream_generator
+
+    def make(kernel: bool):
+        pas = wf.PhotonPass(scene, tables, n_photons, bounces,
+                            sppm.PHOTON_T_MIN, eps, intersector=method)
+        pas.kernel = kernel          # False: the plain twin on the card
+        return pas
+
+    def gen():
+        return stream_generator(DEV, 0, sppm.PHOTON_STREAM, GRAPH_ITER)
+
+    k, p = make(True), make(False)
+    gk, gp = gen(), gen()
+    k.start(gk)
+    p.start(gp)
+    zero_counts()
+    bad, err = [], 0.0
+
+    def gap(a, b) -> float:             # equal infinities differ by 0
+        return float(torch.where(a == b, 0.0, (a - b).abs()).max())
+
+    for step in range(k.S):
+        k.step(gk, step)
+        p.step(gp, step)
+        diff = {n: int((getattr(k, n) != getattr(p, n)).sum())
+                for n in STEP_STATE
+                if not torch.equal(getattr(k, n), getattr(p, n))}
+        if diff:
+            bad.append((step, diff))
+        err = max([err] + [gap(getattr(k, n), getattr(p, n))
+                           for n in ("o", "d", "w")])
+    launches = {n: v for n, v in counts().items() if v}
+    k.finish()
+    p.finish()
+    same = {n: torch.equal(getattr(k, n), getattr(p, n))
+            for n in ("dep", "flags", "counter")}
+    same["draws"] = torch.equal(gk.get_state(), gp.get_state())
+    err = max(err, gap(k.dep, p.dep))
+    log(f"photon step kernel against the plain twin, {tag} ({method}, "
+        f"fused {k.fused}): {k.L} lanes, {k.S} steps (window {k.window}), "
+        f"{int(k.counter)} spawned, {int(k.flags[0].sum())} deposits; "
+        f"bit-equal {same}; lanes or counter differing after a step: "
+        f"{bad[:4] or 'none'}; launches {launches}; max |kernel - plain| "
+        f"{err:.6g}")
+    if bad or not all(same.values()) or \
+            launches.get("photon_step") != k.S:
+        raise AssertionError(f"photon step kernel differs on {tag}: "
+                             f"{bad[:4]}, {same}, {launches}")
+    return make, gen, launches, err
+
+
+def photon_step_phase() -> dict:
+    """The photon step kernel (``ops/photon_step.py``) against its plain
+    twin (``PhotonPass._step_plain``), ``step_twins``: at the cell's size
+    (Cornell with its mesh, 500,000 photons, the rule's 250,880 lanes, 16
+    bounces, the fused bounce), and on ``textured_spheres`` at
+    TWIN_PHOTONS through the unfused bounce and through the leaf route.
+    Then, at the cell's size, the times of one step each way, inside the
+    spawn window and after it (the lanes restored before each timing;
+    median of STEP_REPS CUDA events), beside the bounce's and the
+    draws', the bound from the bytes, and the whole eager pass each way.
+    Returns the kernel's row, its launches 0: ``main`` adds the main
+    path's (phase 19's bench, phase 20's graphed iteration)."""
+    from raytracer_tpu_torch.models import sppm
+    from raytracer_tpu_torch.models import wavefront_soa as wf
+    from raytracer_tpu_torch.ops import dispatch
+    from raytracer_tpu_torch.ops import photon_step as ps
+    from raytracer_tpu_torch.ops.leaf import build_leaf_tables
+    cfg = sppm_config(SPPM_SPP)
+    tex = textured_scene(1.0)
+    tex = tex._replace(leaf=build_leaf_tables(tex)).to(DEV)
+    errs = [step_twins(f"textured_spheres {TWIN_PHOTONS} photons", tex,
+                       dispatch.route_tables(tex, route),
+                       dispatch.route(tex, route), TWIN_PHOTONS,
+                       cfg.sppm.max_photon_bounces,
+                       cfg.spawn_eps_rel * tex.scale)[3]
+            for route in ("pallas", "leaf")]
+    scene = load("cornell_mesh", SPPM_W / SPPM_H).to(DEV)
+    kw = sppm.iteration_kwargs(scene, cfg)
+    tables = dispatch.route_tables(scene, cfg.intersector)
+    method = dispatch.route(scene, cfg.intersector)
+    make, gen, _, err = step_twins(
+        "Cornell", scene, tables, method, SPPM_PHOTONS,
+        kw["max_photon_bounces"], cfg.spawn_eps_rel * scene.scale)
+
+    # one step each way, from one state
+    k, p = make(True), make(False)
+    g = gen()
+    k.start(g)
+    p.start(gen())
+    U = torch.rand((wf.U_TRACE_ROWS, k.L), generator=g, device=DEV)
+    b = wf.bounce_step(k.tables, U, k.o, k.d, k.alive, t_min=k.t_min,
+                       spawn_eps=k.eps, intersector=method)
+    E = torch.rand((ps.EMIT_ROWS, k.L), generator=g, device=DEV)
+    snap = {n: getattr(k, n).clone() for n in STEP_STATE}
+
+    def timed(fn, pas=None) -> float:
+        """Device ms of ``fn``: median of STEP_REPS, the lanes of ``pas``
+        restored before each."""
+        times = []
+        for _ in range(STEP_REPS + 1):
+            for n, x in snap.items() if pas is not None else ():
+                getattr(pas, n).copy_(x)
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            z = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(HOLD_CYCLES)
+            a.record()
+            fn()
+            z.record()
+            z.synchronize()
+            times.append(a.elapsed_time(z))
+        return float(np.median(times[1:]))
+
+    last = k.S - 1
+    ms = {"kernel window": timed(lambda: ps.photon_step(k, U, b, E, 0), k),
+          "plain window": timed(lambda: p._step_plain(U, b, E, 0), p),
+          "kernel after": timed(
+              lambda: ps.photon_step(k, U, b, None, last), k),
+          "plain after": timed(lambda: p._step_plain(U, b, None, last), p),
+          "bounce": timed(lambda: wf.bounce_step(
+              k.tables, U, k.o, k.d, k.alive, t_min=k.t_min,
+              spawn_eps=k.eps, intersector=method), k),
+          "draws": timed(lambda: (
+              torch.rand((wf.U_TRACE_ROWS, k.L), generator=g, device=DEV),
+              torch.rand((ps.EMIT_ROWS, k.L), generator=g, device=DEV)))}
+    for n, x in snap.items():
+        getattr(k, n).copy_(x)
+    ps.photon_step(k, U, b, E, 0)
+    spawned = int(k.counter) - int(snap["counter"])
+    log("photon step, one step at step 0's state (device ms, median of "
+        f"{STEP_REPS}): " + ", ".join(f"{n} {v:.4f}" for n, v in ms.items())
+        + f"; {spawned} lanes spawn")
+    row = bound(0.0, k.L * STEP_LANE_BYTES + spawned * SPAWN_BYTES)
+
+    # the whole eager pass each way
+    passes = {}
+    for way in ("kernel", "plain", "kernel", "plain"):
+        pas = make(way == "kernel")
+        passes.setdefault(way, []).append(host_s(lambda: pas.run(gen())))
+    log("photon step: the eager pass (without the maps) " + "; ".join(
+        f"{w} {', '.join(f'{x:.4f}' for x in v)} s" for w, v in
+        passes.items()))
+    return {"name": "photon_step", "route": "cuda",
+            "source": "raytracer_tpu_torch/csrc/photon_step.cu",
+            "replaces": "none (the JAX photon step is XLA-fused)",
+            "launches": 0, "max_abs_err": max(errs + [err]),
+            "ms": ms["kernel window"], "plain_ms": ms["plain window"], **row}
+
+
 def main() -> int:
     device = card()
     sys.path.insert(0, ROOT)
@@ -3881,6 +4072,7 @@ def main() -> int:
     r_rows["regen_ordered"]["max_abs_err"] = max(
         r_rows["regen_ordered"]["max_abs_err"], b19["regen_err"])
     p20 = photon_graph_phase()
+    p21 = photon_step_phase()
 
     def row(d):
         return {k: v for k, v in d.items()
@@ -3947,6 +4139,7 @@ def main() -> int:
              "source": f"raytracer_tpu_torch/csrc/{name}.cu",
              "replaces": f"raytracer_tpu/ops/pallas_intersect.py:{line}",
              "launches": ml.get(key, 0), **row(m_rows[key])})
+    kernels.append(p21)
     for k in kernels:                   # phase 19's bench path, phase 20
         k["launches"] += (b19["launches"].get(k["name"], 0)
                           + p20["launches"].get(k["name"], 0))

@@ -8,7 +8,7 @@ from raytracer_tpu_torch.kernels.build import bind, check_launch
 
 # The ``launch_counts`` keys: the single-form kernels, then the sweeps
 # (``ops/fused_bounce.py::sweep_forms``) by form.
-KEYS = (("leaf", "photon_query", "fma_rate")
+KEYS = (("leaf", "photon_query", "fma_rate", "photon_step")
         + tuple(k + f for k in ("bounce", "closest", "regen")
                 for f in ("", "_ordered", "_motion", "_ordered_motion")))
 

@@ -236,7 +236,8 @@ def graphed_photon_pass(scene: Scene, tables, gen, *, n_photons: int,
     device dispatch). The key: the tables' layout, ``n_photons``, the
     lanes (``wf.photon_lanes``, the eager pass's), window,
     ``max_photon_bounces``, ``grid_res`` and the route. Every replay
-    counts the pass (``wf.count_pass``), as the eager pass does.
+    counts the pass (``wf.count_pass``) and its step kernel's launches
+    (``wf.count_kernel_steps``), as the eager pass does.
     The draws are ``gen``'s, as the eager pass's. Returns (``Deposits``,
     photons spawned, (global grid, caustic grid) or None): the graph's
     buffers, which its next replay overwrites."""
@@ -278,6 +279,7 @@ def graphed_photon_pass(scene: Scene, tables, gen, *, n_photons: int,
 
     out = cache.run(key, inputs, gen, build)
     wf.count_pass(window + int(max_photon_bounces), lanes)
+    wf.count_kernel_steps(cache.replayed)
     return out
 
 

@@ -10,7 +10,8 @@ one-kernel step, ``ops/regen.py``), and for SPPM ``gather_regen_soa``,
 ``measurement_soa`` (``measure_walk_soa`` of ``measure_step``),
 ``emit_photons_soa`` and the regenerating photon pass ``PhotonPass``
 (``trace_photon_deposits_regen_soa`` runs it eagerly; with no spawn
-window it is JAX's photon pass without regeneration).
+window it is JAX's photon pass without regeneration), whose step after
+the bounce is one kernel on CUDA (``ops/photon_step.py``).
 The SPPM passes take the "pallas" or the "leaf" route (``intersector``);
 ``--debug-nans`` checks each loop's state after every step
 (``utils/nans.py``).
@@ -51,10 +52,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from raytracer_tpu_torch.kernels import launch_counts, launches_since
 from raytracer_tpu_torch.ops import dispatch
 from raytracer_tpu_torch.ops import media as media_ops
 from raytracer_tpu_torch.ops import mis as mis_ops
 from raytracer_tpu_torch.ops import nee as nee_ops
+from raytracer_tpu_torch.ops import photon_step as photon_step_ops
 from raytracer_tpu_torch.ops import regen as regen_ops
 from raytracer_tpu_torch.ops.fused_bounce import (
     BounceTables, _take, _unit3, bounce_tables, fused_eligible, has_media,
@@ -781,16 +784,23 @@ def measurement_soa(scene: Scene, tables: BounceTables,
 
 def emit_photons_soa(lights: Lights, gen: torch.Generator, n: int,
                      down=None):
-    """Photon emission (light.rs:98-103, 158-166, 220-225): a light picked
+    """Photon emission (light.rs:98-103, 158-166, 220-225) of ``n``
+    photons from one (7, n) draw of ``gen`` (``emit_from``). Returns
+    (origin, direction, power), each (3, n)."""
+    U = torch.rand((photon_step_ops.EMIT_ROWS, n), generator=gen,
+                   device=lights.p0.device)
+    return emit_from(lights, U, down)
+
+
+def emit_from(lights: Lights, U, down=None):
+    """Photon emission from the uniform rows ``U`` (7, n): a light picked
     in proportion to its power (inverse CDF over ``exp(log_prob)``), a point
     on its surface, a direction in the hemisphere around its normal (power
-    weighted by the cosine for rect lights). Seven uniform rows: pick,
-    sphere normal (2), hemisphere (2), rect uv (2). ``down``: the rect
-    lights' normal (0, -1, 0) as a (3, 1) device tensor, made by the
-    caller once for many calls (else here). Returns (origin, direction,
-    power), each (3, n)."""
+    weighted by the cosine for rect lights). The rows: pick, sphere normal
+    (2), hemisphere (2), rect uv (2). ``down``: the rect lights' normal
+    (0, -1, 0) as a (3, 1) device tensor, made by the caller once for many
+    calls (else here). Returns (origin, direction, power), each (3, n)."""
     dev = lights.p0.device
-    U = torch.rand((7, n), generator=gen, device=dev)
     idx = pick_light(lights, U[0])
     # (3, n) rows gathered from (3, L) columns come out contiguous, as the
     # bounce kernel takes them
@@ -843,8 +853,8 @@ def photon_lanes(n_photons: int) -> int:
     [PHOTON_LANES, PHOTON_LANES_MAX], and the whole budget when that is
     smaller. Half the budget spawns the other half in ``spawn_window`` = 4
     steps, so a pass of 16 bounces takes 20 steps (500,000 photons:
-    250,880 lanes; 16,384 lanes took 135 steps). Each step is ~70 small
-    ops whose launches, not their width, set its time. The deposit slots,
+    250,880 lanes; 16,384 lanes took 135 steps). On CUDA a step is a
+    bounce, two draws and the step kernel. The deposit slots,
     S * L <= 4 n + 13 L (38 bytes each), come to at most ~10 n where the
     half rules (500,000 photons: 5,017,600 slots, 191 MB) and tend to 4 n
     past 2 * PHOTON_LANES_MAX photons."""
@@ -858,6 +868,23 @@ def count_pass(steps: int, lanes: int):
     (counters ``photon.steps``, ``photon.lanes``): host ints only."""
     timing.count("photon.steps", steps)
     timing.count("photon.lanes", lanes)
+
+
+def step_kernel(device) -> bool:
+    """Whether a photon pass on ``device`` steps through the kernel
+    (``ops/photon_step.py``: CUDA) or the plain twin (the CPU)."""
+    kind = torch.device(device).type
+    if kind not in ("cpu", "cuda"):
+        raise NotImplementedError(f"photon step: no kernel for {kind}")
+    return kind == "cuda"
+
+
+def count_kernel_steps(launches: dict):
+    """Record beside ``count_pass`` the steps of that pass that went
+    through the step kernel (counter ``photon.kernel_steps``): its
+    ``photon_step`` launches in ``launches`` (``kernels.launches_since``
+    around an eager pass, a graph's launches a replay)."""
+    timing.count("photon.kernel_steps", launches.get("photon_step", 0))
 
 
 def spawn_window(n_photons: int, lanes: int) -> int:
@@ -891,12 +918,16 @@ class PhotonPass:
     The buffers: the lanes (origin, direction, power, alive, the
     specular and diffuse flags, depth), the deposits (9, S, L) (point,
     power, normal), their flags (2, S, L) (valid, caustic) and the spawn
-    counter. ``step`` updates them in place and every constant tensor is
-    made here, so one object runs the same pass eagerly and under a CUDA
-    graph's capture (``models/sppm.py::graphed_photon_pass``). The bounce
-    takes ``intersector``'s route ("pallas" or "leaf"); ``lights``
-    replaces the scene's emitters (a graph's own copies); ``spawn_eps``:
-    a float or a 0-d tensor."""
+    counter; on CUDA also the step kernel's lights (``light_table``, made
+    by ``start``) and scratch words. ``step`` updates them in place and
+    every constant tensor is made here, so one object runs the same pass
+    eagerly and under a CUDA graph's capture
+    (``models/sppm.py::graphed_photon_pass``). The bounce takes
+    ``intersector``'s route ("pallas" or "leaf"); what follows it is one
+    kernel on CUDA (``ops/photon_step.py``), whatever the route, and the
+    plain twin ``_step_plain`` on the CPU. ``lights`` replaces the scene's
+    emitters (a graph's own copies); ``spawn_eps``: a float or a 0-d
+    tensor."""
 
     def __init__(self, scene, tables: BounceTables, n_photons: int,
                  max_bounces: int, t_min: float, spawn_eps,
@@ -927,9 +958,23 @@ class PhotonPass:
             for _ in range(3))
         self.depth = torch.empty((L,), dtype=torch.int32, device=dev)
         self.counter = torch.empty((), dtype=torch.int64, device=dev)
+        self.kernel = step_kernel(dev)
+        self.light_table = self.scratch = None
+        if self.kernel:
+            self.light_table = torch.empty(
+                (self.lights.kind.shape[0], photon_step_ops.LIGHT_W),
+                dtype=f32, device=dev)
+            self.scratch = torch.zeros(
+                (photon_step_ops.scratch_words(L),), dtype=torch.int32,
+                device=dev)
 
     def start(self, gen: torch.Generator):
-        """Emit the first L photons and reset the lanes."""
+        """Emit the first L photons and reset the lanes (and, for the
+        kernel, read the lights once a pass: a graph's lights are
+        refreshed before each replay)."""
+        if self.kernel:
+            self.light_table.copy_(
+                photon_step_ops.emission_table(self.lights))
         for buf, x in zip((self.o, self.d, self.w),
                           emit_photons_soa(self.lights, gen, self.L,
                                            self.down)):
@@ -942,13 +987,30 @@ class PhotonPass:
 
     def step(self, gen: torch.Generator, step: int):
         """Bounce every lane once, deposit, and (within the window) spawn
-        into the retired lanes."""
-        L, B = self.L, self.B
-        o, d, w, alive = self.o, self.d, self.w, self.alive
+        into the retired lanes: the bounce, the step's draws (the
+        emission's inside the window, after the bounce), then one kernel
+        on CUDA or ``_step_plain``."""
+        L = self.L
+        o, d, w = self.o, self.d, self.w
         U = torch.rand((U_TRACE_ROWS, L), generator=gen, device=o.device)
-        b = bounce_step(self.tables, U, o, d, alive, t_min=self.t_min,
+        b = bounce_step(self.tables, U, o, d, self.alive, t_min=self.t_min,
                         spawn_eps=self.eps, fused=self.fused,
                         scene=self.scene, intersector=self.intersector)
+        E = (torch.rand((photon_step_ops.EMIT_ROWS, L), generator=gen,
+                        device=o.device) if step < self.window else None)
+        if self.kernel:
+            b = Bounce(*(x.contiguous() for x in b))
+            photon_step_ops.photon_step(self, U, b, E, step)
+        else:
+            self._step_plain(U, b, E, step)
+        nans.check("a photon step", power=w, origin=o, direction=d)
+
+    def _step_plain(self, U, b: Bounce, E, step: int):
+        """The step after the bounce ``b`` in plain PyTorch (any device):
+        the kernel's twin, from the same draws ``U`` and ``E`` (None
+        outside the window)."""
+        B = self.B
+        o, d, w, alive = self.o, self.d, self.w, self.alive
         hmax = b.att.amax(0)
         survive = U[U_RR] <= hmax
         inter = torch.where(survive, b.inter, INTER_ABSORB)
@@ -975,7 +1037,7 @@ class PhotonPass:
             rank = torch.cumsum(retire, 0)
             spawn = retire & (self.counter + rank <= B)
             self.counter += torch.minimum(rank[-1], B - self.counter)
-            eo, ed, ew = emit_photons_soa(self.lights, gen, L, self.down)
+            eo, ed, ew = emit_from(self.lights, E, self.down)
             torch.where(spawn, eo, o, out=o)
             torch.where(spawn, ed, d, out=d)
             torch.where(spawn, ew, w, out=w)
@@ -984,7 +1046,6 @@ class PhotonPass:
             self.depth.masked_fill_(spawn, 0)
             alive_next |= spawn
         alive.copy_(alive_next)
-        nans.check("a photon step", power=w, origin=o, direction=d)
 
     def finish(self):
         """Rescale the deposit powers by n_photons / spawned."""
@@ -1015,10 +1076,13 @@ def trace_photon_deposits_regen_soa(scene, tables: BounceTables,
                                     intersector: str = "pallas"):
     """The path-regeneration photon pass (``PhotonPass``) run eagerly,
     its draws from ``gen``. Returns (``Deposits`` of S * L slots, photons
-    spawned as a 0-d device tensor). Counts the pass (``count_pass``)."""
+    spawned as a 0-d device tensor). Counts the pass (``count_pass``) and
+    its kernel launches (``count_kernel_steps``)."""
     pas = PhotonPass(scene, tables, n_photons, max_bounces, t_min,
                      spawn_eps, lanes=lanes, window=window,
                      intersector=intersector)
+    before = launch_counts()
     pas.run(gen)
     count_pass(pas.S, pas.L)
+    count_kernel_steps(launches_since(before))
     return pas.deposits()

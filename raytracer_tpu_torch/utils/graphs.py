@@ -23,7 +23,7 @@ program run eagerly from that generator would.
 The kernel wrappers count a launch in Python (``kernels.COUNTS``), so the
 capture's counts are taken back (nothing ran) and added again at every
 replay: the counts of a graphed program equal those of the same program
-run eagerly.
+run eagerly. ``GraphCache.replayed`` holds the last replay's.
 
 A capture or replay error raises; nothing falls back to an eager run.
 The recorder (``utils/timing.py``) sees the span ``graph.capture`` (the
@@ -112,6 +112,7 @@ class GraphCache:
         self.size, self.primitive = size, primitive
         self.entries = OrderedDict()
         self.captures = 0
+        self.replayed = {}      # the last replay's kernel launches
 
     def __len__(self):
         return len(self.entries)
@@ -143,6 +144,7 @@ class GraphCache:
             entry.graph.replay()
         timing.count("graph.replays")
         COUNTS.update(entry.launches)
+        self.replayed = entry.launches
         # the caller's generator moves on past the program's draws
         gen.set_state(entry.gen.get_state())
         return entry.outputs

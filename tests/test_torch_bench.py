@@ -174,7 +174,7 @@ def test_launch_counts_read_and_zero_every_wrapper(monkeypatch):
     from raytracer_tpu_torch import kernels
     monkeypatch.setitem(kernels.COUNTS, "regen_ordered_motion", 5)
     before = kernels.launch_counts()
-    assert len(before) == 15 and before["regen_ordered_motion"] == 5
+    assert len(before) == 16 and before["regen_ordered_motion"] == 5
     monkeypatch.setitem(kernels.COUNTS, "photon_query",
                         before["photon_query"] + 2)
     assert kernels.launches_since(before) == {"photon_query": 2}
