@@ -173,7 +173,23 @@ Phases, each of which raises on failure (exit code non-zero):
    iteration's draws: lanes and spawn counter after every step, deposits
    and flags after the pass, bit-equal; one step's time each way inside the window and after
    it, beside the bounce's and the draws', with the bound; the eager
-   pass each way.
+   pass each way;
+22. the Cornell box with the bunny (``builtin.cornell_bunny``, 4,968
+   triangles on the ordered walk) at 800x800, 500,000 photons, through
+   both SPPM graphs: the graphed photon pass against the eager pass
+   (deposits, flags, spawn count, both maps, every lane's state and the
+   walk's count) and the graphed iteration against the eager one
+   (per-pixel state after one iteration from zeros and one after it),
+   bit for bit; ``bounce_ordered`` and ``photon_step`` launched 20 times
+   a replay; the ordered bounce kernel on one photon step's and one
+   measurement step's inputs of an eager iteration, against the flat
+   kernel on every lane and the plain walk on every 10th block (phase 3's
+   tolerances), its chunk bodies per warp against the plain walk's
+   (``ordered_on_path``); the walk's counters (``ordered.bodies``,
+   ``ordered.warps``), the launches and the host reads of a recorded
+   iteration (the launches go into the kernels' rows); the graphed
+   iteration's seconds and memory peak, and its seconds with the walk
+   counted and not (``wavefront_soa._COUNT_WALK``), turn about.
 
 It imports no JAX. The line before the last is a JSON object with the
 kernels' launches, errors, times and bounds; the last line is
@@ -632,8 +648,36 @@ def on_checker_edge(rp, dp) -> np.ndarray:
             + 1e-6).any(0)
 
 
+def root_slack(tab, o, d, ty, ix) -> np.ndarray:
+    """Per lane (float64 numpy): how far two float32 evaluations of a
+    sphere winner's root may put its point apart, ``o``, ``d`` (3, n)
+    numpy. Their discriminants differ by up to EDGE_ULPS * 2^-24 a |o -
+    c|^2 (``grazes``' edge); near a silhouette the square root turns that
+    into sqrt(disc) - sqrt(disc - that), over |d|, of the point. 0 for a
+    triangle or a rect, inf on the edge itself."""
+    n = len(ty)
+    slack = np.zeros(n)
+    sph = ty == 0
+    if not sph.any():
+        return slack
+    i = np.where(sph)[0]
+    c = sphere_centres(tab, ix[i])
+    r2 = tab.sph[:, 3].double().cpu().numpy()[ix[i]]
+    oc = o[:, i].T.astype(np.float64) - c
+    dd = d[:, i].T.astype(np.float64)
+    a = (dd * dd).sum(1)
+    oc2 = (oc * oc).sum(1)
+    disc = (oc * dd).sum(1) ** 2 - a * (oc2 - r2)
+    gap = EDGE_ULPS * 2.0 ** -24 * a * oc2
+    slack[i] = np.where(disc > gap, (np.sqrt(np.maximum(disc, 0.0))
+                                     - np.sqrt(np.maximum(disc - gap, 0.0)))
+                        / np.sqrt(a), np.inf)
+    return slack
+
+
 def compare(name, scene, tab, o, d, out, ref, ty, ix, alive,
-            max_edge: float = 1.0 - INTER_AGREE, time=None) -> float:
+            max_edge: float = 1.0 - INTER_AGREE, time=None,
+            root_edge: bool = False) -> float:
     """Hold the kernel's outputs to the plain version's with the
     tolerances of tests/test_torch_bounce.py. A lane on a decision edge
     may differ: an interaction flip, or a ray that grazes a sphere's
@@ -643,7 +687,11 @@ def compare(name, scene, tab, o, d, out, ref, ty, ix, alive,
     lanes; every other lane must be within tolerance. Returns the
     largest absolute difference over the float outputs of the lanes held
     to the tolerance (edge lanes, counted apart, left out). ``time``: the
-    rays' shutter times (motion blur), for the edges' moved centres."""
+    rays' shutter times (motion blur), for the edges' moved centres.
+    ``root_edge``: a lane whose p and no lie off by no more than the
+    tolerance plus its sphere root's float32 slack (``root_slack``: rays
+    far from a sphere passing near its silhouette) is an edge lane too
+    (static spheres only)."""
     tn = None if time is None else time.cpu().numpy()
     out = [x.cpu().numpy() for x in out]
     ref = [x.cpu().numpy() for x in ref]
@@ -684,6 +732,21 @@ def compare(name, scene, tab, o, d, out, ref, ty, ix, alive,
                                   ty[lanes], ix[lanes],
                                   time=None if tn is None else tn[lanes])
     graze[lanes] = on
+    by_root = np.zeros_like(beyond)
+    if root_edge and time is None:
+        cand = beyond & ~graze & ~(bad_colour | bad_n | bad_nd)
+        lanes = np.where(cand)[0]
+        slack = p_tol + root_slack(tab, o.cpu().numpy()[:, lanes],
+                                   d.cpu().numpy()[:, lanes], ty[lanes],
+                                   ix[lanes])
+        by_root[lanes] = ((np.abs(p - rp)[:, lanes].max(0) <= slack)
+                          & (np.abs(no - rno)[:, lanes].max(0) <= slack))
+        graze |= by_root
+        if by_root.any():
+            log(f"  {name}: p, no held by the sphere root's float32 slack "
+                f"on {int(by_root.sum())} lanes: |dp| up to "
+                f"{float(np.abs(p - rp)[:, by_root].max()):.3g}, slack "
+                f"{float(slack[by_root[lanes]].min()):.3g} and more")
     if by_dn.any():
         dnd = np.abs(nd - rnd).max(0)[by_dn]
         log(f"  {name}: nd held by the normal's own difference on "
@@ -4032,6 +4095,250 @@ def photon_step_phase() -> dict:
             "ms": ms["kernel window"], "plain_ms": ms["plain window"], **row}
 
 
+# ----------------------------------------------------------------- phase 22
+
+BUNNY_PHOTON_STEP = 2   # the photon step whose bounce inputs are checked
+BUNNY_MEASURE_STEP = 0  # the measurement step's (the camera rays)
+# Share of the live warps of the plain walk's blocks whose chunk bodies
+# may differ from the kernel's, and of the bodies in all: a lane whose
+# float32 best t lies on a chunk box's face may cull the chunk one way
+# and not the other.
+STATS_EDGE = 0.01
+COUNT_TURNS = 20        # graphed iterations timed, the walk counted or not
+
+
+@contextlib.contextmanager
+def bounce_inputs(picks: dict):
+    """Copies of the fused bounce's inputs (``wf.bounce_step``'s, as
+    ``bounce_tables`` takes them) of chosen calls: ``picks`` maps a lane
+    count to the call, 0-based among the calls of that many lanes. Yields
+    {lanes: (tables, uni, o, d, alive, t_min)}, filled as the calls
+    come."""
+    from raytracer_tpu_torch.models import wavefront_soa as wf
+    real, seen, kept = wf.bounce_step, {}, {}
+
+    def spy(tables, uni, o, d, alive, *, t_min, spawn_eps, **kw):
+        n = o.shape[1]
+        i = seen[n] = seen.get(n, -1) + 1
+        if picks.get(n) == i and kw.get("fused", True):
+            eps = torch.as_tensor(spawn_eps, dtype=torch.float32,
+                                  device=o.device)
+            uni_t = torch.cat([uni[wf.U_SPH1:wf.U_DIEL + 1],
+                               eps.expand(1, n)], 0)
+            kept[n] = (tables, uni_t, o.clone(), d.clone(), alive.clone(),
+                       t_min)
+        return real(tables, uni, o, d, alive, t_min=t_min,
+                    spawn_eps=spawn_eps, **kw)
+
+    wf.bounce_step = spy
+    try:
+        yield kept
+    finally:
+        wf.bounce_step = real
+
+
+def ordered_on_path(tag, scene, flat, tab, uni, o, d, alive, t_min) -> float:
+    """The ordered bounce kernel (``bounce_tables`` on ``tab``) on one
+    bounce's inputs of the main path: against the flat kernel on every
+    lane, against ``bounce_ordered_plain`` on every 10th block (phase 3's
+    tolerances, as ``check_ordered``, and the sphere root's float32 slack:
+    Cornell's camera sees its spheres from ~1,200 units, where a point
+    moves by up to ~P_TOL_REL of the scene, and more near a silhouette),
+    and its chunk bodies per warp
+    (``stats``, which the walk's counters sum) against the plain walk's
+    on those blocks, within STATS_EDGE. Returns the largest |difference|
+    over the lanes held to the tolerances."""
+    from raytracer_tpu_torch.ops import closest_hit as ch
+    from raytracer_tpu_torch.ops import fused_bounce as fb
+    from raytracer_tpu_torch.ops import ordered
+    n = o.shape[1]
+    g = n // ordered.GROUP
+    if g * ordered.GROUP != n or n % ordered.BLOCK:
+        raise AssertionError(f"{tag}: {n} lanes are not whole blocks")
+    inf = float("inf")
+    stats = torch.zeros((g, 2), dtype=torch.int32, device=o.device)
+    out = fb.bounce_tables(tab, o, d, t_min, alive, uni, stats=stats)
+    fout = fb.bounce_tables(flat, o, d, t_min, alive, uni)
+    fwin = ch.closest_tables(flat, o, d, t_min, inf, alive)
+    torch.cuda.synchronize()
+    err = compare(f"{tag}: ordered vs flat bounce kernel", scene, flat, o,
+                  d, out, fout, fwin.ty, fwin.ix.long(), alive,
+                  root_edge=True)
+    every = (torch.arange(n, device=o.device) // ordered.BLOCK) % 10 == 0
+    sub = [x[..., every].contiguous() for x in (o, d, alive, uni)]
+    pstats = torch.zeros((int(every.sum()) // ordered.GROUP, 2),
+                         dtype=torch.int64, device=o.device)
+    pwin = ch.closest_ordered_plain(tab, sub[0], sub[1], t_min, inf, sub[2])
+    pout = fb.bounce_ordered_plain(tab, *sub[:2], t_min, sub[2], sub[3],
+                                   stats=pstats)
+    err = max(err, compare(
+        f"{tag}: ordered bounce kernel vs plain, every 10th block", scene,
+        flat, sub[0], sub[1], [x[..., every] for x in out], pout, pwin.ty,
+        pwin.ix.long(), sub[2], PLAIN_EDGE, root_edge=True))
+    kb = stats[every.reshape(g, ordered.GROUP)[:, 0]].long()
+    live = live_per_warp(sub[2]) > 0
+    differ = int((kb != pstats).any(1).sum())
+    kern, plain = int(kb.sum()), int(pstats.sum())
+    log(f"  {tag}: chunk bodies per live warp {warp_bodies(stats, alive):.4f}"
+        f" of {tab.otri.cull.shape[0]}; on the 10th blocks kernel {kern}, "
+        f"plain {plain}, warps that differ {differ} of {int(live.sum())} "
+        f"live")
+    if (differ > STATS_EDGE * int(live.sum())
+            or abs(kern - plain) > STATS_EDGE * max(plain, 1)):
+        raise AssertionError(f"{tag}: the kernel's chunk bodies are off the "
+                             f"plain walk's: {kern} against {plain}, {differ}"
+                             " warps")
+    return err
+
+
+def bunny_graph_phase() -> dict:
+    """Phase 22 (the module docstring). Returns {"launches": one recorded
+    graphed iteration's, zeroed before it; "max_abs_err": the ordered
+    bounce kernel's on the path's own inputs (``ordered_on_path``)}."""
+    from raytracer_tpu_torch.models import sppm
+    from raytracer_tpu_torch.models import wavefront_soa as wf
+    from raytracer_tpu_torch.ops import dispatch
+    from raytracer_tpu_torch.scene.builtin import cornell_bunny
+    from raytracer_tpu_torch.utils import timing
+    from raytracer_tpu_torch.utils.rng import stream_generator
+    scene = cornell_bunny(SPPM_W / SPPM_H).to(DEV)
+    cfg = sppm_config(SPPM_SPP)
+    eager_pass, graph_pass, kw, tables = graph_passes(scene, cfg)
+    if not tables.ordered or tables.otri is None:
+        raise AssertionError("cornell_bunny's triangles take no walk")
+    method = dispatch.route(scene, cfg.intersector)
+    lanes = wf.photon_lanes(SPPM_PHOTONS)
+    steps = wf.spawn_window(SPPM_PHOTONS, lanes) + kw["max_photon_bounces"]
+
+    # the photon graph: its launches, then against the eager pass
+    sppm.PHOTON_GRAPHS.clear()
+    sppm.MEASURE_GRAPHS.clear()
+    zero_counts()
+    graph_pass()
+    entry = next(reversed(sppm.PHOTON_GRAPHS.entries.values()))
+    log(f"bunny photon graph: {lanes} lanes, {steps} steps, launches a "
+        f"replay {entry.launches}")
+    if (entry.launches.get("bounce_ordered") != steps
+            or entry.launches.get("photon_step") != steps
+            or entry.launches.get("bounce")):
+        raise AssertionError(f"bunny graph launches {entry.launches}")
+    graph_bit_equal("cornell_bunny (ordered triangle walk)", eager_pass,
+                    graph_pass)
+    eps = cfg.spawn_eps_rel * scene.scale
+    pas = wf.PhotonPass(scene, tables, SPPM_PHOTONS, kw["max_photon_bounces"],
+                        sppm.PHOTON_T_MIN, eps, intersector=method)
+    pas.run(stream_generator(scene.bounds_min.device, 0, sppm.PHOTON_STREAM,
+                             GRAPH_ITER))
+    graph_pass()
+    gpas = entry.keep[0]
+    fields = ("o", "d", "w", "alive", "has_spec", "has_diff", "depth",
+              "counter", "dep", "flags")
+    bad = [f for f in fields
+           if not torch.equal(getattr(pas, f), getattr(gpas, f))]
+    e_walk, g_walk = (x.walk_count.total().tolist() for x in (pas, gpas))
+    log(f"bunny photon pass, lanes against the graph's: differing "
+        f"{bad or 'none'}; walk count (bodies, live warps) eager {e_walk}, "
+        f"graph {g_walk}")
+    if bad or e_walk != g_walk:
+        raise AssertionError(f"bunny pass lanes differ: {bad}, {e_walk}, "
+                             f"{g_walk}")
+
+    # the whole iteration, both graphs against the eager path
+    def iteration(state, it_seed):
+        return sppm.sppm_iteration(scene, tables, state, it_seed, **kw)
+
+    zero = sppm.init_state(SPPM_W * SPPM_H, DEV)
+    for _ in range(2):               # the measurement's eager walk, capture
+        iteration(zero, 11)
+    g1 = iteration(zero, 5)
+    g2 = iteration(g1, 5)
+    with eager_photons():
+        e1 = iteration(zero, 5)
+        e2 = iteration(e1, 5)
+    torch.cuda.synchronize()
+    d1, d2 = state_diff(g1, e1), state_diff(g2, e2)
+    log(f"bunny iteration, graphs against eager: max |diff| {d1} from "
+        f"zeros, {d2} one after")
+    if d1 != 0.0 or d2 != 0.0:
+        raise AssertionError(f"bunny graphed iteration differs: {d1}, {d2}")
+
+    # the ordered bounce kernel on the path's own inputs: one photon
+    # step's and one measurement step's of an eager iteration
+    from raytracer_tpu_torch.ops import fused_bounce as fb
+    npix = SPPM_W * SPPM_H
+    picks = {lanes: BUNNY_PHOTON_STEP, npix: BUNNY_MEASURE_STEP}
+    with eager_photons(), bounce_inputs(picks) as kept:
+        iteration(g2, 9)
+    if set(kept) != set(picks):
+        raise AssertionError(f"bounce inputs kept for {sorted(kept)}")
+    flat = fb.pack_tables(scene, order=False)
+    log("bunny: the ordered bounce kernel on the path's inputs, against "
+        "the flat kernel and the plain walk:")
+    err = max(ordered_on_path(f"cornell_bunny {what}", scene, flat,
+                              *kept[n])
+              for n, what in ((lanes, f"photon step {BUNNY_PHOTON_STEP}"),
+                              (npix, f"measurement step "
+                                     f"{BUNNY_MEASURE_STEP}")))
+    del kept
+
+    # one recorded graphed iteration: counters, reads, launches
+    torch.cuda.synchronize()
+    zero_counts()
+    with timing.recording():
+        iteration(g2, 6)
+        torch.cuda.synchronize()
+        rec = timing.recorded()
+    launched = {k: v for k, v in counts().items() if v}
+    c = rec["counters"]
+    log(f"bunny recorded iteration: counters {c}; launches {launched}; "
+        f"bodies per live warp "
+        f"{c.get('ordered.bodies', 0) / max(c.get('ordered.warps', 1), 1)}")
+    if (c.get("host.reads") != 1 or not c.get("ordered.warps")
+            or c.get("photon.kernel_steps") != steps):
+        raise AssertionError(f"bunny recorded iteration: {c}")
+
+    torch.cuda.reset_peak_memory_stats()
+    secs = [host_s(lambda: iteration(g2, 7)) for _ in range(GRAPH_TURNS)]
+    log(f"bunny graphed iteration seconds {', '.join(f'{x:.4f}' for x in secs)}"
+        f" (median {np.median(secs):.4f}); memory peak "
+        f"{torch.cuda.max_memory_allocated()} B")
+    wall, dev_s, busy = busy_share(lambda: iteration(g2, 8))
+    log(f"bunny graphed iteration under the profiler: wall {wall:.4f} s, "
+        f"kernels {dev_s:.4f} s, busy {busy:.4f}")
+
+    # the walk's count on and off (``wf._COUNT_WALK``), turn about, each
+    # from new graphs: the count's own cost in the graphed iteration
+    med = {}
+    try:
+        for on in (True, False, True, False):
+            wf._COUNT_WALK = on
+            sppm.PHOTON_GRAPHS.clear()
+            sppm.MEASURE_GRAPHS.clear()
+            for _ in range(3):        # the eager walk, the captures, a replay
+                iteration(g2, 11)
+            torch.cuda.synchronize()
+            with timing.recording():
+                iteration(g2, 6)
+                torch.cuda.synchronize()
+                counted = "ordered.bodies" in timing.recorded()["counters"]
+            if counted != on:
+                raise AssertionError(f"the walk counted {counted} with the "
+                                     f"count {'on' if on else 'off'}")
+            med.setdefault(on, []).append(float(np.median(
+                [host_s(lambda: iteration(g2, 7))
+                 for _ in range(COUNT_TURNS)])))
+    finally:
+        wf._COUNT_WALK = True
+    log(f"bunny graphed iteration, median of {COUNT_TURNS} (s), the walk "
+        f"counted: {', '.join(f'{x:.5f}' for x in med[True])}; not "
+        f"counted: {', '.join(f'{x:.5f}' for x in med[False])}; the count's "
+        f"cost {np.mean(med[True]) - np.mean(med[False]):+.5f} s "
+        f"({(np.mean(med[True]) / np.mean(med[False]) - 1) * 100:+.2f}%)")
+    sppm.PHOTON_GRAPHS.clear()
+    sppm.MEASURE_GRAPHS.clear()
+    return {"launches": launched, "max_abs_err": err}
+
+
 def main() -> int:
     device = card()
     sys.path.insert(0, ROOT)
@@ -4073,6 +4380,9 @@ def main() -> int:
         r_rows["regen_ordered"]["max_abs_err"], b19["regen_err"])
     p20 = photon_graph_phase()
     p21 = photon_step_phase()
+    p22 = bunny_graph_phase()
+    o_rows["bounce_ordered"]["max_abs_err"] = max(
+        o_rows["bounce_ordered"]["max_abs_err"], p22["max_abs_err"])
 
     def row(d):
         return {k: v for k, v in d.items()
@@ -4140,9 +4450,10 @@ def main() -> int:
              "replaces": f"raytracer_tpu/ops/pallas_intersect.py:{line}",
              "launches": ml.get(key, 0), **row(m_rows[key])})
     kernels.append(p21)
-    for k in kernels:                   # phase 19's bench path, phase 20
+    for k in kernels:           # phase 19's bench path, phases 20 and 22
         k["launches"] += (b19["launches"].get(k["name"], 0)
-                          + p20["launches"].get(k["name"], 0))
+                          + p20["launches"].get(k["name"], 0)
+                          + p22["launches"].get(k["name"], 0))
     if min(k["launches"] for k in kernels) <= 0:
         raise AssertionError("a kernel was launched no time on its path")
     print(json.dumps({"kernels": kernels}))

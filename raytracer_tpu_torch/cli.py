@@ -9,6 +9,8 @@ Usage:
     python -m raytracer_tpu_torch render --scene cornell --integrator sppm \
         --width 800 --height 800 --spp 256 --device cuda \
         --checkpoint output/sppm.npz
+    python -m raytracer_tpu_torch render --scene cornell_bunny \
+        --integrator sppm --width 800 --height 800 --spp 256 --device cuda
     python -m raytracer_tpu_torch render --scene motion --width 800 \
         --height 600 --spp 8 --max-depth 16 --device cuda
     python -m raytracer_tpu_torch render --scene smoke --width 400 \
@@ -43,8 +45,10 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="command", required=True)
     r = sub.add_parser("render", help="render a scene to a PNG")
     r.add_argument("--scene", default="cornell",
-                   help="'cornell', 'spheres', 'smoke' (Cornell with "
-                        "two smoke volumes), 'textured' (image and "
+                   help="'cornell', 'cornell_bunny' (Cornell with the "
+                        "Stanford bunny in the cube's place), 'spheres', "
+                        "'smoke' (Cornell with two smoke volumes), "
+                        "'textured' (image and "
                         "marble spheres), 'field[:N]' (N-sphere field), "
                         "'bunnies[:N]' (N bunnies), 'motion[:N]' (N "
                         "moving spheres) or a data/*.json|yaml path")
@@ -107,6 +111,8 @@ def load_scene_arg(name: str, aspect: float):
     from raytracer_tpu_torch.scene import builtin
     if name == "cornell":
         return builtin.cornell_box(aspect_ratio=aspect)
+    if name == "cornell_bunny":
+        return builtin.cornell_bunny(aspect_ratio=aspect)
     if name == "spheres":
         return builtin.three_spheres(aspect_ratio=aspect)
     if name == "smoke":

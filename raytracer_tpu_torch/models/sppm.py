@@ -236,8 +236,10 @@ def graphed_photon_pass(scene: Scene, tables, gen, *, n_photons: int,
     device dispatch). The key: the tables' layout, ``n_photons``, the
     lanes (``wf.photon_lanes``, the eager pass's), window,
     ``max_photon_bounces``, ``grid_res`` and the route. Every replay
-    counts the pass (``wf.count_pass``) and its step kernel's launches
-    (``wf.count_kernel_steps``), as the eager pass does.
+    counts the pass (``wf.count_pass``), its step kernel's launches
+    (``wf.count_kernel_steps``) and, on ordered tables, the walk's chunk
+    bodies and live warps (``wf.count_walk`` of the graph's own
+    ``WalkCount`` total), as the eager pass does.
     The draws are ``gen``'s, as the eager pass's. Returns (``Deposits``,
     photons spawned, (global grid, caustic grid) or None): the graph's
     buffers, which its next replay overwrites."""
@@ -265,7 +267,9 @@ def graphed_photon_pass(scene: Scene, tables, gen, *, n_photons: int,
             dep, spawned = pas.deposits()
             maps = (None if grid_res is None else
                     _maps(bmin, bmax, dep, grid_res, int(n_photons)))
-            return dep, spawned, maps
+            walk = (None if pas.walk_count is None
+                    else pas.walk_count.total())
+            return dep, spawned, maps, walk
 
         def warm():                # one step and the maps, eagerly
             pas.start(g)
@@ -277,10 +281,11 @@ def graphed_photon_pass(scene: Scene, tables, gen, *, n_photons: int,
 
         return warm, program, (pas, res_t)
 
-    out = cache.run(key, inputs, gen, build)
+    dep, spawned, maps, walk = cache.run(key, inputs, gen, build)
     wf.count_pass(window + int(max_photon_bounces), lanes)
     wf.count_kernel_steps(cache.replayed)
-    return out
+    wf.count_walk(walk)
+    return dep, spawned, maps
 
 
 def photon_maps(scene: Scene, tables, gen, *, n_photons: int,
@@ -635,8 +640,10 @@ def graphed_measure_and_update(scene: Scene, tables, state: SPPMState,
       steps of the walk (``wf.measure_step``), no host read, and a device
       flag, a lane alive after step K. Steps past the last lane's end are
       masked and draw what an eager step would, so steps 1..K draw what
-      the eager walk draws. The first call of a key walks eagerly
-      instead, and that walk's steps fix its K;
+      the eager walk draws. On ordered tables the head counts its
+      bounces (a ``wf.WalkCount`` of K slots, ``wf.count_walk`` after the
+      replay). The first call of a key walks eagerly instead, and that
+      walk's steps fix its K;
     - the queries and the update (``_query_update``) of the walk's
       points, ``state`` and the maps (``photon_maps``' graph buffers),
       which the entry copies in, as every input. It is queued before the
@@ -662,14 +669,20 @@ def graphed_measure_and_update(scene: Scene, tables, state: SPPMState,
 
     def build_head(inp, g):
         tab, cam, eps, pix = inp
+        n = width * height if pix is None else pix.shape[0]
+        count = wf.WalkCount.of(tab, True, k, n)
 
         def program():
+            if count is not None:
+                count.reset()
             o, d = _camera_soa(cam, g, width, height, pix, dev)
             w = wf.measure_lanes(o, d)
-            for _ in range(k):
-                w = wf.measure_step(tab, g, w, t_min=t_min, spawn_eps=eps)
-            return w, w.alive.any()
-        return program, program, None
+            for i in range(k):
+                w = wf.measure_step(tab, g, w, t_min=t_min, spawn_eps=eps,
+                                    count=count, slot=i)
+            return (w, w.alive.any(),
+                    None if count is None else count.total())
+        return program, program, count
 
     def build_update(inp, g):
         w, pix, glob, caus, gg, cg, bmin, bmax = inp
@@ -703,7 +716,9 @@ def graphed_measure_and_update(scene: Scene, tables, state: SPPMState,
                 scene, tables, gen, wf.measure_lanes(o, d), **walk_kw)
             cache.steps[head] = head_steps(walked, max_camera_bounces)
         else:
-            walk, alive = cache.run(head + (k,), head_in, gen, build_head)
+            walk, alive, counted = cache.run(head + (k,), head_in, gen,
+                                             build_head)
+            wf.count_walk(counted)
     with stage("sppm.query.global"):
         halves = update(walk)
         if k is not None:

@@ -43,6 +43,12 @@ SPPM replays it as a CUDA graph (``models/sppm.py::graphed_photon_pass``).
 A measurement step (``measure_step``) reads nothing either, so SPPM
 replays a head of the walk's steps the same way
 (``graphed_measure_and_update``).
+
+On tables with an ordered stage (``ops/ordered.py``) the photon pass and
+the measurement walk count the walk's work on the device (``WalkCount``:
+chunk bodies and live warps, counters ``ordered.bodies`` and
+``ordered.warps``, read once when a recording ends); on flat tables they
+count, launch and read nothing for it.
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ from raytracer_tpu_torch.ops import dispatch
 from raytracer_tpu_torch.ops import media as media_ops
 from raytracer_tpu_torch.ops import mis as mis_ops
 from raytracer_tpu_torch.ops import nee as nee_ops
+from raytracer_tpu_torch.ops import ordered as ordered_ops
 from raytracer_tpu_torch.ops import photon_step as photon_step_ops
 from raytracer_tpu_torch.ops import regen as regen_ops
 from raytracer_tpu_torch.ops.fused_bounce import (
@@ -326,7 +333,7 @@ def media_rows(scene: Scene) -> int:
 def bounce_step(tables: BounceTables, uni, o, d, alive, *, t_min: float,
                 spawn_eps, fused: bool = True, scene: Scene = None,
                 intersector: str = "pallas", time=None,
-                media_u=None) -> Bounce:
+                media_u=None, stats=None) -> Bounce:
     """Advance one bounce: intersect + attributes + texture + scatter.
     ``uni`` holds at least the three scatter rows; ``spawn_eps`` is a 0-d
     tensor (or float). The fused path is one kernel launch
@@ -341,14 +348,15 @@ def bounce_step(tables: BounceTables, uni, o, d, alive, *, t_min: float,
     media; a medium event then replaces the closest hit (JAX
     ``bounce_step``'s ``media_key``, applied after the "pallas" and the
     "leaf" route's closest hit alike), and the spawn offset follows its
-    dummy normal."""
+    dummy normal. ``stats``: the fused ordered bounce's chunk bodies per
+    warp (``bounce_tables``; ``WalkCount.slot``)."""
     n = o.shape[1]
     if fused:
         eps = torch.as_tensor(spawn_eps, dtype=torch.float32,
                               device=o.device)
         uni_t = torch.cat([uni[U_SPH1:U_DIEL + 1], eps.expand(1, n)], 0)
         return Bounce(*bounce_tables(tables, o, d, t_min, alive, uni_t,
-                                     time=time))
+                                     stats=stats, time=time))
     hit = dispatch.intersect_scene(scene, o, d, t_min, float("inf"),
                                    method=intersector, alive=alive,
                                    tables=tables, time=time)
@@ -715,16 +723,20 @@ def measure_lanes(o, d) -> MeasureWalk:
 def measure_step(tables: BounceTables, gen: torch.Generator,
                  w: MeasureWalk, *, t_min: float, spawn_eps,
                  fused: bool = True, scene: Scene = None,
-                 intersector: str = "pallas") -> MeasureWalk:
+                 intersector: str = "pallas", count=None,
+                 slot: int = 0) -> MeasureWalk:
     """One step of the walk, with no host read: the three scatter rows
-    drawn from ``gen`` and one bounce (``bounce_step``). A lane that is
-    not alive keeps its values; the draws are the same whichever lanes
+    drawn from ``gen`` and one bounce (``bounce_step``), counted in slot
+    ``slot`` of ``count`` (a ``WalkCount``) if given. A lane that is not
+    alive keeps its values; the draws are the same whichever lanes
     are."""
     U = torch.rand((U_DIEL + 1, w.o.shape[1]), generator=gen,
                    device=w.o.device)
     b = bounce_step(tables, U, w.o, w.d, w.alive, t_min=t_min,
                     spawn_eps=spawn_eps, fused=fused, scene=scene,
-                    intersector=intersector)
+                    intersector=intersector,
+                    stats=None if count is None else count.slot(slot,
+                                                                w.alive))
     diffuse_now = w.alive & (b.inter == INTER_DIFFUSE)
     alive = w.alive & ~diffuse_now & (b.inter != INTER_ABSORB)
     # the bsdf colour is the scatter's attenuation (albedo, 1/pi for a
@@ -754,18 +766,24 @@ def measure_walk_soa(scene: Scene, tables: BounceTables,
     ``intersector``'s route ("pallas" or "leaf"); the bounce is fused
     where ``use_fused`` says (an image or noise texture, or the leaf
     route, takes the unfused stage). Counts the steps (``walk.steps``,
-    ``step`` included). Returns (lanes, steps taken in all)."""
+    ``step`` included) and, on ordered tables, its bounces' walk
+    (``WalkCount``, ``count_walk``). Returns (lanes, steps taken in
+    all)."""
     fused = use_fused(scene, intersector)
+    first = step
+    count = WalkCount.of(tables, fused, max_depth - first, w.o.shape[1])
     while step < max_depth:
         with timing.span("walk.sync"):
             if not bool(w.alive.any()):
                 break
         w = measure_step(tables, gen, w, t_min=t_min, spawn_eps=spawn_eps,
-                         fused=fused, scene=scene, intersector=intersector)
+                         fused=fused, scene=scene, intersector=intersector,
+                         count=count, slot=step - first)
         step += 1
         nans.check("a measurement step", point=w.p, normal=w.nrm,
                    bsdf=w.bsdf, origin=w.o, direction=w.d)
     timing.count("walk.steps", step)
+    count_walk(None if count is None else count.total())
     return w, step
 
 
@@ -863,6 +881,62 @@ def photon_lanes(n_photons: int) -> int:
     return min(B, max(PHOTON_LANES, min(half, PHOTON_LANES_MAX)))
 
 
+# Test hook: False leaves the ordered walk uncounted (``WalkCount.of``
+# answers None), so the count's own cost can be timed against it.
+_COUNT_WALK = True
+
+
+class WalkCount:
+    """The ordered walk's work over a run of ``steps`` bounces of
+    ``lanes`` lanes, kept on the device, a slot a bounce: its chunk bodies
+    per warp (the ordered kernel's ``stats``, both walks) and its live
+    warps (warps of ``ordered.GROUP`` lanes with a lane alive: those whose
+    walk runs). ``reset`` zeroes the slots; ``slot(i, alive)`` records
+    bounce i's live warps and returns the stats rows its bounce fills;
+    ``total()`` is (2,) int64, bodies and live warps, over every slot. No
+    host read; the buffers are made here, so a graph may hold one."""
+
+    def __init__(self, steps: int, lanes: int, device):
+        g = -(-lanes // ordered_ops.GROUP)
+        self.stats = torch.zeros((steps, g, 2), dtype=torch.int32,
+                                 device=device)
+        self.live = torch.zeros((steps, g), dtype=torch.bool, device=device)
+        self.pad = torch.zeros((g * ordered_ops.GROUP - lanes,),
+                               dtype=torch.bool, device=device)
+
+    @classmethod
+    def of(cls, tables: BounceTables, fused: bool, steps: int, lanes: int):
+        """A count for a run of fused bounces on ``tables``, or None where
+        they take no ordered kernel (flat tables, the unfused stage)."""
+        if not (_COUNT_WALK and fused and tables.ordered):
+            return None
+        return cls(steps, lanes, tables.sph.device)
+
+    def reset(self):
+        self.stats.zero_()
+        self.live.zero_()
+
+    def slot(self, i: int, alive):
+        a = torch.cat([alive, self.pad]) if self.pad.numel() else alive
+        torch.any(a.view(-1, ordered_ops.GROUP), 1, out=self.live[i])
+        return self.stats[i]
+
+    def total(self):
+        return torch.stack((self.stats.sum(dtype=torch.int64),
+                            self.live.sum(dtype=torch.int64)))
+
+
+WALK_COUNTERS = ("ordered.bodies", "ordered.warps")
+
+
+def count_walk(total):
+    """Record a ``WalkCount.total()`` as the counters ``ordered.bodies``
+    and ``ordered.warps``, summed on the device while recording
+    (``timing.count_device``); nothing for None (no walk counted)."""
+    if total is not None:
+        timing.count_device(WALK_COUNTERS, total)
+
+
 def count_pass(steps: int, lanes: int):
     """Record one photon pass of ``steps`` steps over ``lanes`` lanes
     (counters ``photon.steps``, ``photon.lanes``): host ints only."""
@@ -919,15 +993,16 @@ class PhotonPass:
     specular and diffuse flags, depth), the deposits (9, S, L) (point,
     power, normal), their flags (2, S, L) (valid, caustic) and the spawn
     counter; on CUDA also the step kernel's lights (``light_table``, made
-    by ``start``) and scratch words. ``step`` updates them in place and
-    every constant tensor is made here, so one object runs the same pass
-    eagerly and under a CUDA graph's capture
-    (``models/sppm.py::graphed_photon_pass``). The bounce takes
-    ``intersector``'s route ("pallas" or "leaf"); what follows it is one
-    kernel on CUDA (``ops/photon_step.py``), whatever the route, and the
-    plain twin ``_step_plain`` on the CPU. ``lights`` replaces the scene's
-    emitters (a graph's own copies); ``spawn_eps``: a float or a 0-d
-    tensor."""
+    by ``start``) and scratch words; on ordered tables the walk's count
+    (``walk_count``, a ``WalkCount`` of its S bounces, reset by
+    ``start``). ``step`` updates them in place and every constant tensor
+    is made here, so one object runs the same pass eagerly and under a
+    CUDA graph's capture (``models/sppm.py::graphed_photon_pass``). The
+    bounce takes ``intersector``'s route ("pallas" or "leaf"); what
+    follows it is one kernel on CUDA (``ops/photon_step.py``), whatever
+    the route, and the plain twin ``_step_plain`` on the CPU.
+    ``lights`` replaces the scene's emitters (a graph's own copies);
+    ``spawn_eps``: a float or a 0-d tensor."""
 
     def __init__(self, scene, tables: BounceTables, n_photons: int,
                  max_bounces: int, t_min: float, spawn_eps,
@@ -959,6 +1034,7 @@ class PhotonPass:
         self.depth = torch.empty((L,), dtype=torch.int32, device=dev)
         self.counter = torch.empty((), dtype=torch.int64, device=dev)
         self.kernel = step_kernel(dev)
+        self.walk_count = WalkCount.of(tables, self.fused, self.S, L)
         self.light_table = self.scratch = None
         if self.kernel:
             self.light_table = torch.empty(
@@ -984,6 +1060,8 @@ class PhotonPass:
         self.has_diff.fill_(False)
         self.depth.zero_()
         self.counter.fill_(self.L)
+        if self.walk_count is not None:
+            self.walk_count.reset()
 
     def step(self, gen: torch.Generator, step: int):
         """Bounce every lane once, deposit, and (within the window) spawn
@@ -993,9 +1071,12 @@ class PhotonPass:
         L = self.L
         o, d, w = self.o, self.d, self.w
         U = torch.rand((U_TRACE_ROWS, L), generator=gen, device=o.device)
+        stats = (None if self.walk_count is None
+                 else self.walk_count.slot(step, self.alive))
         b = bounce_step(self.tables, U, o, d, self.alive, t_min=self.t_min,
                         spawn_eps=self.eps, fused=self.fused,
-                        scene=self.scene, intersector=self.intersector)
+                        scene=self.scene, intersector=self.intersector,
+                        stats=stats)
         E = (torch.rand((photon_step_ops.EMIT_ROWS, L), generator=gen,
                         device=o.device) if step < self.window else None)
         if self.kernel:
@@ -1076,8 +1157,9 @@ def trace_photon_deposits_regen_soa(scene, tables: BounceTables,
                                     intersector: str = "pallas"):
     """The path-regeneration photon pass (``PhotonPass``) run eagerly,
     its draws from ``gen``. Returns (``Deposits`` of S * L slots, photons
-    spawned as a 0-d device tensor). Counts the pass (``count_pass``) and
-    its kernel launches (``count_kernel_steps``)."""
+    spawned as a 0-d device tensor). Counts the pass (``count_pass``), its
+    kernel launches (``count_kernel_steps``) and, on ordered tables, the
+    walk (``count_walk``)."""
     pas = PhotonPass(scene, tables, n_photons, max_bounces, t_min,
                      spawn_eps, lanes=lanes, window=window,
                      intersector=intersector)
@@ -1085,4 +1167,5 @@ def trace_photon_deposits_regen_soa(scene, tables: BounceTables,
     pas.run(gen)
     count_pass(pas.S, pas.L)
     count_kernel_steps(launches_since(before))
+    count_walk(None if pas.walk_count is None else pas.walk_count.total())
     return pas.deposits()

@@ -4,6 +4,8 @@
 (scene.rs:16-112) exactly: red/blue/white walls, XZ rect light at y=554 with
 flux (1,1,1) scale 1e6, glass + mirror spheres, the OBJ cube mesh under a
 Transform(scale 50, translate (100,50,100)), and a white box.
+``cornell_bunny()`` fills the same mesh slot with the other mesh the
+reference ships, the Stanford bunny ``bun315.obj``.
 """
 
 from __future__ import annotations
@@ -18,9 +20,21 @@ from raytracer_tpu_torch.utils.obj import load_obj
 _DATA = os.path.join(os.path.dirname(__file__), "..", "..", "data")
 
 
+# The mesh slot of scene.rs:87-92: (OBJ file under data/mesh, uniform
+# scale, translation), rotation 0, white Lambertian. The cube is the
+# reference's; the bunny (4,968 triangles, no normals in the file) stands
+# where the cube stands, 101 x 100 x 78 units, its feet on the floor and
+# clear of the glass sphere.
+CUBE = ("cube.obj", 50.0, (100.0, 50.0, 100.0))
+BUNNY = ("bun315.obj", 650.0, (111.0, -21.65, 101.0))
+
+
 def cornell_box(aspect_ratio: float = 1.0, with_mesh: bool = True,
-                data_dir: str = _DATA):
-    """The Cornell-box scene, scene.rs:16-112."""
+                data_dir: str = _DATA, mesh: tuple = CUBE):
+    """The Cornell-box scene, scene.rs:16-112. ``mesh``: what fills the
+    mesh slot, (OBJ file under ``data_dir/mesh``, scale, translation), as
+    ``CUBE`` and ``BUNNY``; a file without normals gets area-weighted
+    vertex normals."""
     b = SceneBuilder()
     red = b.lambertian(b.constant_texture((0.75, 0.25, 0.25)))
     white = b.lambertian(b.constant_texture((0.75, 0.75, 0.75)))
@@ -45,12 +59,13 @@ def cornell_box(aspect_ratio: float = 1.0, with_mesh: bool = True,
                        (1.0, 1.0, 1.0), 1e6, add_geometry=True)
 
     if with_mesh:
-        # OBJ cube under Transform(rotate 0, scale 50, translate (100,50,100))
+        # OBJ mesh under Transform(rotate 0, scale, translate)
         # (scene.rs:87-92)
-        mesh = load_obj(os.path.join(data_dir, "mesh", "cube.obj"))
-        m = trs_matrix((0.0, 0.0, 0.0), (50.0, 50.0, 50.0), (100.0, 50.0, 100.0))
-        b.add_triangles(mesh.positions, mesh.indices, white,
-                        normals=mesh.normals, transform=m)
+        name, scale, translate = mesh
+        obj = load_obj(os.path.join(data_dir, "mesh", name))
+        m = trs_matrix((0.0, 0.0, 0.0), (scale, scale, scale), translate)
+        b.add_triangles(obj.positions, obj.indices, white,
+                        normals=obj.normals, transform=m)
 
     # White box (scene.rs:93-97)
     b.add_box((300.0, 0.0, 100.0), (380.0, 100.0, 180.0), white)
@@ -60,6 +75,13 @@ def cornell_box(aspect_ratio: float = 1.0, with_mesh: bool = True,
                  vup=(0.0, 1.0, 0.0), vfov=50.0, aspect_ratio=aspect_ratio,
                  aperture=0.0, focus_dist=10.0)
     return b.compile()
+
+
+def cornell_bunny(aspect_ratio: float = 1.0, data_dir: str = _DATA):
+    """The Cornell box with the Stanford bunny (``BUNNY``) in its mesh
+    slot: 4,968 triangles, which take the ordered walk
+    (``ops/ordered.py``)."""
+    return cornell_box(aspect_ratio, data_dir=data_dir, mesh=BUNNY)
 
 
 def cornell_smoke(aspect_ratio: float = 1.0):

@@ -19,8 +19,10 @@ a user annotation, which the profiler would also project onto the
 device's timeline as busy time). No span synchronises the device. Every
 deliberate host read of device data on the instrumented paths sits in a
 span whose name ends in ``.sync``; ``recorded()`` counts those as
-``host.reads``. Names are dotted by layer: ``pt.``/``sppm.`` entries and
-stages, ``regen.``, ``walk.``, ``query.``, ``graph.``. ``Stages`` times
+``host.reads``. A device counter (``count_device``) is summed on the
+device while recording and read once, by ``recorded()``. Names are dotted
+by layer: ``pt.``/``sppm.`` entries and stages, ``regen.``, ``walk.``,
+``query.``, ``graph.``, ``ordered.``. ``Stages`` times
 the SPPM iteration's stages as spans, and as host seconds after a device
 synchronise when asked (``times=``).
 """
@@ -116,10 +118,12 @@ def sync_for(prog: Progress, device):
 # ---------------------------------------------------------------- recorder
 
 # The records of the process, like the profiler it follows: per span name
-# [seconds, self seconds, count], per counter its sum, and the recorded
-# spans open now, innermost last.
+# [seconds, self seconds, count], per counter its sum, per device and names
+# of device counters their sums on that device, and the recorded spans open
+# now, innermost last.
 _SPANS: Dict[str, list] = {}
 _COUNTERS: Dict[str, float] = {}
+_DEVICE: Dict[tuple, torch.Tensor] = {}
 _OPEN: list = []
 _ON = False                     # inside ``recording()``
 _NOOP = contextlib.nullcontext()
@@ -180,12 +184,28 @@ def count(name: str, n=1):
         _COUNTERS[name] = _COUNTERS.get(name, 0) + n
 
 
+def count_device(names: tuple, values: torch.Tensor):
+    """Add ``values``, a (len(names),) int64 tensor on its device, to the
+    counters ``names`` while recording: the sum stays on the device (one
+    add, in the span ``count.device``) and ``recorded()`` reads it. No
+    host read here."""
+    if _ON or _profiler._is_profiler_enabled:
+        with span("count.device"):
+            key = (tuple(names), values.device)
+            acc = _DEVICE.get(key)
+            if acc is None:
+                _DEVICE[key] = values.detach().clone()
+            else:
+                acc.add_(values)
+
+
 @contextlib.contextmanager
 def recording():
     """Record within the block, profiler or not, from empty records."""
     global _ON
     _SPANS.clear()
     _COUNTERS.clear()
+    _DEVICE.clear()
     old, _ON = _ON, True
     try:
         yield
@@ -196,10 +216,14 @@ def recording():
 def recorded() -> dict:
     """``{"spans": {name: {"s", "self_s", "n"}}, "counters": {name: sum}}``
     of the records; ``counters["host.reads"]`` is the count of the
-    ``.sync`` spans, where there are any."""
+    ``.sync`` spans, where there are any. The device counters' sums are
+    read here (a host read of each device's sums, outside any span)."""
     spans = {k: {"s": s, "self_s": self_s, "n": n}
              for k, (s, self_s, n) in _SPANS.items()}
     counters = dict(_COUNTERS)
+    for (names, _dev), acc in _DEVICE.items():
+        for name, v in zip(names, acc.tolist()):
+            counters[name] = counters.get(name, 0) + v
     reads = sum(v["n"] for k, v in spans.items() if k.endswith(SYNC))
     if reads:
         counters["host.reads"] = reads
